@@ -1,0 +1,680 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (cortex_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py              # the phases below
+    python3 chip_smoke.py --profile    # phase 3's index, layer breakdown
+
+Phases, each printing its results on its own line:
+
+  1. build the CUDA kernel (csrc/ -> cortex_tpu_torch/_build/) and name
+     the card;
+  2. hold the kernel against its plain torch version: a small odd
+     shape, the 384-d shape of phase 4's layout, and the 1M x 768 layout
+     of phase 3 over 64 queries; unfiltered, filtered and host-bias;
+     scores and rows must be equal exactly on unmasked entries, with
+     equal masks; the kernel's and the plain version's times at the 1M
+     layout;
+  3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
+     nprobe = nlist the top-10 of 64 queries equals the exact fp32
+     oracle (near-ties of 1e-6 may swap); at the default nprobe the
+     recall@10, batch-64 throughput (median of 5 runs of 30 batches) and
+     batch-1 latency (p50 and p99 over 1,000 queries); then 1,000
+     inserts and 100 removes through the incremental update;
+  4. the Cortex slice: Cortex.open on SQLite with index = "ivf" (every
+     list probed), store_batch 20,000 seeded nodes, store / delete_node,
+     searches with decay and record_access, a kind filter and > 64
+     exclusions; the same searches at the default nprobe against the
+     exact results; close, reopen (rebuild from storage), the same
+     results.
+
+The kernel's launch count is reset just before phases 3-4 (the main
+path) and read after them; launches made in phase 2 do not count. The
+line before the last lists the kernel as JSON, the line before that the
+card's name and power limit; the last line is the device JSON. Any
+failed check raises, so the script exits non-zero; so it does without
+CUDA or without the cortex_tpu_torch package beside it.
+
+--profile builds the kernel and phase 3's index, measures its search
+speed as phase 3 does, then traces PROFILE_ROUNDS searches at batch 64
+and at batch 1 with torch.profiler: host ms per search in each layer's
+span, device ms per kernel, and the device's idle share of the traced
+wall. The Chrome traces go to profile_out/ beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+D_BIG, N_BIG, BATCH, K = 768, 1_000_000, 64, 10
+N_NODES, DIM_NODES = 20_000, 384
+QPS_RUNS, QPS_ROUNDS, N_LAT = 5, 30, 1000
+PROFILE_ROUNDS = 20
+NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
+SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
+KERNEL_SRC = "cortex_tpu_torch/csrc/ivf_gather.cu"
+KERNEL_REPLACES = "cortex_tpu/ops/ivf_gather.py:114"
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def say(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# ------------------------------------------------------------ phase 2
+
+
+class KernelCheck:
+    """Kernel vs plain comparisons; keeps the largest difference seen
+    on unmasked entries (must stay 0.0)."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+        self.cases = 0
+
+    def compare(self, args, *, filtered, host_bias=None):
+        import torch
+        from cortex_tpu_torch.ops.ivf_gather import (probed_scores,
+                                                     probed_scores_plain)
+        from cortex_tpu_torch.vector.ivf import apply_host_bias
+        got = probed_scores(*args, filtered=filtered)
+        want = probed_scores_plain(*args, filtered=filtered)
+        if host_bias is not None:
+            got = (apply_host_bias(got[0], got[1], host_bias), got[1])
+            want = (apply_host_bias(want[0], want[1], host_bias), want[1])
+        torch.cuda.synchronize()
+        (s1, r1), (s2, r2) = got, want
+        m1, m2 = s1 > -1e29, s2 > -1e29
+        check(torch.equal(m1, m2), "kernel and plain masks differ")
+        check(bool(m1.any()), "comparison saw no unmasked entry")
+        err = float((s1[m1] - s2[m2]).abs().max())
+        check(err == 0.0, f"kernel scores differ from plain by {err}")
+        check(torch.equal(r1[m1], r2[m2]), "kernel rows differ from plain")
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.cases += 1
+
+
+def synthetic_layout(dev, gen, c, l, d):
+    """Random int8 layout with empty slots, kind/agent codes, rinv."""
+    import torch
+    emb = torch.randint(-127, 128, (c, l, d), dtype=torch.int8,
+                        device=dev, generator=gen)
+    rows = torch.randperm(c * l, device=dev, generator=gen
+                          ).to(torch.int32).reshape(c, l)
+    empty = torch.rand((c, l), device=dev, generator=gen) < 0.2
+    rows[empty] = -1
+    emb[empty] = 0
+    kinds = torch.randint(0, 5, (c, l), dtype=torch.int32, device=dev,
+                          generator=gen)
+    agents = torch.randint(0, 3, (c, l), dtype=torch.int32, device=dev,
+                           generator=gen)
+    kinds[empty] = -2
+    agents[empty] = -2
+    rinv = torch.rand((c, l), device=dev, generator=gen) * 0.01 + 0.001
+    return emb, rinv, rows, kinds, agents
+
+
+def filter_lists(dev, rows, *, on, agent=1):
+    """(ak, aa, ex): all NO_FILTER, or kinds {1, 3} + one agent code +
+    the first 40 live rows excluded."""
+    import torch
+    ak = torch.full((16,), -2, dtype=torch.int32, device=dev)
+    aa = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    ex = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    if on:
+        ak[0], ak[1] = 1, 3
+        aa[0] = agent
+        live = rows.reshape(-1)
+        live = live[live >= 0][:40]
+        ex[:len(live)] = live
+    else:
+        ak[0] = -1
+    return ak, aa, ex
+
+
+def check_synthetic(kc, dev, gen, c, l, d, b, p):
+    import torch
+    layout = synthetic_layout(dev, gen, c, l, d)
+    probe = torch.randint(0, c, (b, p), dtype=torch.int32, device=dev,
+                          generator=gen)
+    qi8 = torch.randint(-127, 128, (b, d), dtype=torch.int8, device=dev,
+                        generator=gen)
+    for on in (False, True):
+        kc.compare((*layout, probe, qi8, *filter_lists(dev, layout[2],
+                                                       on=on)),
+                   filtered=on)
+    bias = torch.where(torch.rand(c * l, device=dev, generator=gen) < 0.3,
+                       -1e30, 0.0).to(torch.float32)
+    kc.compare((*layout, probe, qi8, *filter_lists(dev, layout[2],
+                                                   on=False)),
+               filtered=False, host_bias=bias)
+
+
+def time_ms(fn, reps):
+    """Device time per call from CUDA events, after two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def check_real_layout(kc, index, queries):
+    """Phase 2 at the 1M layout: the probes and int8 queries of a real
+    default-nprobe search; returns (kernel ms, plain ms)."""
+    import torch
+    from cortex_tpu_torch.ops.ivf_gather import (probed_scores,
+                                                 probed_scores_plain)
+    from cortex_tpu_torch.vector.ivf import quantize_queries
+    co = index._corpus
+    cent, emb, rinv, rows, kinds, agents = co._ivf_dev
+    dev = emb.device
+    q = torch.from_numpy(queries).to(dev)
+    p = co._nprobe(cent.shape[0])
+    probe = torch.topk(q @ cent.T, p, dim=1).indices.to(torch.int32)
+    qi8, _ = quantize_queries(q)
+    off = filter_lists(dev, rows, on=False)
+    args = (emb, rinv, rows, kinds, agents, probe, qi8, *off)
+    kc.compare(args, filtered=False)
+    kc.compare((emb, rinv, rows, kinds, agents, probe, qi8,
+                *filter_lists(dev, rows, on=True, agent=0)), filtered=True)
+    bias = torch.from_numpy(co._host_bias(["k1"], None, None)).to(dev)
+    kc.compare(args, filtered=False, host_bias=bias)
+    kernel_ms = time_ms(lambda: probed_scores(*args, filtered=False), 20)
+    plain_ms = time_ms(lambda: probed_scores_plain(*args, filtered=False), 3)
+    return kernel_ms, plain_ms, p
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def clustered_rows(gen, dev, n, d, *, groups, spread=0.35):
+    """Seeded clustered unit rows on the device: `groups` random centers
+    and n members, center + spread * noise (unit-scale vectors)."""
+    import torch
+    centers = torch.randn((groups, d), device=dev, generator=gen)
+    centers /= centers.norm(dim=1, keepdim=True)
+    member = torch.randint(0, groups, (n,), device=dev, generator=gen)
+    x = centers[member] + spread * torch.randn(
+        (n, d), device=dev, generator=gen) / d ** 0.5
+    return x / x.norm(dim=1, keepdim=True), centers
+
+
+def noisy_centers(gen, centers, n):
+    """n unit queries, each a noisy copy of a random cluster center."""
+    import torch
+    d = centers.shape[1]
+    sel = torch.randint(0, centers.shape[0], (n,), device=centers.device,
+                        generator=gen)
+    q = centers[sel] + 0.35 * torch.randn((n, d), device=centers.device,
+                                          generator=gen) / d ** 0.5
+    return (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def oracle_topk(corpus_h, live_h, q_np, k, dev):
+    """Exact fp32 top-k over the index's host mirror: chunked
+    torch.matmul on the card (TF32 off)."""
+    import torch
+    q = torch.from_numpy(q_np).to(dev)
+    best_v, best_i = None, None
+    step = 1 << 18
+    for s in range(0, corpus_h.shape[0], step):
+        blk = torch.from_numpy(corpus_h[s:s + step]).to(dev)
+        sc = q @ blk.T
+        live = torch.from_numpy(live_h[s:s + step]).to(dev)
+        sc = torch.where(live[None, :], sc, torch.full_like(sc, -3.0))
+        v, i = torch.topk(sc, k + 1, dim=1)
+        i = i + s
+        if best_v is not None:
+            v = torch.cat([best_v, v], 1)
+            i = torch.cat([best_i, i], 1)
+            v, sel = torch.topk(v, k + 1, dim=1)
+            i = torch.gather(i, 1, sel)
+        best_v, best_i = v, i
+    return best_v.cpu().numpy(), best_i.cpu().numpy()
+
+
+def hits_match_oracle(hits, ov, oi, id_of, k):
+    """The index's top-k equals the oracle's, except that ranks whose
+    oracle scores lie within NEAR_TIE of each other may swap."""
+    got = [i for i, _ in hits]
+    want = [id_of[r] for r in oi[:k]]
+    check(len(got) == k, f"expected {k} hits, got {len(got)}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            check(abs(ov[j] - ov[min(j + 1, k)]) <= NEAR_TIE
+                  or abs(ov[j] - ov[max(j - 1, 0)]) <= NEAR_TIE,
+                  f"rank {j}: {g} != oracle {w} (no near-tie)")
+    np.testing.assert_allclose([s for _, s in hits], ov[:k],
+                               atol=SCORE_ATOL)
+
+
+def phase_index(dev, n, d, gen, kc):
+    """Phases 3 (build) and 2 at the real layout; returns the index, the
+    query set and the timings."""
+    import torch
+    from cortex_tpu_torch.vector.ivf import TorchIvfIndex
+    t0 = time.monotonic()
+    x, centers = clustered_rows(gen, dev, n, d, groups=max(1, n // 50))
+    x_h = x.cpu().numpy()
+    del x
+    kinds = [f"k{i % 4}" for i in range(n)]
+    ids = [f"r{i}" for i in range(n)]
+    t_gen = time.monotonic() - t0
+    index = TorchIvfIndex(d, device=dev)
+    t0 = time.monotonic()
+    index.insert_batch(ids, x_h, kinds=kinds)
+    t_insert = time.monotonic() - t0
+    t0 = time.monotonic()
+    index._corpus.sync()                       # k-means + pack + upload
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    co = index._corpus
+    c, l, _ = co._ivf_dev[1].shape
+    say("3-build", rows=n, dim=d, nlist=int(c), slots_per_list=int(l),
+        nprobe=int(co._nprobe(c)), spill=bool(co._has_spill),
+        gen_s=round(t_gen, 2), insert_s=round(t_insert, 2),
+        build_s=round(t_build, 2))
+    q_np = noisy_centers(gen, centers, BATCH)
+    q_lat = noisy_centers(gen, centers, N_LAT)
+    kernel_ms, plain_ms, p = check_real_layout(kc, index, q_np)
+    say("2-kernel-1M", batch=BATCH, nprobe=int(p), cases=kc.cases,
+        max_abs_err=kc.max_abs_err, kernel_ms=kernel_ms,
+        plain_ms=plain_ms)
+    return index, q_np, q_lat, kernel_ms, plain_ms
+
+
+def search_speed(index, q_np, q_lat):
+    """Batch-64 queries/s (median of QPS_RUNS runs of QPS_ROUNDS
+    batches) and batch-1 latency in ms (p50, p99 over len(q_lat)
+    queries), on the host clock around search_batch with k = K, after
+    one untimed search of each shape (the first search loads the host
+    re-rank library)."""
+    index.search_batch(q_np, K)
+    index.search_batch(q_lat[:1], K)
+    qps = []
+    for _ in range(QPS_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(QPS_ROUNDS):
+            index.search_batch(q_np, K)
+        qps.append(QPS_ROUNDS * len(q_np) / (time.perf_counter() - t0))
+    lat = []
+    for b in range(len(q_lat)):
+        t0 = time.perf_counter()
+        index.search_batch(q_lat[b:b + 1], K)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = np.percentile(lat, [50, 99])
+    return qps, float(p50), float(p99)
+
+
+def phase_search(index, q_np, q_lat, gen, dev, card):
+    """Phase 3 searches: full-probe exactness, default-nprobe recall,
+    throughput and latency, then incremental inserts and removes."""
+    import torch
+    co = index._corpus
+    c = co._ivf_dev[0].shape[0]
+    ov, oi = oracle_topk(co._emb_h, co._live_h, q_np, K, dev)
+    default_p = co._nprobe_cfg
+    co._nprobe_cfg = c                         # nprobe = nlist
+    full = index.search_batch(q_np, K)
+    co._nprobe_cfg = default_p
+    for b in range(BATCH):
+        hits_match_oracle(full[b], ov[b], oi[b], co._id_of, K)
+    hits = index.search_batch(q_np, K)
+    truth = [{co._id_of[r] for r in oi[b][:K]} for b in range(BATCH)]
+    recall = float(np.mean([len({i for i, _ in h} & t) / K
+                            for h, t in zip(hits, truth)]))
+    qps, p50, p99 = search_speed(index, q_np, q_lat)
+    say("3-search", full_probe_exact=True, nprobe=int(co._nprobe(c)),
+        recall_at_10=recall, batch64_qps_median=statistics.median(qps),
+        batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
+        batch1_queries=len(q_lat), card=card)
+    check(recall >= 0.9, f"default-nprobe recall@10 {recall} < 0.9")
+    # incremental: 1,000 fresh rows, 100 removes
+    new, _ = clustered_rows(gen, dev, 1000, q_np.shape[1], groups=1000,
+                            spread=0.5)
+    new_h = new.cpu().numpy()
+    new_ids = [f"new{i}" for i in range(len(new_h))]
+    step = max(1, len(index) // 100)
+    gone = [f"r{i}" for i in range(0, len(index), step)][:100]
+    gone_vecs = co._emb_h[[co._row_of[i] for i in gone]].copy()
+    index.insert_batch(new_ids, new_h, kinds=["k9"] * len(new_ids))
+    for i in gone:
+        check(index.remove(i), f"remove({i}) failed")
+    trained_before = co._trained_live
+    top = index.search_batch(new_h, 1)
+    check(co._trained_live == trained_before,
+          "1,000 inserts triggered a full rebuild")
+    missed = [i for i, h in zip(new_ids, top) if not h or h[0][0] != i]
+    check(not missed, f"{len(missed)} inserted rows are not their own "
+          f"top-1, e.g. {missed[:3]}")
+    found = {i for h in index.search_batch(gone_vecs, K) for i, _ in h}
+    check(not found & set(gone), "a removed row was returned")
+    say("3-update", inserted=len(new_ids), removed=len(gone),
+        self_top1=True, removed_never_returned=True)
+
+
+# ------------------------------------------------------------ phase 4
+
+
+def seeded_nodes(n, seed, *, topics=400):
+    """Seeded nodes of mixed kinds and agents whose texts cluster by
+    topic, as a real memory store does: each node draws most of its
+    words from one of `topics` 40-word vocabularies."""
+    from cortex_tpu.types import Node, Source
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"w{i}" for i in range(topics * 40)])
+    kinds = ("fact", "event", "decision", "goal", "observation")
+    out = []
+    for i in range(n):
+        own = vocab[rng.integers(0, topics) * 40 + rng.integers(0, 40, 21)]
+        other = rng.choice(vocab, 4)
+        title = " ".join(own[:5]) + f" node{seed}x{i}"
+        body = " ".join(np.concatenate([own[5:], other]))
+        out.append(Node.new(kinds[i % len(kinds)], title, body,
+                            Source(agent=f"agent{i % 7}"),
+                            float(rng.uniform(0.2, 0.9))))
+    return out
+
+
+def same_hits(want, got):
+    """Same scores rank by rank, the same score for every id both lists
+    hold, and another id at a rank only where scores tie (a rebuild
+    assigns rows, and so tie order, anew)."""
+    ws = [s for s, _ in want]
+    np.testing.assert_allclose([s for s, _ in got], ws, atol=SCORE_ATOL)
+    w = {n.id: s for s, n in want}
+    g = {n.id: s for s, n in got}
+    for nid in w.keys() | g.keys():
+        s = w.get(nid, g.get(nid))
+        if nid not in w or nid not in g:      # only a tie at the cut-off
+            check(abs(s - ws[-1]) <= SCORE_ATOL, f"{nid} differs")
+        else:
+            check(abs(w[nid] - g[nid]) <= SCORE_ATOL, f"{nid} rescored")
+    for (sw, nw), (_, ng) in zip(want, got):
+        if nw.id != ng.id:
+            check(abs(g.get(nw.id, sw) - sw) <= SCORE_ATOL
+                  and abs(w.get(ng.id, sw) - sw) <= SCORE_ATOL,
+                  "rank order differs beyond a tie")
+
+
+def phase_cortex(dev, workdir):
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.vector import VectorFilter
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    cfg = CortexConfig()
+    cfg.embedding.index = "ivf"
+    cfg.embedding.ivf_graph_degree = 0
+    cfg.embedding.model = "hash"
+    cfg.embedding.dimension = DIM_NODES
+    # probe every list: at the default nprobe the capped packing leaves a
+    # few rows in lists that rank far from their own vector (phase 3
+    # measures the default nprobe), and here each node's own text must
+    # return it first
+    cfg.embedding.ivf_nprobe = 1 << 20
+    path = os.path.join(workdir, "cortex.db")
+    cx = Cortex.open(path, cfg, device=dev)
+    nodes = seeded_nodes(N_NODES, seed=1)
+    t0 = time.monotonic()
+    cx.store_batch(nodes)
+    t_store = time.monotonic() - t0
+    singles = seeded_nodes(4, seed=2)
+    for node in singles:
+        cx.store(node)
+    deleted = nodes[123]
+    check(cx.delete_node(deleted.id), "delete_node failed")
+    sample = nodes[:4000:100] + singles
+    lat = []
+    for node in sample:
+        text = embedding_input(node)
+        t0 = time.monotonic()
+        got = cx.search(text, 10)                   # decay + record_access
+        lat.append((time.monotonic() - t0) * 1e3)
+        check(got and got[0][1].id == node.id,
+              f"own text of {node.id} did not return it first")
+        got = cx.search(text, 10, flt=VectorFilter(kinds=[node.kind]))
+        check(got[0][1].id == node.id and
+              all(n.kind == node.kind for _, n in got),
+              "kind-filtered search failed")
+    others = [n.id for n in nodes[5000:5100]]        # > 64: host bias
+    for node in sample[:10]:
+        got = cx.search(embedding_input(node), 10,
+                        flt=VectorFilter(exclude_ids=others))
+        check(got[0][1].id == node.id, "host-bias search lost the node")
+        check(not {n.id for _, n in got} & set(others),
+              "an excluded node was returned")
+    got = cx.search(embedding_input(deleted), 10)
+    check(deleted.id not in {n.id for _, n in got},
+          "the deleted node was returned")
+    check(cx.get_node(sample[0].id).access_count >= 1,
+          "record_access did not bump the access count")
+    before = [cx.search(embedding_input(n), 10, record_access=False)
+              for n in sample]
+    co = cx.index._corpus
+    nlist = int(co._ivf_dev[0].shape[0])
+    partial = default_nprobe_pass(cx, dev, sample)
+    cx.close()
+    t0 = time.monotonic()
+    cx = Cortex.open(path, cfg, device=dev)
+    after = [cx.search(embedding_input(n), 10, record_access=False)
+             for n in sample]
+    t_reopen = time.monotonic() - t0
+    check(len(cx.index) == N_NODES + len(singles) - 1,
+          "the rebuilt index lost nodes")
+    for node, b, a in zip(sample, before, after):
+        check(a[0][1].id == node.id, "top-1 changed across the rebuild")
+        same_hits(b, a)
+        check(deleted.id not in {n.id for _, n in a},
+              "the deleted node came back after the rebuild")
+    cx.close()
+    say("4-cortex", nodes=N_NODES, nlist=nlist, nprobe=nlist,
+        store_batch_s=t_store,
+        search_ms_p50=statistics.median(lat), self_top1=len(sample),
+        reopen_and_search_s=t_reopen, same_after_rebuild=True, **partial)
+
+
+def default_nprobe_pass(cx, dev, sample):
+    """Cortex.search at the default nprobe (decay off, so the hits are
+    the index's raw fp32 scores), with and without a kind filter, held
+    against the same searches at full probe. Full probe is first held to
+    the exact fp32 oracle over the index's host mirror. A partial-probe
+    hit scores exactly as in the exact results and never above the
+    exact k-th. A node that is not its own top-1 must be stranded: the
+    capped packing put it only in lists ranked past nprobe for its own
+    vector (ROADMAP C). Recall against the exact top-k is measured and
+    printed, not held: hashed text has little cluster structure, so it
+    is nprobe-limited."""
+    import torch
+    from cortex_tpu_torch.vector import VectorFilter
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    co = cx.index._corpus
+    texts = [embedding_input(n) for n in sample]
+    qv = np.stack([cx.embedder.embed(t) for t in texts]).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    ov, oi = oracle_topk(co._emb_h, co._live_h, qv, K, dev)
+    for b, hits in enumerate(cx.index.search_batch(qv, K)):
+        hits_match_oracle(hits, ov[b], oi[b], co._id_of, K)
+
+    def run(node, text, kind):
+        flt = VectorFilter(kinds=[node.kind]) if kind else None
+        return [(n.id, s) for s, n in cx.search(
+            text, K, flt=flt, decay=False, record_access=False)]
+
+    cases = [(n, t, kind) for n, t in zip(sample, texts)
+             for kind in (False, True)]
+    exact = [run(*c) for c in cases]
+    full_p = co._nprobe_cfg
+    co._nprobe_cfg = 0                         # auto: nlist / 8, >= 8
+    nprobe = int(co._nprobe(int(co._ivf_dev[0].shape[0])))
+    got = [run(*c) for c in cases]
+    co._nprobe_cfg = full_p
+    cent, slot_rows = co._ivf_dev[0], co._ivf_dev[3]
+    probed = torch.topk(torch.from_numpy(qv).to(cent.device) @ cent.T,
+                        nprobe, dim=1).indices
+    recall, top1, stranded = [], 0, set()
+    for j, ((node, _, _), want, hits) in enumerate(zip(cases, exact, got)):
+        w = dict(want)
+        for nid, sc in hits:
+            if nid in w:
+                check(abs(sc - w[nid]) <= SCORE_ATOL, f"{nid} rescored")
+            else:
+                check(sc <= want[-1][1] + SCORE_ATOL,
+                      f"{nid} beats the exact top-{K}")
+        recall.append(len(w.keys() & {nid for nid, _ in hits}) / len(want))
+        if hits and hits[0][0] == node.id:
+            top1 += 1
+            continue
+        row = co._row_of[node.id]
+        check(not bool((slot_rows[probed[j // 2]] == row).any()),  # 2/node
+              f"{node.id} lies in a probed list but is not its own top-1")
+        stranded.add(node.id)
+    recall = float(np.mean(recall))
+    return {"default_nprobe": nprobe, "default_recall_at_10": recall,
+            "default_self_top1": top1, "default_searches": len(cases),
+            "default_stranded_nodes": len(stranded)}
+
+
+# ------------------------------------------------------------ --profile
+
+
+def profile_layers(index, q_np, q_lat):
+    """Trace PROFILE_ROUNDS searches at batch 64 and at batch 1. Spans:
+    L0 search_batch (the whole search), L1 sync and filter codes, L2
+    dispatch (enqueue only; the fetch that waits for the device lies
+    between L2 and L4), L4 host exact re-rank and id map. Device time
+    sums the kernels' own rows (a span's device-side range is left out:
+    it covers the kernels it launched), so the idle share is
+    1 - busy / wall."""
+    from pathlib import Path
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import torch
+    co = index._corpus
+
+    def span(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    spans = {"L1.sync": "sync", "L1.filter_codes": "_filter_codes",
+             "L2.dispatch": "_dispatch_search", "L4.rerank_host": "_finish_topk"}
+    for name, attr in spans.items():
+        setattr(co, attr, span(name, getattr(co, attr)))
+    spans["L0.search_batch"] = None
+    out_dir = Path(__file__).resolve().parent / "profile_out"
+    out_dir.mkdir(exist_ok=True)
+    for label, batches in (("batch64", [q_np] * PROFILE_ROUNDS),
+                           ("batch1", [q_lat[b:b + 1]
+                                       for b in range(PROFILE_ROUNDS)])):
+        for q in batches[:3]:
+            index.search_batch(q, K)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for q in batches:
+                with record_function("L0.search_batch"):
+                    index.search_batch(q, K)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / len(batches)
+        host, dev = {}, {}
+        for e in prof.key_averages():
+            if e.key in spans:
+                if e.device_type != DeviceType.CUDA:
+                    host[e.key] = e.cpu_time_total / 1e3 / len(batches)
+            elif e.device_type == DeviceType.CUDA:
+                dev[e.key[:80]] = e.self_device_time_total / 1e3 / len(
+                    batches)
+        busy = sum(dev.values())
+        say("profile-" + label, rounds=len(batches), traced_wall_ms=wall,
+            device_busy_ms=busy, device_idle_share=1 - busy / wall,
+            host_ms=host, device_ms=dict(sorted(
+                dev.items(), key=lambda kv: -kv[1])[:8]))
+        prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
+
+
+# ------------------------------------------------------------ main
+
+
+def main(argv) -> int:
+    import torch
+    if argv not in ([], ["--profile"]):
+        print(f"usage: chip_smoke.py [--profile]; got {argv}",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from cortex_tpu_torch.ops import ivf_gather
+    from cortex_tpu_torch.utils.device import card_identity, resolve_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # exact fp32 oracle
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device("cuda")
+    card = card_identity()
+    t0 = time.monotonic()
+    lib = ivf_gather.build_library()
+    ivf_gather.load_op()
+    say("1-build", seconds=time.monotonic() - t0, library=str(lib),
+        torch=torch.__version__, cuda=torch.version.cuda, card=card)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    kc = KernelCheck()
+    if argv == ["--profile"]:
+        index, q_np, q_lat, _, _ = phase_index(dev, N_BIG, D_BIG, gen, kc)
+        qps, p50, p99 = search_speed(index, q_np, q_lat)
+        say("profile-speed", batch64_qps_median=statistics.median(qps),
+            batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
+            batch1_queries=len(q_lat), card=card)
+        profile_layers(index, q_np, q_lat)
+        print(card, flush=True)
+        return 0
+    check_synthetic(kc, dev, gen, 16, 37, 100, 5, 3)        # small, odd
+    check_synthetic(kc, dev, gen, 144, 192, 384, BATCH, 18)  # phase 4's
+    say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err)
+    index, q_np, q_lat, kernel_ms, plain_ms = phase_index(dev, N_BIG, D_BIG,
+                                                          gen, kc)
+
+    ivf_gather.probed_scores.launches = 0     # the main path starts here
+    phase_search(index, q_np, q_lat, gen, dev, card)
+    del index
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_cortex(dev, workdir)
+    launches = ivf_gather.probed_scores.launches
+    check(launches > 0, "the main path never launched probed_scores")
+
+    print(json.dumps({"kernels": [{
+        "name": "probed_scores", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": kc.max_abs_err, "ms": kernel_ms,
+        "plain_ms": plain_ms}]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,242 @@
+"""Embedded Cortex of the port: store -> search over the IVF index.
+
+Counterpart of cortex_tpu/api.py::Cortex, limited to the slice this
+package ports: open / in_memory, store / store_batch / update_node /
+delete_node, get_node / list_nodes, search with the score-decay re-rank
+and access recording, and close. Storage (SQLite or memory), node types
+and hooks are cortex_tpu's host modules, reused as they are.
+
+At open the index is rebuilt from the stored embeddings (index
+snapshots are not ported). The device is an argument: "cuda" (the
+default) raises when CUDA is absent; the CPU runs only when asked for.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from cortex_tpu.errors import ConfigError
+from cortex_tpu.hooks import HookRegistry, MutationHook
+from cortex_tpu.storage import MemoryStorage, NodeFilter, SqliteStorage, \
+    Storage
+from cortex_tpu.types import Node
+
+from .config import GATE_ITEM, CortexConfig, check_ported
+from .linker.decay import DecayEngine
+from .utils.device import resolve_device
+from .vector.embedding import default_embedder
+from .vector.index import VectorFilter
+from .vector.ivf import TorchIvfIndex
+from .vector.scoring import apply_score_decay_batch
+
+
+class Cortex:
+    """Embedded engine. `Cortex.open(path)` for durable SQLite-backed
+    state; `Cortex.in_memory()` for tests and ephemeral use."""
+
+    def __init__(self, storage: Storage,
+                 config: Optional[CortexConfig] = None, *,
+                 device="cuda"):
+        self.config = config or CortexConfig()
+        check_ported(self.config)
+        self.device = resolve_device(device)
+        self.storage = storage
+        # held across every store-write + index-mutation pair
+        self._persist_lock = threading.Lock()
+        self.embedder = default_embedder(self.config.embedding.model,
+                                         self.config.embedding.dimension)
+        self.index = self._make_index()
+        self._rebuild_index()
+        self.hooks = HookRegistry()
+        self.decay_engine = DecayEngine(storage, self.config.decay)
+
+    # ------------------------------------------------------------------ boot
+    @staticmethod
+    def open(path: str, config: Optional[CortexConfig] = None, *,
+             device="cuda") -> "Cortex":
+        """Open durable SQLite-backed state at `path`."""
+        sync_mode = (config.server.sqlite_synchronous
+                     if config is not None else "normal")
+        storage = SqliteStorage(path, synchronous=sync_mode)
+        try:
+            return Cortex(storage, config, device=device)
+        except BaseException:
+            storage.close()
+            raise
+
+    @staticmethod
+    def in_memory(config: Optional[CortexConfig] = None, *,
+                  device="cuda") -> "Cortex":
+        return Cortex(MemoryStorage(), config, device=device)
+
+    def _make_index(self) -> TorchIvfIndex:
+        e = self.config.embedding
+        return TorchIvfIndex(self.embedder.dimension, nlist=e.ivf_nlist,
+                             nprobe=e.ivf_nprobe, spill=e.ivf_spill,
+                             device=self.device)
+
+    def _rebuild_index(self) -> None:
+        """Insert every stored embedding of the configured width."""
+        nodes = [n for n in self.storage.list_nodes(NodeFilter())
+                 if n.embedding is not None
+                 and len(n.embedding) == self.embedder.dimension]
+        if nodes:
+            self.index.insert_batch(
+                [n.id for n in nodes],
+                np.stack([np.asarray(n.embedding, np.float32)
+                          for n in nodes]),
+                kinds=[n.kind for n in nodes],
+                agents=[n.source.agent for n in nodes])
+
+    def close(self) -> None:
+        self.storage.close()
+
+    # ------------------------------------------------------------ mutation
+    def store(self, node: Node, *, gate: bool = False,
+              actor: str = "library") -> str:
+        """Embed + persist + index + fire hooks."""
+        if gate:
+            raise ConfigError(
+                f"store(gate=True): the write gate is not ported yet "
+                f"({GATE_ITEM})")
+        if node.embedding is None:
+            node.embedding = self.embedder.embed_node(node).tolist()
+        is_update = self._persist(node, actor)
+        self.hooks.notify_node("updated" if is_update else "created", node)
+        return node.id
+
+    def _persist(self, node: Node, actor: str) -> bool:
+        """Store + index (no hooks). Returns is_update."""
+        with self._persist_lock:
+            is_update = self.storage.get_node(node.id) is not None
+            self.storage.put_node(node, actor=actor)
+            self.index.insert(node.id,
+                              np.asarray(node.embedding, np.float32),
+                              kind=node.kind,
+                              source_agent=node.source.agent)
+        return is_update
+
+    def store_batch(self, nodes: Sequence[Node], *,
+                    actor: str = "library") -> List[str]:
+        """Batch admission: one embed_batch + one index insert."""
+        if not nodes:
+            return []
+        missing = [n for n in nodes if n.embedding is None]
+        if missing:
+            embs = self.embedder.embed_nodes(missing)
+            for j, n in enumerate(missing):
+                n.embedding = embs[j].tolist()
+        with self._persist_lock:
+            self.storage.put_nodes_batch(nodes, actor=actor)
+            self.index.insert_batch(
+                [n.id for n in nodes],
+                np.stack([np.asarray(n.embedding, np.float32)
+                          for n in nodes]),
+                kinds=[n.kind for n in nodes],
+                agents=[n.source.agent for n in nodes])
+        for n in nodes:
+            self.hooks.notify_node("created", n)
+        return [n.id for n in nodes]
+
+    def update_node(self, node: Node, *, actor: str = "library") -> None:
+        """Re-embed on update."""
+        node.embedding = self.embedder.embed_node(node).tolist()
+        node.updated_at = time.time()
+        with self._persist_lock:
+            self.storage.put_node(node, actor=actor)
+            self.index.insert(node.id,
+                              np.asarray(node.embedding, np.float32),
+                              kind=node.kind,
+                              source_agent=node.source.agent)
+        self.hooks.notify_node("updated", node)
+
+    def delete_node(self, node_id: str, *, hard: bool = False,
+                    actor: str = "library") -> bool:
+        node = self.storage.get_node(node_id)
+        if node is None:
+            return False
+        with self._persist_lock:
+            ok = (self.storage.hard_delete_node(node_id, actor=actor)
+                  if hard else
+                  self.storage.delete_node(node_id, actor=actor))
+            if ok:
+                self.index.remove(node_id)
+        if ok:
+            self.hooks.notify_node("deleted", node)
+        return ok
+
+    def add_hook(self, hook: MutationHook) -> None:
+        self.hooks.add(hook)
+
+    # --------------------------------------------------------------- queries
+    def get_node(self, node_id: str) -> Optional[Node]:
+        return self.storage.get_node(node_id)
+
+    def list_nodes(self, f: Optional[NodeFilter] = None) -> List[Node]:
+        return self.storage.list_nodes(f)
+
+    def overfetch_k(self, limit: int, decay: bool = True) -> int:
+        """Candidate count for the device search before the decay
+        re-rank: (limit*3).max(30) when decay is on."""
+        if decay and self.config.score_decay.enabled:
+            return max(limit * 3, 30)
+        return limit
+
+    def search(self, query: str, limit: int = 10, *,
+               flt: Optional[VectorFilter] = None,
+               decay: bool = True,
+               recency_bias: Optional[float] = None,
+               record_access: bool = True) -> List[Tuple[float, Node]]:
+        """Device search + vectorized score-decay re-rank."""
+        emb = self.embedder.embed(query)
+        hits = self.index.search(emb, self.overfetch_k(limit, decay), flt)
+        return self.finish_search(hits, limit, decay=decay,
+                                  recency_bias=recency_bias,
+                                  record_access=record_access)
+
+    def finish_search(self, hits, limit: int = 10, *,
+                      decay: bool = True,
+                      recency_bias: Optional[float] = None,
+                      record_access: bool = True
+                      ) -> List[Tuple[float, Node]]:
+        """Hydrate + decay-re-rank retrieved (node_id, score) hits, then
+        record the access of each returned node."""
+        cfg = self.config.score_decay
+        nodes, raw = [], []
+        fetched = self.storage.get_nodes([nid for nid, _ in hits])
+        for nid, score in hits:
+            n = fetched.get(nid)
+            if n is None or n.deleted:
+                continue
+            nodes.append(n)
+            raw.append(score)
+        if decay:
+            final = apply_score_decay_batch(
+                cfg, np.asarray(raw, np.float32), nodes, now=time.time(),
+                recency_bias=recency_bias)
+        else:
+            final = np.asarray(raw, np.float32)
+        order = np.argsort(-final, kind="stable")[:limit]
+        out = [(float(final[i]), nodes[i]) for i in order]
+        if record_access:
+            bump = []
+            for _, n in out:
+                if self.decay_engine.should_reinforce(n):
+                    # reset the decay clock on the node's edges, at most
+                    # once per access_reinforcement_days
+                    self.decay_engine.reinforce(n.id, node=n)
+                else:
+                    bump.append(n)
+            if bump:
+                # one guarded UPDATE for all plain bumps
+                applied = self.storage.record_access_batch(
+                    [n.id for n in bump])
+                for n in bump:
+                    got = applied.get(n.id)
+                    if got is not None:
+                        n.access_count, n.last_accessed_at = got
+        return out

@@ -1,0 +1,133 @@
+"""cortex_tpu_torch imports and runs with jax blocked.
+
+One subprocess blocks jax (sys.modules['jax'] = sys.modules['jaxlib'] =
+None, so any import of it raises), imports the port, runs a tiny
+store -> search on the CPU, and reports what it saw as JSON; the tests
+below check that report.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import json, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    import torch
+    import cortex_tpu_torch
+    from cortex_tpu.errors import ConfigError, DeviceUnavailable
+    from cortex_tpu.types import Node, Source
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.utils.device import resolve_device
+    from cortex_tpu_torch.vector import VectorFilter
+
+    def cfg(**kw):
+        c = CortexConfig()
+        c.embedding.index = "ivf"
+        c.embedding.ivf_graph_degree = 0
+        c.embedding.model = "hash-64"
+        for k, v in kw.items():
+            setattr(c.embedding, k, v)
+        return c
+
+    out = {}
+    cx = Cortex.in_memory(cfg(), device="cpu")
+    nodes = [Node.new("fact" if i % 2 else "event",
+                      f"note {i} about topic{i % 5}", f"body word{i}",
+                      Source(agent="a"), 0.5) for i in range(40)]
+    cx.store_batch(nodes)
+    hits = cx.search(f"note 3 about topic3", 5, record_access=False)
+    out["top1"] = hits[0][1].id == nodes[3].id
+    flt = cx.search("note 3 about topic3", 5, flt=VectorFilter(
+        kinds=["event"]), record_access=False)
+    out["filtered_kinds"] = sorted({n.kind for _, n in flt})
+    out["jax_loaded"] = any(
+        m == "jax" or m.startswith(("jax.", "jaxlib"))
+        for m, v in sys.modules.items() if v is not None)
+
+    def raises(fn, exc):
+        try:
+            fn()
+        except exc as e:
+            return str(e)
+        return None
+
+    if not torch.cuda.is_available():
+        out["cuda_refused"] = raises(lambda: resolve_device("cuda"),
+                                     DeviceUnavailable)
+        out["cortex_cuda_refused"] = raises(
+            lambda: Cortex.in_memory(cfg()), DeviceUnavailable)
+    with tempfile.TemporaryDirectory() as weights_dir:
+        unported = {
+            "flat": dict(index="flat"),
+            "graph": dict(ivf_graph_degree=32),
+            "tuner": dict(ivf_target_recall=0.9),
+            "sharded": dict(sharded=True),
+            "local_weights": dict(model=weights_dir),
+        }
+        out["config_errors"] = {
+            name: raises(lambda kw=kw: Cortex.in_memory(cfg(**kw),
+                                                        device="cpu"),
+                         ConfigError)
+            for name, kw in unported.items()}
+    out["default_config_error"] = raises(
+        lambda: Cortex.in_memory(device="cpu"), ConfigError)
+    out["gate_error"] = raises(
+        lambda: cx.store(Node.new("fact", "gated title here", "gated body",
+                                  Source(agent="a")), gate=True),
+        ConfigError)
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def report():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_store_search_runs_without_jax(report):
+    assert report["top1"] is True
+    assert report["filtered_kinds"] == ["event"]
+
+
+def test_jax_never_imported(report):
+    assert report["jax_loaded"] is False
+
+
+def test_cuda_absent_raises(report):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present here: resolve_device does not raise")
+    assert "CUDA is not available" in report["cuda_refused"]
+    assert report["cortex_cuda_refused"]
+
+
+@pytest.mark.parametrize("name", ["flat", "graph", "tuner", "sharded",
+                                  "local_weights"])
+def test_unported_config_raises_config_error(report, name):
+    msg = report["config_errors"][name]
+    assert msg is not None and "ROADMAP" in msg
+
+
+def test_reference_defaults_are_refused(report):
+    # the port keeps the reference defaults: index = "flat" and
+    # ivf_graph_degree = 32, neither ported yet
+    assert "flat" in report["default_config_error"]
+
+
+def test_write_gate_raises_config_error(report):
+    assert "ROADMAP" in report["gate_error"]
