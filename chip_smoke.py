@@ -2,18 +2,24 @@
 """Drive the PyTorch/CUDA port (cortex_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the phases below
-    python3 chip_smoke.py --profile    # phase 3's index, layer breakdown
+    python3 chip_smoke.py --profile    # phases 3 and 5's indexes, layers
 
 Phases, each printing its results on its own line:
 
-  1. build the CUDA kernel (csrc/ -> cortex_tpu_torch/_build/) and name
-     the card;
-  2. hold the kernel against its plain torch version: a small odd
-     shape, the 384-d shape of phase 4's layout, and the 1M x 768 layout
-     of phase 3 over 64 queries; unfiltered, filtered and host-bias;
-     scores and rows must be equal exactly on unmasked entries, with
-     equal masks; the kernel's and the plain version's times at the 1M
-     layout;
+  1. build the CUDA kernels (every source of csrc/, one library in
+     cortex_tpu_torch/_build/) and name the card;
+  2. hold each kernel against its plain torch version. probed_scores
+     (IVF): a small odd shape, the 384-d shape of phase 4's layout and
+     the 1M x 768 layout of phase 3 over 64 queries; unfiltered,
+     filtered and host-bias; scores and rows equal exactly on unmasked
+     entries, with equal masks. quant_candidates (K1) and quant_rerank
+     (K2, flat): a small odd shape, the 384-d shape of phase 6 and the
+     1M x 768 planes of phase 5 over 64 queries, cand 64 and 2048,
+     unfiltered, filtered and host-bias; K1's returned scores bit-equal
+     to the plain scores of their rows, its cand-th value equal, its row
+     sets equal but for exact ties at the boundary; K2's scores within
+     SCORE_ATOL, ids equal but for near-ties of NEAR_TIE. Each kernel's
+     and plain version's times at the 1M shapes (CUDA events);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -25,20 +31,31 @@ Phases, each printing its results on its own line:
      searches with decay and record_access, a kind filter and > 64
      exclusions; the same searches at the default nprobe against the
      exact results; close, reopen (rebuild from storage), the same
-     results.
+     results;
+  5. the flat index (the default) over phase 3's rows: it resolves to
+     the quant path (K1 + K2); search_path "exact" equals the oracle,
+     "auto" reaches recall@10 >= 0.99 with every score exact; the same
+     speed measures as phase 3; 1,000 inserts and 100 removes in place;
+  6. Cortex with CortexConfig() unchanged (flat, float32, auto) on
+     SQLite and 20,000 nodes: own text first, a kind filter, > 64
+     exclusions, results equal to the exact path's, the same after a
+     reopen.
 
-The kernel's launch count is reset just before phases 3-4 (the main
-path) and read after them; launches made in phase 2 do not count. The
-line before the last lists the kernel as JSON, the line before that the
-card's name and power limit; the last line is the device JSON. Any
-failed check raises, so the script exits non-zero; so it does without
-CUDA or without the cortex_tpu_torch package beside it.
+Two main paths: phases 3-4 (IVF) and 5-6 (flat). Every launch count is
+set to 0 just before each and read just after it: probed_scores from
+the first, quant_candidates and quant_rerank from the second; launches
+made in phase 2 do not count. The line before the last lists the
+kernels as JSON, the line before that the card's name and power limit;
+the last line is the device JSON. Any failed check raises, so the
+script exits non-zero; so it does without CUDA or without the
+cortex_tpu_torch package beside it.
 
---profile builds the kernel and phase 3's index, measures its search
-speed as phase 3 does, then traces PROFILE_ROUNDS searches at batch 64
-and at batch 1 with torch.profiler: host ms per search in each layer's
-span, device ms per kernel, and the device's idle share of the traced
-wall. The Chrome traces go to profile_out/ beside this script.
+--profile builds the kernels, phase 3's and phase 5's indexes, measures
+each one's search speed as phases 3 and 5 do, then traces
+PROFILE_ROUNDS searches at batch 64 and at batch 1 with torch.profiler:
+host ms per search in each layer's span, device ms per kernel, and the
+device's idle share of the traced wall. The Chrome traces go to
+profile_out/ beside this script.
 """
 
 from __future__ import annotations
@@ -58,8 +75,15 @@ QPS_RUNS, QPS_ROUNDS, N_LAT = 5, 30, 1000
 PROFILE_ROUNDS = 20
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
 SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
-KERNEL_SRC = "cortex_tpu_torch/csrc/ivf_gather.cu"
-KERNEL_REPLACES = "cortex_tpu/ops/ivf_gather.py:114"
+FLAT_CANDS = (64, 2048)   # k = 10 (k bucket 16) and search_threshold's 1000
+KERNELS = {               # name -> (source, what it replaces)
+    "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
+                      "cortex_tpu/ops/ivf_gather.py:114"),
+    "quant_candidates": ("cortex_tpu_torch/csrc/flat_scan.cu",
+                         "cortex_tpu/ops/similarity.py:167"),
+    "quant_rerank": ("cortex_tpu_torch/csrc/flat_scan.cu",
+                     "cortex_tpu/ops/similarity.py:239"),
+}
 
 
 def check(cond, msg):
@@ -69,6 +93,22 @@ def check(cond, msg):
 
 def say(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _wrappers():
+    from cortex_tpu_torch.ops import ivf_gather, similarity
+    return {"probed_scores": ivf_gather.probed_scores,
+            "quant_candidates": similarity.quant_candidates,
+            "quant_rerank": similarity.quant_rerank}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 # ------------------------------------------------------------ phase 2
@@ -182,7 +222,7 @@ def check_real_layout(kc, index, queries):
     import torch
     from cortex_tpu_torch.ops.ivf_gather import (probed_scores,
                                                  probed_scores_plain)
-    from cortex_tpu_torch.vector.ivf import quantize_queries
+    from cortex_tpu_torch.ops.similarity import quantize_queries
     co = index._corpus
     cent, emb, rinv, rows, kinds, agents = co._ivf_dev
     dev = emb.device
@@ -200,6 +240,113 @@ def check_real_layout(kc, index, queries):
     kernel_ms = time_ms(lambda: probed_scores(*args, filtered=False), 20)
     plain_ms = time_ms(lambda: probed_scores_plain(*args, filtered=False), 3)
     return kernel_ms, plain_ms, p
+
+
+# ------------------------------------------------ phase 2, flat kernels
+
+
+class FlatKernelCheck:
+    """K1 and K2 against their plain versions. K1: every returned row's
+    score bit-equal to the plain score of that row, the cand-th value
+    equal, the row sets equal except for exact ties at the boundary
+    (max_abs_err must stay 0.0). K2: scores within SCORE_ATOL (f32
+    summation order), ids equal except at near-ties of NEAR_TIE."""
+
+    def __init__(self):
+        self.k1_err = 0.0
+        self.k2_err = 0.0
+        self.cases = 0
+
+    def k1(self, emb_i8, rinv, qi8, qs, bias, cand):
+        import torch
+        from cortex_tpu_torch.ops import similarity as sim
+        v, i = sim.quant_candidates(emb_i8, rinv, qi8, qs, bias, cand)
+        pv, pi = sim.quant_candidates_plain(emb_i8, rinv, qi8, qs, bias,
+                                            cand)
+        full = sim.int8_dot(qi8, emb_i8) * (rinv[None, :] / qs[:, None])
+        full = full + bias[None, :]
+        torch.cuda.synchronize()
+        kk = min(cand, emb_i8.shape[0])
+        mine = torch.gather(full, 1, i[:, :kk].long())
+        err = float((v[:, :kk] - mine).abs().max())
+        check(torch.equal(v[:, :kk], mine),
+              f"K1 scores differ from the plain scores of their rows ({err})")
+        check(torch.equal(v[:, kk - 1], pv[:, kk - 1]),
+              "K1's cand-th value differs from plain")
+        edge = pv[:, kk - 1].cpu().numpy()
+        ih, ph, fh = i[:, :kk].cpu().numpy(), pi[:, :kk].cpu().numpy(), None
+        for b in range(ih.shape[0]):
+            diff = set(ih[b].tolist()) ^ set(ph[b].tolist())
+            if diff:
+                if fh is None:
+                    fh = full.cpu().numpy()
+                check(all(fh[b, r] == edge[b] for r in diff),
+                      "K1 row set differs from plain beyond a boundary tie")
+        self.k1_err = max(self.k1_err, err)
+        self.cases += 1
+        return v, i
+
+    def k2(self, emb, q, cv, ci, k):
+        import torch
+        from cortex_tpu_torch.ops import similarity as sim
+        v, i = sim.quant_rerank(emb, q, cv, ci, k)
+        pv, pi = sim.quant_rerank_plain(emb, q, cv, ci, k)
+        torch.cuda.synchronize()
+        live = pv > -1e29
+        check(torch.equal(v > -1e29, live), "K2 masks differ from plain")
+        err = float((v - pv)[live].abs().max()) if bool(live.any()) else 0.0
+        check(err <= SCORE_ATOL, f"K2 scores differ from plain by {err}")
+        vh, ih, ph = pv.cpu().numpy(), i.cpu().numpy(), pi.cpu().numpy()
+        for b, j in zip(*np.nonzero(ih != ph)):
+            near = [abs(vh[b, j] - vh[b, t]) for t in (j - 1, j + 1)
+                    if 0 <= t < vh.shape[1]]
+            check(min(near) <= NEAR_TIE, "K2 ids differ beyond a near-tie")
+        self.k2_err = max(self.k2_err, err)
+        self.cases += 1
+
+
+def check_flat_synthetic(fc, dev, gen, cap, d, b):
+    """K1 (cand 64, 2048) and K2 on random int8 / f32 planes: unfiltered,
+    filtered (build_bias) and host bias."""
+    import torch
+    from cortex_tpu_torch.ops.similarity import quantize_queries
+    emb_i8 = torch.randint(-127, 128, (cap, d), dtype=torch.int8,
+                           device=dev, generator=gen)
+    rinv = torch.rand(cap, device=dev, generator=gen) * 0.01 + 0.001
+    emb = torch.randn((cap, d), device=dev, generator=gen)
+    emb /= emb.norm(dim=1, keepdim=True)
+    q = torch.randn((b, d), device=dev, generator=gen)
+    q /= q.norm(dim=1, keepdim=True)
+    qi8, qs = quantize_queries(q)
+    live = torch.rand(cap, device=dev, generator=gen) < 0.9
+    kinds = torch.randint(0, 5, (cap,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    agents = torch.randint(0, 3, (cap,), dtype=torch.int32, device=dev,
+                           generator=gen)
+    for bias in flat_biases(live, kinds, agents, gen):
+        for cand in FLAT_CANDS:
+            cv, ci = fc.k1(emb_i8, rinv, qi8, qs, bias, cand)
+            fc.k2(emb, q, cv, ci, 16)
+
+
+def flat_biases(live, kinds, agents, gen, host=None, agent=1):
+    """Unfiltered, filtered (kinds {1, 3}, agent code `agent`, 40
+    exclusions) and host (given, or 30 % of the rows masked) biases."""
+    import torch
+    from cortex_tpu_torch.vector.shard import build_bias
+    off = np.full(16, -2, np.int32)
+    off[0] = -1
+    ak = np.full(16, -2, np.int32)
+    ak[:2] = (1, 3)
+    ex = np.full(64, -1, np.int32)
+    ex[:40] = np.arange(40)
+    if host is None:
+        host = torch.where(torch.rand(live.shape[0], device=live.device,
+                                      generator=gen) < 0.3, -1e30, 0.0)
+    return (build_bias(live, kinds, agents, off, np.int32(-1),
+                       np.full(64, -1, np.int32)),
+            build_bias(live, kinds, agents, ak, np.int32(agent), ex),
+            host.to(torch.float32))
 
 
 # ------------------------------------------------------------ phase 3
@@ -268,7 +415,7 @@ def hits_match_oracle(hits, ov, oi, id_of, k):
 
 def phase_index(dev, n, d, gen, kc):
     """Phases 3 (build) and 2 at the real layout; returns the index, the
-    query set and the timings."""
+    query sets, the timings and the rows (for phase 5)."""
     import torch
     from cortex_tpu_torch.vector.ivf import TorchIvfIndex
     t0 = time.monotonic()
@@ -298,7 +445,8 @@ def phase_index(dev, n, d, gen, kc):
     say("2-kernel-1M", batch=BATCH, nprobe=int(p), cases=kc.cases,
         max_abs_err=kc.max_abs_err, kernel_ms=kernel_ms,
         plain_ms=plain_ms)
-    return index, q_np, q_lat, kernel_ms, plain_ms
+    return index, q_np, q_lat, (kernel_ms, plain_ms), (x_h, ids, kinds,
+                                                      q_np)
 
 
 def search_speed(index, q_np, q_lat):
@@ -552,11 +700,213 @@ def default_nprobe_pass(cx, dev, sample):
             "default_stranded_nodes": len(stranded)}
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def phase_flat_build(dev, rows, fc):
+    """Phase 5 (build): the flat index over phase 3's rows, then phase 2
+    at its 1M x 768 planes. Returns (index, timings)."""
+    import torch
+    from cortex_tpu_torch.vector import TorchFlatIndex
+    x_h, ids, kinds, q_np = rows
+    index = TorchFlatIndex(x_h.shape[1], device=dev)   # auto, float32
+    t0 = time.monotonic()
+    index.insert_batch(ids, x_h, kinds=kinds)
+    t_insert = time.monotonic() - t0
+    t0 = time.monotonic()
+    index._corpus.sync()                       # fp32 + int8 planes upload
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    info = index.index_info()
+    say("5-build", rows=len(ids), dim=int(x_h.shape[1]), **info,
+        insert_s=t_insert, upload_s=t_build)
+    check(info["resolved_path"] == "quant",
+          f"the 1M flat index resolves to {info['resolved_path']}")
+    return index, check_flat_real(fc, index, q_np)
+
+
+def check_flat_real(fc, index, q_np):
+    """Phase 2 at the flat index's own planes and 64 real queries: K1
+    with cand 64 and 2048, unfiltered, filtered and host bias, each
+    followed by K2; then the kernels' and the plain versions' times at
+    the main path's shapes (cand 64, k bucket 16, unfiltered)."""
+    import torch
+    from cortex_tpu_torch.ops import similarity as sim
+    co = index._corpus
+    emb, live, kinds, agents = co._dev
+    emb_i8, rinv = co._dev_q
+    q = torch.from_numpy(q_np).to(emb.device)
+    qi8, qs = sim.quantize_queries(q)
+    host = torch.from_numpy(co._host_bias(
+        None, None, [co._id_of[r] for r in range(0, 20000, 97)])).to(
+            emb.device)
+    biases = flat_biases(live, kinds, agents, None, host=host, agent=0)
+    out = None
+    for bias in biases:
+        for cand in FLAT_CANDS:
+            cv, ci = fc.k1(emb_i8, rinv, qi8, qs, bias, cand)
+            for k in (16, 1024):
+                if k <= cand:
+                    fc.k2(emb, q, cv, ci, k)
+    b0 = biases[0]
+    cv, ci = sim.quant_candidates(emb_i8, rinv, qi8, qs, b0, FLAT_CANDS[0])
+    out = {
+        "quant_candidates": (
+            time_ms(lambda: sim.quant_candidates(emb_i8, rinv, qi8, qs, b0,
+                                                 FLAT_CANDS[0]), 20),
+            time_ms(lambda: sim.quant_candidates_plain(
+                emb_i8, rinv, qi8, qs, b0, FLAT_CANDS[0]), 5)),
+        "quant_rerank": (
+            time_ms(lambda: sim.quant_rerank(emb, q, cv, ci, 16), 50),
+            time_ms(lambda: sim.quant_rerank_plain(emb, q, cv, ci, 16), 20)),
+    }
+    say("2-flat-kernels-1M", batch=len(q_np), cands=list(FLAT_CANDS),
+        cases=fc.cases, k1_max_abs_err=fc.k1_err, k2_max_abs_err=fc.k2_err,
+        **{f"{n}_ms": t[0] for n, t in out.items()},
+        **{f"{n}_plain_ms": t[1] for n, t in out.items()})
+    return out
+
+
+def phase_flat_search(index, q_np, q_lat, gen, dev, card):
+    """Phase 5 searches: the exact path equals the oracle, auto (quant:
+    K1 + K2) recall@10 >= 0.99 with every score exact, throughput and
+    latency, then 1,000 inserts and 100 removes in place."""
+    co = index._corpus
+    ov, oi = oracle_topk(co._emb_h, co._live_h, q_np, K, dev)
+    co._search_path = "exact"
+    exact = index.search_batch(q_np, K)
+    co._search_path = "auto"
+    for b in range(len(q_np)):
+        hits_match_oracle(exact[b], ov[b], oi[b], co._id_of, K)
+    hits = index.search_batch(q_np, K)
+    truth = [{co._id_of[r] for r in oi[b][:K]} for b in range(len(q_np))]
+    recall = float(np.mean([len({i for i, _ in h} & t) / K
+                            for h, t in zip(hits, truth)]))
+    for b, h in enumerate(hits):
+        rows = [co._row_of[i] for i, _ in h]
+        want = co._emb_h[rows] @ q_np[b]
+        np.testing.assert_allclose([s for _, s in h], want, atol=SCORE_ATOL)
+    check(recall >= 0.99, f"flat auto recall@10 {recall} < 0.99")
+    qps, p50, p99 = search_speed(index, q_np, q_lat)
+    say("5-search", resolved_path=index.index_info()["resolved_path"],
+        exact_path_equals_oracle=True, recall_at_10=recall,
+        scores_exact=True, batch64_qps_median=statistics.median(qps),
+        batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
+        batch1_queries=len(q_lat), card=card)
+    new, _ = clustered_rows(gen, dev, 1000, q_np.shape[1], groups=1000,
+                            spread=0.5)
+    new_h = new.cpu().numpy()
+    new_ids = [f"flatnew{i}" for i in range(len(new_h))]
+    step = max(1, len(index) // 100)
+    gone = [co._id_of[r] for r in range(0, co._cap, step)
+            if co._id_of[r] is not None][:100]
+    gone_vecs = co._emb_h[[co._row_of[i] for i in gone]].copy()
+    planes = [t.data_ptr() for t in (*co._dev, *co._dev_q)]
+    index.insert_batch(new_ids, new_h, kinds=["k9"] * len(new_ids))
+    for i in gone:
+        check(index.remove(i), f"remove({i}) failed")
+    top = index.search_batch(new_h, 1)
+    check(planes == [t.data_ptr() for t in (*co._dev, *co._dev_q)],
+          "1,100 updates re-uploaded the planes instead of writing in place")
+    missed = [i for i, h in zip(new_ids, top) if not h or h[0][0] != i]
+    check(not missed, f"{len(missed)} inserted rows are not their own "
+          f"top-1, e.g. {missed[:3]}")
+    found = {i for h in index.search_batch(gone_vecs, K) for i, _ in h}
+    check(not found & set(gone), "a removed row was returned")
+    say("5-update", inserted=len(new_ids), removed=len(gone),
+        self_top1=True, removed_never_returned=True, in_place=True)
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def phase_cortex_flat(dev, workdir):
+    """Cortex with CortexConfig() unchanged (flat, float32, auto) on
+    SQLite: 20,000 seeded nodes (cap 32,768, so quant: K1 + K2)."""
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.vector import VectorFilter
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    cfg = CortexConfig()
+    path = os.path.join(workdir, "cortex_flat.db")
+    cx = Cortex.open(path, cfg, device=dev)
+    nodes = seeded_nodes(N_NODES, seed=1)
+    t0 = time.monotonic()
+    cx.store_batch(nodes)
+    t_store = time.monotonic() - t0
+    singles = seeded_nodes(4, seed=2)
+    for node in singles:
+        cx.store(node)
+    deleted = nodes[123]
+    check(cx.delete_node(deleted.id), "delete_node failed")
+    info = cx.index.index_info()
+    check(info["kind"] == "flat" and info["resolved_path"] == "quant",
+          f"the default config serves through {info}")
+    sample = nodes[:4000:100] + singles
+    others = [n.id for n in nodes[5000:5100]]        # > 64: host bias
+    lat = []
+    for node in sample:
+        text = embedding_input(node)
+        t0 = time.monotonic()
+        got = cx.search(text, 10)                   # decay + record_access
+        lat.append((time.monotonic() - t0) * 1e3)
+        check(got and got[0][1].id == node.id,
+              f"own text of {node.id} did not return it first")
+        got = cx.search(text, 10, flt=VectorFilter(kinds=[node.kind]))
+        check(got[0][1].id == node.id and
+              all(n.kind == node.kind for _, n in got),
+              "kind-filtered search failed")
+    for node in sample[:10]:
+        got = cx.search(embedding_input(node), 10,
+                        flt=VectorFilter(exclude_ids=others))
+        check(got[0][1].id == node.id, "host-bias search lost the node")
+        check(not {n.id for _, n in got} & set(others),
+              "an excluded node was returned")
+    got = cx.search(embedding_input(deleted), 10)
+    check(deleted.id not in {n.id for _, n in got},
+          "the deleted node was returned")
+
+    def run_all():
+        out = []
+        for node in sample:
+            text = embedding_input(node)
+            for flt in (None, VectorFilter(kinds=[node.kind]),
+                        VectorFilter(exclude_ids=others)):
+                out.append(cx.search(text, 10, flt=flt, decay=False,
+                                     record_access=False))
+        return out
+
+    before = run_all()
+    co = cx.index._corpus
+    co._search_path = "exact"
+    for want, got in zip(run_all(), before):
+        same_hits(want, got)
+    co._search_path = "auto"
+    cx.close()
+    t0 = time.monotonic()
+    cx = Cortex.open(path, cfg, device=dev)
+    after = run_all()
+    t_reopen = time.monotonic() - t0
+    check(len(cx.index) == N_NODES + len(singles) - 1,
+          "the rebuilt index lost nodes")
+    for b, a in zip(before, after):
+        same_hits(b, a)
+        check(deleted.id not in {n.id for _, n in a},
+              "the deleted node came back after the rebuild")
+    cx.close()
+    say("6-cortex-flat", nodes=N_NODES, capacity=info["capacity"],
+        resolved_path=info["resolved_path"], store_batch_s=t_store,
+        search_ms_p50=statistics.median(lat), self_top1=len(sample),
+        equal_to_exact=len(before), reopen_and_search_s=t_reopen,
+        same_after_rebuild=True)
+
+
 # ------------------------------------------------------------ --profile
 
 
-def profile_layers(index, q_np, q_lat):
-    """Trace PROFILE_ROUNDS searches at batch 64 and at batch 1. Spans:
+def profile_layers(name, index, q_np, q_lat):
+    """Trace PROFILE_ROUNDS searches of index `name` at batch 64 and at
+    batch 1. Spans:
     L0 search_batch (the whole search), L1 sync and filter codes, L2
     dispatch (enqueue only; the fetch that waits for the device lies
     between L2 and L4), L4 host exact re-rank and id map. Device time
@@ -577,8 +927,8 @@ def profile_layers(index, q_np, q_lat):
 
     spans = {"L1.sync": "sync", "L1.filter_codes": "_filter_codes",
              "L2.dispatch": "_dispatch_search", "L4.rerank_host": "_finish_topk"}
-    for name, attr in spans.items():
-        setattr(co, attr, span(name, getattr(co, attr)))
+    for span_name, attr in spans.items():
+        setattr(co, attr, span(span_name, getattr(co, attr)))
     spans["L0.search_batch"] = None
     out_dir = Path(__file__).resolve().parent / "profile_out"
     out_dir.mkdir(exist_ok=True)
@@ -605,11 +955,20 @@ def profile_layers(index, q_np, q_lat):
                 dev[e.key[:80]] = e.self_device_time_total / 1e3 / len(
                     batches)
         busy = sum(dev.values())
-        say("profile-" + label, rounds=len(batches), traced_wall_ms=wall,
-            device_busy_ms=busy, device_idle_share=1 - busy / wall,
-            host_ms=host, device_ms=dict(sorted(
-                dev.items(), key=lambda kv: -kv[1])[:8]))
-        prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
+        say(f"profile-{name}-{label}", rounds=len(batches),
+            traced_wall_ms=wall, device_busy_ms=busy,
+            device_idle_share=1 - busy / wall, host_ms=host,
+            device_ms=dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8]))
+        prof.export_chrome_trace(str(out_dir / f"trace_{name}_{label}.json"))
+
+
+def profile_index(name, index, q_np, q_lat, card):
+    """--profile for one index: untraced search speed, then the traces."""
+    qps, p50, p99 = search_speed(index, q_np, q_lat)
+    say(f"profile-{name}-speed", batch64_qps_median=statistics.median(qps),
+        batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
+        batch1_queries=len(q_lat), card=card)
+    profile_layers(name, index, q_np, q_lat)
 
 
 # ------------------------------------------------------------ main
@@ -624,7 +983,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from cortex_tpu_torch.ops import ivf_gather
+    from cortex_tpu_torch.ops import build
     from cortex_tpu_torch.utils.device import card_identity, resolve_device
 
     torch.backends.cuda.matmul.allow_tf32 = False     # exact fp32 oracle
@@ -632,43 +991,65 @@ def main(argv) -> int:
     dev = resolve_device("cuda")
     card = card_identity()
     t0 = time.monotonic()
-    lib = ivf_gather.build_library()
-    ivf_gather.load_op()
+    lib = build.build_library()
+    build.load_ops()
     say("1-build", seconds=time.monotonic() - t0, library=str(lib),
         torch=torch.__version__, cuda=torch.version.cuda, card=card)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    kc = KernelCheck()
+    kc, fc = KernelCheck(), FlatKernelCheck()
     if argv == ["--profile"]:
-        index, q_np, q_lat, _, _ = phase_index(dev, N_BIG, D_BIG, gen, kc)
-        qps, p50, p99 = search_speed(index, q_np, q_lat)
-        say("profile-speed", batch64_qps_median=statistics.median(qps),
-            batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
-            batch1_queries=len(q_lat), card=card)
-        profile_layers(index, q_np, q_lat)
+        index, q_np, q_lat, _, rows = phase_index(dev, N_BIG, D_BIG, gen,
+                                                  kc)
+        profile_index("ivf", index, q_np, q_lat, card)
+        del index
+        torch.cuda.empty_cache()
+        index, _ = phase_flat_build(dev, rows, fc)
+        profile_index("flat", index, q_np, q_lat, card)
         print(card, flush=True)
         return 0
     check_synthetic(kc, dev, gen, 16, 37, 100, 5, 3)        # small, odd
     check_synthetic(kc, dev, gen, 144, 192, 384, BATCH, 18)  # phase 4's
-    say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err)
-    index, q_np, q_lat, kernel_ms, plain_ms = phase_index(dev, N_BIG, D_BIG,
-                                                          gen, kc)
+    check_flat_synthetic(fc, dev, gen, 3001, 37, 5)          # small, odd
+    check_flat_synthetic(fc, dev, gen, 32768, 384, BATCH)    # phase 6's
+    say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err,
+        flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
+        k2_max_abs_err=fc.k2_err)
+    index, q_np, q_lat, ivf_ms, rows = phase_index(dev, N_BIG, D_BIG, gen,
+                                                   kc)
+    times = {"probed_scores": ivf_ms}
 
-    ivf_gather.probed_scores.launches = 0     # the main path starts here
+    reset_launches()                          # the IVF main path
     phase_search(index, q_np, q_lat, gen, dev, card)
     del index
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         phase_cortex(dev, workdir)
-    launches = ivf_gather.probed_scores.launches
-    check(launches > 0, "the main path never launched probed_scores")
+    launches = {"probed_scores": launch_counts()["probed_scores"]}
 
+    index, flat_ms = phase_flat_build(dev, rows, fc)
+    times.update(flat_ms)
+    del rows
+    reset_launches()                          # the flat main path
+    phase_flat_search(index, q_np, q_lat, gen, dev, card)
+    del index
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_cortex_flat(dev, workdir)
+    counts = launch_counts()
+    launches.update(quant_candidates=counts["quant_candidates"],
+                    quant_rerank=counts["quant_rerank"])
+    for name, n in launches.items():
+        check(n > 0, f"the main path never launched {name}")
+
+    errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
+            "quant_rerank": fc.k2_err}
     print(json.dumps({"kernels": [{
-        "name": "probed_scores", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": kc.max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}), flush=True)
+        "name": name, "route": "cuda", "source": src, "replaces": repl,
+        "launches": launches[name], "max_abs_err": errs[name],
+        "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (src, repl) in KERNELS.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

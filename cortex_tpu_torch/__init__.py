@@ -5,8 +5,10 @@ package reuses cortex_tpu's host modules that import without jax (node
 types, errors, storage, hooks, the native re-rank) and ports the rest.
 It never imports jax.
 
-Ported so far: the IVF store -> search slice (`[embedding] index =
-"ivf"`), with the probed-block scan as a hand-written CUDA kernel
+Ported so far: store -> search over the flat index (`[embedding] index
+= "flat"`, the default), with the int8 candidate scan and the exact
+fp32 re-rank as hand-written CUDA kernels (csrc/flat_scan.cu), and over
+the IVF index (`index = "ivf"`), with the probed-block scan as one
 (csrc/ivf_gather.cu).
 """
 

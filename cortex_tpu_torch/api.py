@@ -1,4 +1,5 @@
-"""Embedded Cortex of the port: store -> search over the IVF index.
+"""Embedded Cortex of the port: store -> search over the flat index
+(the default) or the IVF index.
 
 Counterpart of cortex_tpu/api.py::Cortex, limited to the slice this
 package ports: open / in_memory, store / store_batch / update_node /
@@ -29,7 +30,7 @@ from .config import GATE_ITEM, CortexConfig, check_ported
 from .linker.decay import DecayEngine
 from .utils.device import resolve_device
 from .vector.embedding import default_embedder
-from .vector.index import VectorFilter
+from .vector.index import TorchFlatIndex, VectorFilter
 from .vector.ivf import TorchIvfIndex
 from .vector.scoring import apply_score_decay_batch
 
@@ -73,11 +74,16 @@ class Cortex:
                   device="cuda") -> "Cortex":
         return Cortex(MemoryStorage(), config, device=device)
 
-    def _make_index(self) -> TorchIvfIndex:
+    def _make_index(self) -> TorchFlatIndex:
         e = self.config.embedding
-        return TorchIvfIndex(self.embedder.dimension, nlist=e.ivf_nlist,
-                             nprobe=e.ivf_nprobe, spill=e.ivf_spill,
-                             device=self.device)
+        if e.index == "ivf":
+            return TorchIvfIndex(self.embedder.dimension, nlist=e.ivf_nlist,
+                                 nprobe=e.ivf_nprobe, spill=e.ivf_spill,
+                                 device=self.device)
+        return TorchFlatIndex(self.embedder.dimension,
+                              search_path=e.search_path,
+                              storage_dtype=e.device_dtype,
+                              device=self.device)
 
     def _rebuild_index(self) -> None:
         """Insert every stored embedding of the configured width."""

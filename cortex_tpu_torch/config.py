@@ -1,16 +1,18 @@
 """Configuration of the port: the subset of cortex_tpu/config.py that the
-IVF store -> search slice reads, parsed from the same TOML keys with the
-same defaults.
+ported slices read, parsed from the same TOML keys with the same
+defaults.
 
   [server]                 sqlite_synchronous
   [embedding]              every key of the reference EmbeddingConfig
   [auto_linker.decay]      the DecayConfig that access reinforcement reads
   [score_decay]            ScoreDecayConfig
 
-The defaults are the reference's, so a default config asks for the flat
-index and the kNN-graph refinement, which this slice does not port:
-`check_ported` raises ConfigError for every such setting and names the
-ROADMAP item that will port it.
+The defaults are the reference's, so a default config opens the flat
+index (device_dtype and search_path take effect there). `check_ported`
+raises ConfigError for every setting whose code path is not ported yet
+and names the ROADMAP item that will port it: the IVF index's kNN-graph
+refinement and nprobe tuner (read only when index = "ivf", as in the
+reference) and the sharded index.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ from cortex_tpu.errors import ConfigError
 from .vector.scoring import ScoreDecayConfig
 
 #: ROADMAP items that port what this slice refuses
-FLAT_ITEM = "ROADMAP queue A, 'Flat search (K1/K2)'"
 GRAPH_ITEM = "ROADMAP queue A, 'IVF remainder: kNN-graph refinement'"
 TUNER_ITEM = "ROADMAP queue A, 'IVF remainder: nprobe tuner'"
 MESH_ITEM = "ROADMAP queue A, 'Multi-GPU'"
@@ -39,11 +40,11 @@ class ServerConfig:
 
 @dataclass
 class EmbeddingConfig:
-    """Fields and defaults of cortex_tpu.config.EmbeddingConfig. The port
-    keeps no index snapshots (it always rebuilds from storage), and the
-    IVF layout is int8 whatever the dtype and search path, so
-    device_dtype, search_path, snapshot_boot and snapshot_min_delta are
-    parsed for parity but change nothing in this slice."""
+    """Fields and defaults of cortex_tpu.config.EmbeddingConfig.
+    device_dtype and search_path configure the flat index; the IVF
+    layout is int8 whatever they say. The port keeps no index snapshots
+    (it always rebuilds from storage), so snapshot_boot and
+    snapshot_min_delta are parsed for parity but change nothing."""
 
     model: str = "BAAI/bge-small-en-v1.5"
     dimension: int = 384
@@ -156,22 +157,21 @@ class CortexConfig:
 
 def check_ported(cfg: CortexConfig) -> None:
     """Validate, then raise ConfigError for any setting whose code path
-    this slice does not port."""
+    the port does not have yet."""
     cfg.validate()
     e = cfg.embedding
-    if e.index != "ivf":
-        raise ConfigError(
-            f"[embedding] index={e.index!r}: the flat device search is not "
-            f"ported yet ({FLAT_ITEM}); set index = \"ivf\"")
-    if e.ivf_graph_degree > 0:
-        raise ConfigError(
-            f"[embedding] ivf_graph_degree={e.ivf_graph_degree}: the "
-            f"kNN-graph refinement is not ported yet ({GRAPH_ITEM}); "
-            f"set ivf_graph_degree = 0")
-    if e.ivf_target_recall > 0:
-        raise ConfigError(
-            f"[embedding] ivf_target_recall={e.ivf_target_recall}: the "
-            f"nprobe tuner is not ported yet ({TUNER_ITEM})")
+    if e.index == "ivf":
+        # the reference reads these for the IVF index only
+        # (cortex_tpu/api.py:334-348)
+        if e.ivf_graph_degree > 0:
+            raise ConfigError(
+                f"[embedding] ivf_graph_degree={e.ivf_graph_degree}: the "
+                f"kNN-graph refinement is not ported yet ({GRAPH_ITEM}); "
+                f"set ivf_graph_degree = 0")
+        if e.ivf_target_recall > 0:
+            raise ConfigError(
+                f"[embedding] ivf_target_recall={e.ivf_target_recall}: the "
+                f"nprobe tuner is not ported yet ({TUNER_ITEM})")
     if e.sharded:
         raise ConfigError(
             f"[embedding] sharded=true: the sharded index is not ported "

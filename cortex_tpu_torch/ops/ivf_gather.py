@@ -5,9 +5,9 @@ probed_scores (the Pallas kernel). It dispatches on the tensors'
 device and has exactly two branches:
 
   * CUDA tensors run the hand-written kernel in csrc/ivf_gather.cu,
-    bound as torch.ops.cortex_tpu_torch.probed_scores and built with
-    nvcc at first use into cortex_tpu_torch/_build/<source hash>/. A
-    failed build or launch raises.
+    bound as torch.ops.cortex_tpu_torch.probed_scores and built at first
+    use with every other kernel of csrc/ (ops/build.py). A failed build
+    or launch raises.
   * CPU tensors run `probed_scores_plain`, the same function in plain
     torch (the CPU tests use it, and chip_smoke.py holds the kernel
     against it on the card).
@@ -20,83 +20,15 @@ of 8. Scores carry no 1/qs query descale, exactly as in the reference.
 
 from __future__ import annotations
 
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
-from .similarity import NEG_INF
+from .build import load_ops
+from .similarity import NEG_INF, require_exact_f32
 
 NO_FILTER = -1          # filter list entry: filter off / pad (shard.py)
 PLAIN_BUDGET_BYTES = 1 << 30    # f32 gather per query chunk, plain version
-
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD = _PKG / "_build"
-_SOURCES = ("ivf_gather.cu", "ivf_gather_op.cpp")
-_NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++20", "-shared", "-Xcompiler", "-fPIC")
-_LIB_NAME = "libcortex_tpu_torch_ops.so"
-
-_load_lock = threading.Lock()
-_op = None                      # the op handle, once the library is loaded
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def build_library() -> Path:
-    """Compile csrc/ into a shared library and return its path. The
-    output directory is keyed by a hash of the sources, the flags and
-    the torch version, so an edited source always rebuilds and an
-    unchanged one is built once per checkout. Raises RuntimeError with
-    the compiler's output when nvcc fails."""
-    from torch.utils.cpp_extension import include_paths, library_paths
-
-    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
-    srcs = [_CSRC / s for s in _SOURCES]
-    h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    h.update(f"{torch.__version__} abi={abi}".encode())
-    out_dir = _BUILD / h.hexdigest()[:16]
-    lib = out_dir / _LIB_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
-           *(f"-I{p}" for p in include_paths()),
-           *(str(s) for s in srcs),
-           *(f"-L{p}" for p in library_paths()),
-           "-lc10", "-ltorch_cpu", "-ltorch", "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {lib}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def load_op():
-    """Build (if needed) and load the kernel library once per process;
-    returns the op handle. After the first call this is one global read:
-    the lock is taken only while the handle is unset."""
-    global _op
-    if _op is None:
-        with _load_lock:
-            if _op is None:
-                torch.ops.load_library(str(build_library()))
-                _op = torch.ops.cortex_tpu_torch.probed_scores
-    return _op
 
 
 def probed_scores(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl, probe,
@@ -112,8 +44,9 @@ def probed_scores(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl, probe,
     NEG_INF where masked; rows [B, p*L] int32: the raw slot rows)."""
     dev = emb_i8.device
     if dev.type == "cuda":
-        out = load_op()(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
-                        probe, qi8, ak, aa, ex, bool(filtered))
+        out = load_ops().probed_scores(emb_i8, rinv_sl, slot_rows,
+                                       kind_sl, agent_sl, probe, qi8, ak,
+                                       aa, ex, bool(filtered))
         probed_scores.launches += 1
         return out
     if dev.type == "cpu":
@@ -135,9 +68,7 @@ def probed_scores_plain(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
     batched matmul (exact: int8 products summed below 2^24), times rinv,
     then the masks. Materializes the [n, p*L, d] f32 gather, so queries
     run in chunks of at most PLAIN_BUDGET_BYTES each."""
-    if emb_i8.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("probed_scores_plain needs TF32 off: the f32 "
-                           "product must be exact")
+    require_exact_f32(emb_i8, "probed_scores_plain")
     b, p = probe.shape
     c, l, d = emb_i8.shape
     if b == 0:

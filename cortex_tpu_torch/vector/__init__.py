@@ -1,5 +1,5 @@
-"""Vector search of the port: embedders, the corpus bookkeeping and the
-IVF index."""
+"""Vector search of the port: embedders, the device corpus and the flat
+and IVF indexes."""
 
 from .embedding import (EmbeddingService, HashingEmbedder,
                         default_embedder, embedding_input)

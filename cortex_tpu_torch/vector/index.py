@@ -2,10 +2,11 @@
 
 Counterpart of cortex_tpu/vector/index.py: `VectorFilter`, `SearchHit`
 and the `VectorIndex` contract (insert / insert_batch / remove /
-search / search_batch / search_threshold / len / contains), plus
-`TorchFlatIndex`, which holds what every corpus-backed index shares and
-`TorchIvfIndex` (vector/ivf.py) inherits. The flat device search itself
-is not ported yet, so TorchFlatIndex cannot be built on its own.
+search / search_batch / search_threshold / len / contains /
+index_info), plus `TorchFlatIndex`, the flat index over the device
+corpus (vector/shard.py), whose corpus-backed methods `TorchIvfIndex`
+(vector/ivf.py) inherits. Snapshots (save / load and the delta chain)
+and compaction are not ported: an index is rebuilt from storage.
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from cortex_tpu.errors import ConfigError, IndexError_
+from cortex_tpu.errors import IndexError_
+
+from ..utils.device import resolve_device
+from .shard import DeviceCorpus
 
 SearchHit = Tuple[str, float]          # (node_id, cosine score)
 
@@ -72,15 +77,24 @@ class VectorIndex:
     def __contains__(self, node_id: str) -> bool:
         raise NotImplementedError
 
+    def index_info(self) -> dict:
+        """Operational description of the serving index."""
+        return {"kind": type(self).__name__, "size": len(self)}
+
 
 class TorchFlatIndex(VectorIndex):
-    """Corpus-backed index: the methods TorchIvfIndex inherits. The
-    corpus (`self._corpus`) is built by the subclass."""
+    """The flat index, selected with [embedding] index = "flat" (the
+    default): every search scans the whole device corpus. search_path
+    is "auto", "exact", "approx" or "quant"; storage_dtype "float32" or
+    "bfloat16"; `device` "cuda" (the default; raises when CUDA is
+    absent), "cpu", or a torch.device."""
 
-    def __init__(self, dim: int, *, device="cuda"):
-        raise ConfigError(
-            "the flat device search is not ported yet (ROADMAP queue A, "
-            "'Flat search (K1/K2)'); use TorchIvfIndex")
+    def __init__(self, dim: int, *, search_path: str = "auto",
+                 storage_dtype: str = "float32", device="cuda"):
+        self.dim = dim
+        self._corpus = DeviceCorpus(dim, device=resolve_device(device),
+                                    search_path=search_path,
+                                    storage_dtype=storage_dtype)
 
     def insert(self, node_id: str, vector: np.ndarray, *,
                kind: str = "", source_agent: str = "") -> None:
@@ -104,19 +118,59 @@ class TorchFlatIndex(VectorIndex):
     def search_batch(self, vectors: np.ndarray, k: int,
                      flt: Optional[VectorFilter] = None
                      ) -> List[List[SearchHit]]:
+        return self.search_batch_async(vectors, k, flt)()
+
+    def search_batch_async(self, vectors: np.ndarray, k: int,
+                           flt: Optional[VectorFilter] = None):
+        """Dispatch without fetching; returns a zero-arg callable that
+        blocks for the hits, so callers can overlap device work with
+        host work."""
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2:
             raise IndexError_("search_batch expects [B, d]")
         flt = flt or VectorFilter()
-        scores, ids = self._corpus.topk(
+        finish = self._corpus.topk_async(
             vectors, k, kinds=flt.kinds, agent=flt.source_agent,
             exclude_ids=flt.exclude_ids)
-        return [[(nid, float(scores[b, j]))
-                 for j, nid in enumerate(ids[b]) if nid is not None]
-                for b in range(vectors.shape[0])]
+        return lambda: _hits(*finish())
+
+    def search_stream(self, vectors: np.ndarray, k: int,
+                      flt: Optional[VectorFilter] = None,
+                      batch: int = 512) -> List[List[SearchHit]]:
+        """Bulk search over a query stream with one device-to-host
+        fetch; the same results as search_batch."""
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2:
+            raise IndexError_("search_stream expects [NQ, d]")
+        flt = flt or VectorFilter()
+        return _hits(*self._corpus.topk_stream(
+            vectors, k, batch=batch, kinds=flt.kinds,
+            agent=flt.source_agent, exclude_ids=flt.exclude_ids))
 
     def __len__(self) -> int:
         return len(self._corpus)
 
     def __contains__(self, node_id: str) -> bool:
         return node_id in self._corpus
+
+    def index_info(self) -> dict:
+        co = self._corpus
+        return {
+            "kind": "flat",
+            "size": len(co),
+            "capacity": int(co._cap),
+            "storage_dtype": ("bfloat16"
+                              if co._storage_dtype == torch.bfloat16
+                              else "float32"),
+            "search_path": co._search_path,          # configured
+            "resolved_path": co._choose_path(8),     # what serves now
+            "device": str(co._device),
+        }
+
+
+def _hits(scores: np.ndarray, ids) -> List[List[SearchHit]]:
+    """(scores [B, k], ids [B][k]) -> per-query hit lists, dead hits
+    (id None) dropped."""
+    return [[(nid, float(scores[b, j])) for j, nid in enumerate(row)
+             if nid is not None]
+            for b, row in enumerate(ids)]

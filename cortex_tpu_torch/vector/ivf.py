@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from ..ops.ivf_gather import probed_scores
-from ..ops.similarity import NEG_INF, quantize_rows_centered
+from ..ops.similarity import (NEG_INF, quantize_queries,
+                              quantize_rows_centered)
 from ..utils.device import resolve_device
-from .index import TorchFlatIndex
+from .index import TorchFlatIndex, VectorIndex
 from .shard import (DeviceCorpus, MAX_EXCLUDE, MAX_FILTER_KINDS,
                     NO_FILTER, PAD_CODE)
 
@@ -87,16 +88,6 @@ def assign_top2(data: torch.Tensor, cent: torch.Tensor):
 
 
 # ----------------------------------------------------------------- search
-
-
-def quantize_queries(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-query symmetric int8 quantization. Returns (qi8, qs) with qs
-    the positive per-query scale — ranking-invariant, divided back out
-    of reported values."""
-    qs = 127.0 / q.abs().amax(dim=1).clamp_min(1e-12)
-    qi8 = torch.clamp(torch.round(q * qs[:, None]), -127, 127
-                      ).to(torch.int8)
-    return qi8, qs
 
 
 def descale_valid(v: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
@@ -199,10 +190,8 @@ class IvfCorpus(DeviceCorpus):
         into an empty corpus, the build then packs the same [C, L, d]
         layout, slot for slot, as cortex_tpu's index loaded from the same
         state."""
+        super().load_jax_state(st)
         ids = [str(i) for i in st["ids"]]
-        self.upsert_batch(ids, np.asarray(st["vectors"], np.float32),
-                          [str(k) for k in st["kinds"]],
-                          [str(a) for a in st["agents"]])
         cl = np.asarray(st["ivf_cluster"], np.int32)
         cl2 = np.asarray(st.get("ivf_cluster2",
                                 np.full(len(cl), -1, np.int32)), np.int32)
@@ -617,3 +606,7 @@ class TorchIvfIndex(TorchFlatIndex):
         self.dim = dim
         self._corpus = IvfCorpus(dim, nlist=nlist, nprobe=nprobe,
                                  spill=spill, device=resolve_device(device))
+
+    # the flat index's description does not fit; the IVF's own (clustering
+    # and nprobe state) is not ported yet (ROADMAP queue A, IVF remainder)
+    index_info = VectorIndex.index_info

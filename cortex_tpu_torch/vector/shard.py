@@ -1,16 +1,40 @@
-"""Host bookkeeping of the device corpus.
+"""The device corpus: the flat index's layout and search, and the host
+bookkeeping every device layout shares.
 
-Counterpart of cortex_tpu/vector/shard.py::DeviceCorpus, keeping what
-every device layout shares: the authoritative host mirror (fp32 rows,
-liveness, kind and agent codes), the id <-> row maps, the capacity
-ladder, dirty tracking, the fixed-shape filter encoding with its exact
-host-bias fallback, the k and candidate-width rules, and the exact fp32
-re-rank of device candidates against the host mirror.
+Counterpart of cortex_tpu/vector/shard.py::DeviceCorpus. The host side
+is the reference's: the authoritative host mirror (fp32 rows, liveness,
+kind and agent codes), the id <-> row maps, the capacity ladder, dirty
+tracking, the fixed-shape filter encoding with its exact host-bias
+fallback, the k and candidate-width rules, and the exact fp32 re-rank
+of device candidates against the host mirror.
 
-A subclass supplies the device layout: `sync` pushes host changes to
+The device layout of the flat index (the reference's default):
+
+    emb        [cap, d]  f32, or bf16 centered on the live mean
+    live       [cap]     bool
+    kind_code  [cap]     int32
+    agent_code [cap]     int32
+    emb_i8     [cap, d]  int8, centered on the live mean  (quant path)
+    rinv       [cap]     f32 dequant factors              (quant path)
+
+A sync writes dirty rows in place (index_copy_) into every plane, or
+uploads everything when more than max(4096, cap // 8) rows are dirty.
+Capacity growth appends dead rows to the device planes (torch.cat), so
+live rows keep their values and centering shifts, as the reference's
+in-place pad does. Above the memory budget (CORTEX_HBM_BUDGET_GB,
+default 12) only the int8 shadow and the masks stay on the device
+(quant-only residency) and the exact re-rank runs on the host mirror.
+
+Search paths (`_choose_path`): `quant` is the int8 candidate scan (K1)
+plus the exact fp32 device re-rank (K2), or K1 plus the host re-rank
+when the device holds no fp32 copy; `approx` and `xla` are the product
+in the storage dtype plus an exact top-k. `auto` takes `quant` on a
+CUDA device at cap >= QUANT_MIN_CAP and `xla` elsewhere, as the
+reference does off the TPU.
+
+A subclass may supply another layout: `sync` pushes host changes to
 the device and `_dispatch_search` enqueues the candidate search
-(vector/ivf.py::IvfCorpus). The flat layout of the reference is not
-ported yet.
+(vector/ivf.py::IvfCorpus); every other method is shared.
 
 Concurrency: dispatch and every mutation hold the corpus lock. Device
 work is enqueued on the current CUDA stream, so a later in-place layout
@@ -31,13 +55,23 @@ import torch
 from cortex_tpu.errors import IndexError_
 from cortex_tpu.native import rerank_topk_native
 
-from ..ops.similarity import NEG_INF, normalize_rows
+from ..ops.similarity import (NEG_INF, cosine_topk_approx,
+                              cosine_topk_quant_exact, cosine_topk_xla,
+                              normalize_rows, quant_candidates,
+                              quantize_queries, quantize_rows_centered)
 
 MIN_CAP = 1024
 MAX_FILTER_KINDS = 16
 MAX_EXCLUDE = 64
 NO_FILTER = -1
 PAD_CODE = -2
+#: below this capacity `auto` serves through the product + exact top-k
+#: even on a CUDA device: the int8 scan's gain only matters at scale
+QUANT_MIN_CAP = 4096
+SEARCH_PATHS = ("auto", "exact", "approx", "quant")
+#: widest candidate list the device re-rank (K2) sorts in shared
+#: memory; a wider one (k above 8192) re-ranks on the host
+MAX_DEVICE_RERANK = 16384
 # the C++ re-rank parallelizes across queries (ctypes releases the
 # GIL); single-core it's a wash with numpy's BLAS path, so only prefer
 # it when there are cores to use
@@ -48,29 +82,85 @@ _RETRIES = 3
 
 
 class Interner:
-    """string -> int32 code, append-only."""
+    """string <-> int32 code, append-only."""
 
     def __init__(self):
         self._code: Dict[str, int] = {}
+        self._name: List[str] = []
 
     def code(self, name: str) -> int:
-        return self._code.setdefault(name, len(self._code))
+        c = self._code.get(name)
+        if c is None:
+            c = len(self._name)
+            self._code[name] = c
+            self._name.append(name)
+        return c
+
+    def name(self, code: int) -> str:
+        return self._name[code]
 
     def lookup(self, name: str) -> int:
         """Code for name, or PAD_CODE (matches nothing) when unseen."""
         return self._code.get(name, PAD_CODE)
 
 
+def build_bias(live: torch.Tensor, kind_code: torch.Tensor,
+               agent_code: torch.Tensor, ak, aa, ex) -> torch.Tensor:
+    """[cap] additive f32 bias on the planes' device: 0 for admissible
+    rows, <= NEG_INF otherwise. Counterpart of shard.py::_build_bias,
+    as elementwise torch on the device-resident planes. ak [16] / aa /
+    ex [64] are the host filter codes of `_filter_codes` (ak[0] ==
+    NO_FILTER: no kind filter; ex padded with NO_FILTER); a filter that
+    is off costs nothing."""
+    dev = live.device
+    bias = torch.where(live, 0.0, NEG_INF)
+    ak = np.asarray(ak, np.int32)
+    if ak[0] != NO_FILTER:
+        codes = torch.from_numpy(ak).to(dev)
+        ok = (kind_code[:, None] == codes[None, :]).any(dim=1)
+        bias = bias + torch.where(ok, 0.0, NEG_INF)
+    if int(aa) != NO_FILTER:
+        bias = bias + torch.where(agent_code == int(aa), 0.0, NEG_INF)
+    ex = np.asarray(ex, np.int64)
+    rows = ex[(ex >= 0) & (ex < live.shape[0])]
+    if len(rows):
+        hit = torch.zeros(live.shape[0], dtype=torch.bool, device=dev)
+        hit[torch.from_numpy(rows).to(dev)] = True
+        bias = bias + torch.where(hit, NEG_INF, 0.0)
+    return bias
+
+
 class DeviceCorpus:
-    """Host mirror + id <-> row maps of a device-resident corpus."""
+    """Host mirror + id <-> row maps of a device-resident corpus, and the
+    flat device layout (see the module docstring)."""
 
     #: above this row count the capacity ladder grows 1.25x per step
     #: instead of doubling (a 10M-row corpus would otherwise pad to 16.7M)
     GENTLE_GROWTH_ROWS = 4 << 20
 
-    def __init__(self, dim: int, *, device: torch.device):
+    def __init__(self, dim: int, *, device: torch.device,
+                 search_path: str = "auto",
+                 storage_dtype: str = "float32"):
+        if search_path not in SEARCH_PATHS:
+            raise IndexError_(f"search_path must be one of {SEARCH_PATHS}, "
+                              f"got {search_path!r}")
         self.dim = dim
         self._device = torch.device(device)
+        self._search_path = search_path
+        # bf16 halves device residency and scan bytes; the host mirror
+        # stays fp32 for the exact re-rank
+        self._storage_dtype = (torch.bfloat16 if storage_dtype == "bfloat16"
+                               else torch.float32)
+        #: (emb or None, live, kind_code, agent_code) device planes
+        self._dev: Optional[Tuple[Optional[torch.Tensor], ...]] = None
+        #: (emb_i8, rinv): the centered int8 shadow of the quant path
+        self._dev_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._bf16_mu: Optional[np.ndarray] = None   # bf16 centering shift
+        # device-memory budget of the corpus (bytes): above it only the
+        # int8 shadow and the masks stay on the device
+        self._hbm_budget = float(os.environ.get(
+            "CORTEX_HBM_BUDGET_GB", "12")) * (1 << 30)
+        self._emb_resident = True
         self._cap = 0
         self._emb_h = np.zeros((0, dim), np.float32)
         self._live_h = np.zeros((0,), bool)
@@ -83,6 +173,7 @@ class DeviceCorpus:
         self._recycled: set[int] = set()   # freed rows, not yet reassigned
         self._generation = 0               # bumps when a row is reassigned
         self._full_resync = True
+        self._grow_pad = 0                 # dead rows to pad at next sync
         self._quant_mu = np.zeros(dim, np.float32)   # int8 centering shift
         self.kinds = Interner()
         self.agents = Interner()
@@ -124,7 +215,23 @@ class DeviceCorpus:
         self._free.extend(range(self._cap, new_cap))
         self._id_of.extend([None] * pad)
         self._cap = new_cap
-        self._full_resync = True
+        if self._can_grow_on_device():
+            # the next sync pads the device planes with dead rows; the
+            # live rows keep their values and centering shifts
+            self._grow_pad += pad
+        else:
+            self._full_resync = True
+
+    def _can_grow_on_device(self) -> bool:
+        """The reference's rule: the flat corpus pads its resident planes
+        in place when the residency decision holds at the new capacity.
+        Without flat planes (none uploaded yet, or the IVF layout, which
+        re-packs on growth) the next sync is a full one."""
+        if self._dev is None:
+            return False
+        if self._dev[0] is not None:
+            return self._emb_fits()
+        return self._cap * self.dim <= self._hbm_budget
 
     def upsert_batch(self, ids: Sequence[str], vectors: np.ndarray,
                      kinds: Sequence[str], agents: Sequence[str]) -> None:
@@ -184,16 +291,151 @@ class DeviceCorpus:
             return True
 
     # ---------------------------------------------------------------- device
-    def sync(self) -> None:
-        """Push host changes to the device layout (subclass)."""
-        raise NotImplementedError
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never a view of the mirror)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self._device,
+                                                            copy=True)
 
-    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
-                         host_bias: Optional[np.ndarray] = None):
-        """Enqueue the candidate search for normalized queries q_np.
-        Returns (values, rows, needs_rescore) as device tensors
-        (subclass)."""
-        raise NotImplementedError
+    def _live_mean(self) -> Optional[np.ndarray]:
+        live = self._live_h
+        return (self._emb_h[live].mean(axis=0).astype(np.float32)
+                if live.any() else None)
+
+    def _emb_for_device(self, rows: Optional[np.ndarray] = None,
+                        mu: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Device rows of emb: f32 as they are, or bf16 CENTERED on the
+        live mean (rounding error then scales with the residual, which
+        is what tells rows apart; the per-query q.mu goes back onto the
+        returned scores in _finish_topk). A full upload (rows=None)
+        takes a fresh mean (mu, when the caller has it); row updates
+        reuse the last one, since any fixed shift is ranking-correct."""
+        src = self._emb_h if rows is None else self._emb_h[rows]
+        if self._storage_dtype != torch.bfloat16:
+            return self._to_dev(src)
+        if rows is None:
+            self._bf16_mu = mu if mu is not None else self._live_mean()
+        if self._bf16_mu is not None:
+            src = src - self._bf16_mu[None, :]
+        return torch.from_numpy(np.ascontiguousarray(src, np.float32)).to(
+            torch.bfloat16).to(self._device)
+
+    def _quant_enabled(self) -> bool:
+        """Whether the int8 shadow is kept on the device."""
+        return (self._search_path == "quant"
+                or (self._search_path == "auto"
+                    and self._device.type == "cuda"))
+
+    def _emb_fits(self) -> bool:
+        """Whether emb fits on the device beside the int8 shadow under
+        the budget. False -> quant-only residency."""
+        if not self._quant_enabled():
+            return True           # nothing else to keep; let it OOM loudly
+        esize = 2 if self._storage_dtype == torch.bfloat16 else 4
+        return self._cap * self.dim * (esize + 1) <= self._hbm_budget
+
+    def _sync_quant(self, rows: Optional[np.ndarray],
+                    mu: Optional[np.ndarray] = None) -> None:
+        """Refresh the int8 shadow from the fp32 host mirror, quantized
+        on the host with the reference's numpy code (bit-identical rows
+        in both packages), centered on the live mean. rows=None: full
+        upload with a fresh mean (mu, when the caller has it); otherwise
+        the dirty rows, in place, against the last mean."""
+        if rows is None:
+            if mu is None:
+                mu = self._live_mean()
+            if mu is None:
+                mu = np.zeros(self.dim, np.float32)
+            q, rinv, self._quant_mu = quantize_rows_centered(self._emb_h, mu)
+            self._dev_q = (self._to_dev(q), self._to_dev(rinv))
+            return
+        q, rinv, _ = quantize_rows_centered(self._emb_h[rows],
+                                            self._quant_mu)
+        idx = self._to_dev(rows.astype(np.int64))
+        emb_i8, ri = self._dev_q
+        emb_i8.index_copy_(0, idx, self._to_dev(q))
+        ri.index_copy_(0, idx, self._to_dev(rinv))
+
+    def _upload_full(self, quant: bool) -> None:
+        self._emb_resident = self._emb_fits()
+        # one live-mean pass serves both the bf16 and the int8 centering
+        mu_live = None
+        if quant or (self._emb_resident
+                     and self._storage_dtype == torch.bfloat16):
+            mu_live = self._live_mean()
+        emb = (self._emb_for_device(mu=mu_live) if self._emb_resident
+               else None)
+        self._dev = (emb, self._to_dev(self._live_h),
+                     self._to_dev(self._kind_h), self._to_dev(self._agent_h))
+        self._grow_pad = 0                    # the planes are at full cap
+        if quant:
+            self._sync_quant(None, mu=mu_live)
+
+    def _pad_planes(self, pad: int) -> None:
+        """Capacity growth on the device: append `pad` dead rows to every
+        plane (the new rows are dirty and get written by the sync)."""
+        def grown(t, value):
+            return torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]),
+                                            value, dtype=t.dtype,
+                                            device=t.device)])
+        emb, live, kind_code, agent_code = self._dev
+        self._dev = (None if emb is None else grown(emb, 0),
+                     grown(live, False), grown(kind_code, PAD_CODE),
+                     grown(agent_code, PAD_CODE))
+        if self._dev_q is not None:
+            self._dev_q = (grown(self._dev_q[0], 0),
+                           grown(self._dev_q[1], 0.0))
+
+    def sync(self) -> None:
+        """Push host changes to the device planes. Cheap when clean."""
+        with self._lock:
+            if self._cap == 0:
+                return
+            quant = self._quant_enabled()
+            if (self._dev is None or self._full_resync
+                    or (quant and self._dev_q is None)):
+                self._upload_full(quant)
+                self._full_resync = False
+                self._dirty.clear()
+                return
+            if self._grow_pad:
+                self._pad_planes(self._grow_pad)
+                self._grow_pad = 0
+            if not self._dirty:
+                return
+            if len(self._dirty) > max(4096, self._cap // 8):
+                self._upload_full(quant)
+            else:
+                rows = np.fromiter(self._dirty, np.int64, len(self._dirty))
+                idx = self._to_dev(rows)
+                emb, live, kind_code, agent_code = self._dev
+                if emb is not None:
+                    emb.index_copy_(0, idx, self._emb_for_device(rows))
+                live.index_copy_(0, idx, self._to_dev(self._live_h[rows]))
+                kind_code.index_copy_(0, idx,
+                                      self._to_dev(self._kind_h[rows]))
+                agent_code.index_copy_(0, idx,
+                                       self._to_dev(self._agent_h[rows]))
+                if quant:
+                    self._sync_quant(rows)
+            self._dirty.clear()
+
+    def _choose_path(self, k_bucket: int,
+                     emb_resident: Optional[bool] = None) -> str:
+        """Serving-path policy of the reference: `exact` forces the
+        exact product; quant-only residency leaves only `quant`; `auto`
+        takes `quant` on a CUDA device at scale (the reference: on a
+        TPU), else `xla`."""
+        if emb_resident is None:
+            emb_resident = self._emb_resident
+        if not emb_resident:
+            return "quant"
+        if self._search_path == "exact":
+            return "xla"
+        if self._search_path in ("approx", "quant"):
+            return self._search_path
+        if self._device.type == "cuda" and self._cap >= QUANT_MIN_CAP:
+            return "quant"
+        return "xla"
 
     def _host_bias(self, kinds, agent, exclude_ids) -> np.ndarray:
         """Exact [cap] additive bias computed on the host mirrors — the
@@ -253,6 +495,104 @@ class DeviceCorpus:
         return min(self._cap, max(2 * k_bucket, k_bucket + 16, 64))
 
     # ---------------------------------------------------------------- search
+    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
+                         host_bias: Optional[np.ndarray] = None):
+        """Enqueue the bias build and the search of normalized queries
+        q_np on the device planes. host_bias (the exact [cap] bias of an
+        overflowing filter) replaces the fixed-shape filter codes.
+        Returns (values, rows, needs_rescore) as device tensors; with
+        needs_rescore the rows are int8-scored candidates for the host
+        re-rank. Callers hold the corpus lock."""
+        emb, live, kind_code, agent_code = self._dev
+        path = self._choose_path(k_bucket, emb_resident=emb is not None)
+        q = self._to_dev(q_np)
+        bias = (self._to_dev(host_bias) if host_bias is not None
+                else build_bias(live, kind_code, agent_code, ak, aa, ex))
+        if path == "quant":
+            cand = self._cand_count(k_bucket)
+            emb_i8, rinv = self._dev_q
+            if (self._storage_dtype == torch.float32 and emb is not None
+                    and cand <= MAX_DEVICE_RERANK):
+                # fp32 rows on the device: K1 + the exact device re-rank
+                v, i = cosine_topk_quant_exact(emb_i8, rinv, emb, q,
+                                               k_bucket, cand, bias)
+                return v, i, False
+            # bf16 or quant-only residency: no exact device copy, so K1
+            # alone and the exact re-rank on the host mirror
+            qi8, qs = quantize_queries(q)
+            v, i = quant_candidates(emb_i8, rinv, qi8, qs, bias, cand)
+            return v, i, True
+        if path == "approx" and self._cap >= QUANT_MIN_CAP:
+            v, i = cosine_topk_approx(emb, q, k_bucket, bias)
+        else:
+            v, i = cosine_topk_xla(emb, q, k_bucket, bias)
+        return v, i, False
+
+    def _dispatch(self, q_np: np.ndarray, k: int, flt, chunk: int = 0):
+        """Under the corpus lock: sync, encode the filters, enqueue the
+        search (in query chunks of `chunk` rows when chunk > 0, each on
+        the same layout) and capture what the fetch needs. Returns None
+        for an empty corpus, else (values, rows, rescore, kk, generation,
+        bf16 mu of the dispatched layout)."""
+        with self._lock:
+            if len(self._row_of) == 0:
+                return None
+            self.sync()
+            ak, aa, ex, hb = self._filter_codes(*flt)
+            kk, k_bucket = self._k_bucket(k)
+            gen = self._generation
+            mu = self._bf16_mu
+            step = chunk if chunk > 0 else max(1, q_np.shape[0])
+            vs, rs, rescore = [], [], False
+            for s0 in range(0, max(1, q_np.shape[0]), step):
+                v, i, rescore = self._dispatch_search(
+                    q_np[s0:s0 + step], ak, aa, ex, k_bucket, host_bias=hb)
+                vs.append(v)
+                rs.append(i)
+        if len(vs) > 1:
+            return torch.cat(vs), torch.cat(rs), rescore, kk, gen, mu
+        return vs[0], rs[0], rescore, kk, gen, mu
+
+    def _collect(self, dispatched, q_np: np.ndarray, k: int):
+        """Fetch a dispatched search (outside the lock: the copy waits
+        for the device) and finish it; None when rows were reassigned
+        since the dispatch."""
+        b = q_np.shape[0]
+        if dispatched is None:
+            return (np.full((b, k), NEG_INF, np.float32),
+                    [[None] * k for _ in range(b)])
+        v, i, rescore, kk, gen, mu = dispatched
+        return self._finish_topk(v.cpu().numpy(), i.cpu().numpy(), k, kk,
+                                 gen, q_np, rescore, mu)
+
+    def _resolve(self, first, redispatch, q_np: np.ndarray, k: int):
+        """Collect `first`; while rows were reassigned under it, re-issue
+        (bounded), the last time holding the lock so nothing can move."""
+        out = self._collect(first, q_np, k)
+        for _ in range(_RETRIES):
+            if out is not None:
+                return out
+            out = self._collect(redispatch(), q_np, k)
+        if out is None:
+            with self._lock:
+                out = self._collect(redispatch(), q_np, k)
+        if out is None:
+            raise RuntimeError("corpus generation changed under its lock")
+        return out
+
+    def topk_async(self, queries: np.ndarray, k: int, *,
+                   kinds: Optional[Sequence[str]] = None,
+                   agent: Optional[str] = None,
+                   exclude_ids: Optional[Sequence[str]] = None):
+        """Dispatch a batched search without fetching it; returns a
+        zero-arg callable that blocks for (scores [B, k], ids [B][k]).
+        Dead or padded hits have score <= -1e29 and id None."""
+        q_np = normalize_rows(np.asarray(queries, np.float32))
+        flt = (kinds, agent, exclude_ids)
+        first = self._dispatch(q_np, k, flt)
+        return lambda: self._resolve(
+            first, lambda: self._dispatch(q_np, k, flt), q_np, k)
+
     def topk(self, queries: np.ndarray, k: int, *,
              kinds: Optional[Sequence[str]] = None,
              agent: Optional[str] = None,
@@ -260,43 +600,39 @@ class DeviceCorpus:
              ) -> Tuple[np.ndarray, List[List[Optional[str]]]]:
         """Batched search. Returns (scores [B,k], ids [B][k]); dead or
         padded hits have score <= -1e29 and id None."""
-        q_np = normalize_rows(np.asarray(queries, np.float32))
-        flt = (kinds, agent, exclude_ids)
-        for _ in range(_RETRIES):
-            out = self._topk_once(q_np, k, flt)
-            if out is not None:
-                return out
-        with self._lock:      # holding the lock, no row can be reassigned
-            out = self._topk_once(q_np, k, flt)
-        if out is None:
-            raise RuntimeError("corpus generation changed under its lock")
-        return out
+        return self.topk_async(queries, k, kinds=kinds, agent=agent,
+                               exclude_ids=exclude_ids)()
 
-    def _topk_once(self, q_np: np.ndarray, k: int, flt):
-        """One dispatch + fetch + re-rank; None when rows were reassigned
-        between the dispatch and the fetch."""
-        b = q_np.shape[0]
-        with self._lock:
-            if len(self._row_of) == 0:
-                return (np.full((b, k), NEG_INF, np.float32),
-                        [[None] * k for _ in range(b)])
-            self.sync()
-            ak, aa, ex, hb = self._filter_codes(*flt)
-            kk, k_bucket = self._k_bucket(k)
-            gen = self._generation
-            v, i, rescore = self._dispatch_search(q_np, ak, aa, ex,
-                                                  k_bucket, host_bias=hb)
-        # the fetch waits for the device: outside the lock
-        v = v.cpu().numpy()
-        i = i.cpu().numpy()
-        return self._finish_topk(v, i, k, kk, gen, q_np, rescore)
+    def topk_stream(self, queries: np.ndarray, k: int, *,
+                    batch: int = 512,
+                    kinds: Optional[Sequence[str]] = None,
+                    agent: Optional[str] = None,
+                    exclude_ids: Optional[Sequence[str]] = None):
+        """Bulk search over a query stream: every chunk of `batch`
+        queries is enqueued on one layout, the results are concatenated
+        on the device and fetched once. The same results as topk over
+        the whole stream."""
+        q_all = np.asarray(queries, np.float32)
+        if q_all.ndim != 2:
+            raise ValueError("topk_stream expects [NQ, d]")
+        if q_all.shape[0] == 0:
+            return np.zeros((0, k), np.float32), []
+        q_np = normalize_rows(q_all)
+        flt = (kinds, agent, exclude_ids)
+
+        def dispatch():
+            return self._dispatch(q_np, k, flt, chunk=max(1, int(batch)))
+        return self._resolve(dispatch(), dispatch, q_np, k)
 
     def _finish_topk(self, v: np.ndarray, i: np.ndarray, k: int, kk: int,
-                     generation: int, q_np: np.ndarray, rescore: bool):
+                     generation: int, q_np: np.ndarray, rescore: bool,
+                     bf16_mu: Optional[np.ndarray] = None):
         """Map fetched rows to ids. rescore=True: the device returned an
         int8-scored candidate list; re-rank it exactly against the fp32
-        host mirror. Returns None when rows were reassigned since the
-        dispatch (the caller re-issues the search)."""
+        host mirror. Otherwise the device scores are final, and bf16_mu
+        (the centering shift of the DISPATCHED layout, not the current
+        one) puts the per-query q.mu back onto them. Returns None when
+        rows were reassigned since the dispatch (the caller re-issues)."""
         with self._lock:
             if generation != self._generation:
                 return None
@@ -321,8 +657,11 @@ class DeviceCorpus:
                     v = np.take_along_axis(exact, order, axis=1)
                     i = np.take_along_axis(i, order, axis=1)
             else:
-                v = np.where(valid, v, NEG_INF)[:, :kk]
-                i = i[:, :kk]
+                v, i, valid = v[:, :kk], i[:, :kk], valid[:, :kk]
+                if bf16_mu is not None:
+                    comp = (q_np @ bf16_mu).astype(np.float32)
+                    v = v + comp[:, None]
+                v = np.where(valid, v, NEG_INF).astype(np.float32)
             if kk < k:
                 v = np.pad(v, ((0, 0), (0, k - kk)),
                            constant_values=NEG_INF)
@@ -331,3 +670,29 @@ class DeviceCorpus:
                     for j, r in enumerate(row)]
                    for b_, row in enumerate(i)]
         return v, ids
+
+    # ---------------------------------------------------------- snapshot
+    def state(self) -> Dict[str, np.ndarray]:
+        """Host copy of the contents, in the reference's form: ids,
+        vectors (normalized fp32), kinds and agents (names)."""
+        with self._lock:
+            ids = [i for i in self._id_of if i is not None]
+            rows = [self._row_of[i] for i in ids]
+            return {
+                "ids": np.array(ids, dtype=object),
+                "vectors": self._emb_h[rows].copy(),
+                "kinds": np.array([self.kinds.name(self._kind_h[r])
+                                   for r in rows], dtype=object),
+                "agents": np.array([self.agents.name(self._agent_h[r])
+                                    for r in rows], dtype=object),
+            }
+
+    def load_jax_state(self, st) -> None:
+        """Load the dict that cortex_tpu's DeviceCorpus.state() returns
+        (ids, vectors, kinds, agents, all numpy): rows in `ids` order, as
+        the reference's loader inserts them, so both packages place the
+        same ids on the same rows."""
+        self.upsert_batch([str(i) for i in st["ids"]],
+                          np.asarray(st["vectors"], np.float32),
+                          [str(k) for k in st["kinds"]],
+                          [str(a) for a in st["agents"]])

@@ -1,12 +1,15 @@
-"""The CUDA probed-block kernel against its plain torch version, on the
-card. Marked `cuda`: skipped without a GPU. This file imports no jax
-(the card's machine has none); run it there with
+"""The CUDA kernels against their plain torch versions, on the card:
+the IVF probed-block scan, and the flat index's int8 candidate scan
+(K1) and exact re-rank (K2). Marked `cuda`: skipped without a GPU.
+This file imports no jax (the card's machine has none); run it there
+with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Criterion: scores and rows equal bit for bit on unmasked entries, and
-equal masks (the kernel's int32 dot converts to the same f32 value as
-the plain version's exact f32 sum, then the same single * rinv).
+Criterion for the probed-block scan: scores and rows equal bit for bit
+on unmasked entries, and equal masks (the kernel's int32 dot converts
+to the same f32 value as the plain version's exact f32 sum, then the
+same single * rinv). K1's and K2's criteria head their section below.
 """
 
 import numpy as np
@@ -14,6 +17,8 @@ import pytest
 import torch
 
 from cortex_tpu_torch.ops import ivf_gather
+from cortex_tpu_torch.ops import similarity as sim
+from cortex_tpu_torch.vector.shard import build_bias
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +106,171 @@ def test_argument_checks_raise(dev, bad):
         args[7] = args[7][:8]
     with pytest.raises(RuntimeError):
         ivf_gather.probed_scores(*args, filtered=False)
+
+
+# ------------------------------------------------ flat kernels: K1, K2
+#
+# K1 (quant_candidates) against quant_candidates_plain: every returned
+# row's score is bit-equal to the plain score of that row (the same
+# int32 sum, rounded to f32 once, then the same division, multiply and
+# add, each rounded once), the cand-th value is equal, and the row sets
+# are equal except for exact ties at the boundary. K2 (quant_rerank)
+# against quant_rerank_plain: scores within 1e-5 (f32 summation order),
+# ids equal except at near-ties of 1e-6.
+
+# (cap, d, B): odd d and cap, d % 4 != 0, 384 and 768, cap below cand
+FLAT_SHAPES = [(3001, 37, 5), (5000, 384, 8), (8192, 768, 64),
+               (100, 16, 1), (4100, 20, 3)]
+BIAS_CASES = ["none", "filtered", "host"]
+RERANK_ATOL = 1e-5
+NEAR_TIE = 1e-6
+
+
+def _flat_inputs(dev, cap, d, b, case, seed=0):
+    rng = np.random.default_rng(seed)
+    emb = rng.integers(-127, 128, (cap, d)).astype(np.int8)
+    rinv = (rng.random(cap) * 0.01 + 0.001).astype(np.float32)
+    qi8 = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    qs = (127.0 / (rng.random(b) * 0.5 + 0.05)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (emb, rinv, qi8, qs)]
+    if case == "none":
+        bias = torch.zeros(cap, dtype=torch.float32, device=dev)
+    elif case == "filtered":
+        live = torch.from_numpy(rng.random(cap) < 0.9).to(dev)
+        kinds = torch.from_numpy(rng.integers(0, 5, cap).astype(np.int32)
+                                 ).to(dev)
+        agents = torch.from_numpy(rng.integers(0, 3, cap).astype(np.int32)
+                                  ).to(dev)
+        ak = np.full(16, -2, np.int32)
+        ak[:2] = (1, 3)
+        ex = np.full(64, -1, np.int32)
+        ex[:10] = np.arange(10)
+        bias = build_bias(live, kinds, agents, ak, np.int32(1), ex)
+    else:
+        bias = torch.from_numpy(np.where(rng.random(cap) < 0.3, -1e30, 0.0)
+                                .astype(np.float32)).to(dev)
+    return (*t, bias)
+
+
+def _plain_scores(emb, rinv, qi8, qs, bias):
+    return sim.int8_dot(qi8, emb) * (rinv[None, :] / qs[:, None]) + bias
+
+
+@pytest.mark.parametrize("cand", [64, 2048])
+@pytest.mark.parametrize("case", BIAS_CASES)
+@pytest.mark.parametrize("shape", FLAT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_quant_candidates_equals_plain(dev, shape, case, cand):
+    args = _flat_inputs(dev, *shape, case)
+    before = sim.quant_candidates.launches
+    v, i = sim.quant_candidates(*args, cand)
+    torch.cuda.synchronize()
+    assert sim.quant_candidates.launches == before + 1
+    pv, pi = sim.quant_candidates_plain(*args, cand)
+    assert v.shape == pv.shape == (shape[2], cand)
+    assert i.dtype == pi.dtype == torch.int32
+    full = _plain_scores(*args)
+    cap = shape[0]
+    kk = min(cand, cap)
+    # every returned row's score is the plain score of that row, bit for bit
+    assert torch.equal(v[:, :kk], torch.gather(full, 1, i[:, :kk].long()))
+    assert torch.equal(v[:, kk - 1], pv[:, kk - 1])        # the cand-th value
+    assert (v[:, kk:] <= -1e29).all() and (i[:, kk:] == 0).all()
+    for b in range(shape[2]):
+        got, want = set(i[b, :kk].tolist()), set(pi[b, :kk].tolist())
+        edge = float(pv[b, kk - 1])
+        assert all(float(full[b, r]) == edge for r in got ^ want)
+
+
+@pytest.mark.parametrize("k", [10, 16, 100])
+@pytest.mark.parametrize("cand", [64, 2048])
+@pytest.mark.parametrize("d", [37, 384, 768])
+def test_quant_rerank_equals_plain(dev, d, cand, k):
+    rng = np.random.default_rng(d + cand)
+    cap, b = 6000, 9
+    emb = rng.standard_normal((cap, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    ci = rng.integers(0, cap, (b, cand)).astype(np.int32)
+    cv = rng.standard_normal((b, cand)).astype(np.float32)
+    cv[rng.random((b, cand)) < 0.2] = -1e30            # invalid candidates
+    emb_t, q_t, cv_t, ci_t = (torch.from_numpy(a).to(dev)
+                              for a in (emb, q, cv, ci))
+    before = sim.quant_rerank.launches
+    v, i = sim.quant_rerank(emb_t, q_t, cv_t, ci_t, k)
+    torch.cuda.synchronize()
+    assert sim.quant_rerank.launches == before + 1
+    pv, pi = sim.quant_rerank_plain(emb_t, q_t, cv_t, ci_t, k)
+    assert v.shape == (b, k) and i.dtype == torch.int32
+    torch.testing.assert_close(v, pv, atol=RERANK_ATOL, rtol=0)
+    for r in range(b):
+        for j in range(k):
+            if int(i[r, j]) != int(pi[r, j]):
+                near = [abs(float(pv[r, j]) - float(pv[r, t]))
+                        for t in (j - 1, j + 1) if 0 <= t < k]
+                assert min(near) <= NEAR_TIE
+
+
+def test_quant_rerank_pads_past_cand(dev):
+    emb = torch.randn(50, 16, device=dev)
+    q = torch.randn(2, 16, device=dev)
+    cv = torch.zeros(2, 8, device=dev)
+    ci = torch.arange(16, dtype=torch.int32, device=dev).reshape(2, 8)
+    v, i = sim.quant_rerank(emb, q, cv, ci, 12)
+    assert (v[:, 8:] <= -1e29).all() and (i[:, 8:] == 0).all()
+    assert (v[:, :8] > -1e29).all()
+
+
+@pytest.mark.parametrize("b", [1, 17, 64])
+@pytest.mark.parametrize("d", [37, 768])
+def test_int8_dot_is_exact(dev, b, d):
+    rng = np.random.default_rng(b * d)
+    qi8 = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    emb = rng.integers(-127, 128, (4096, d)).astype(np.int8)
+    want = qi8.astype(np.int64) @ emb.astype(np.int64).T
+    got = sim.int8_dot(torch.from_numpy(qi8).to(dev),
+                       torch.from_numpy(emb).to(dev))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
+                                 "cand", "dim"])
+def test_quant_candidates_argument_checks_raise(dev, bad):
+    emb, rinv, qi8, qs, bias = _flat_inputs(
+        dev, 300, 4097 if bad == "dim" else 64, 2, "none")
+    cand = 0 if bad == "cand" else 64
+    if bad == "dtype":
+        rinv = rinv.double()
+    elif bad == "noncontig":
+        emb = emb.t().contiguous().t()
+    elif bad == "device":
+        qi8 = qi8.cpu()
+    elif bad == "shape":
+        bias = bias[:100]
+    with pytest.raises(RuntimeError):
+        sim.quant_candidates(emb, rinv, qi8, qs, bias, cand)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
+                                 "cand", "k"])
+def test_quant_rerank_argument_checks_raise(dev, bad):
+    emb = torch.randn(100, 32, device=dev)
+    q = torch.randn(3, 32, device=dev)
+    cv = torch.zeros(3, 64, device=dev)
+    ci = torch.zeros(3, 64, dtype=torch.int32, device=dev)
+    k = 0 if bad == "k" else 10
+    if bad == "dtype":
+        emb = emb.half()
+    elif bad == "noncontig":
+        q = torch.randn(32, 3, device=dev).t()
+    elif bad == "device":
+        cv = cv.cpu()
+    elif bad == "shape":
+        ci = ci[:, :32]
+    elif bad == "cand":
+        cv = torch.zeros(3, 16385, device=dev)
+        ci = torch.zeros(3, 16385, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        sim.quant_rerank(emb, q, cv, ci, k)

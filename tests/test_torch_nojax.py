@@ -1,9 +1,10 @@
 """cortex_tpu_torch imports and runs with jax blocked.
 
 One subprocess blocks jax (sys.modules['jax'] = sys.modules['jaxlib'] =
-None, so any import of it raises), imports the port, runs a tiny
-store -> search on the CPU, and reports what it saw as JSON; the tests
-below check that report.
+None, so any import of it raises), imports the port, runs tiny
+store -> search passes on the CPU (the IVF index, the flat index and the
+default config), and reports what it saw as JSON; the tests below check
+that report.
 """
 
 import json
@@ -38,17 +39,31 @@ SCRIPT = textwrap.dedent("""
             setattr(c.embedding, k, v)
         return c
 
+    def store_search(config):
+        cx = Cortex.in_memory(config, device="cpu")
+        nodes = [Node.new("fact" if i % 2 else "event",
+                          f"note {i} about topic{i % 5}", f"body word{i}",
+                          Source(agent="a"), 0.5) for i in range(40)]
+        cx.store_batch(nodes)
+        hits = cx.search(f"note 3 about topic3", 5, record_access=False)
+        flt = cx.search("note 3 about topic3", 5, flt=VectorFilter(
+            kinds=["event"]), record_access=False)
+        return cx, {"top1": hits[0][1].id == nodes[3].id,
+                    "filtered_kinds": sorted({n.kind for _, n in flt}),
+                    "index": cx.index.index_info()["kind"]}
+
     out = {}
-    cx = Cortex.in_memory(cfg(), device="cpu")
-    nodes = [Node.new("fact" if i % 2 else "event",
-                      f"note {i} about topic{i % 5}", f"body word{i}",
-                      Source(agent="a"), 0.5) for i in range(40)]
-    cx.store_batch(nodes)
-    hits = cx.search(f"note 3 about topic3", 5, record_access=False)
-    out["top1"] = hits[0][1].id == nodes[3].id
-    flt = cx.search("note 3 about topic3", 5, flt=VectorFilter(
-        kinds=["event"]), record_access=False)
-    out["filtered_kinds"] = sorted({n.kind for _, n in flt})
+    cx, ivf = store_search(cfg())
+    out.update(ivf)
+    # the flat index: asked for, the default config (index = "flat" with
+    # ivf_graph_degree = 32, which only the IVF index reads), and the
+    # IVF-only settings beside index = "flat"
+    out["flat"] = {
+        "flat": store_search(cfg(index="flat"))[1],
+        "default": store_search(CortexConfig())[1],
+        "flat_ivf_settings": store_search(cfg(
+            index="flat", ivf_graph_degree=32, ivf_target_recall=0.9))[1],
+    }
     out["jax_loaded"] = any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         for m, v in sys.modules.items() if v is not None)
@@ -67,7 +82,7 @@ SCRIPT = textwrap.dedent("""
             lambda: Cortex.in_memory(cfg()), DeviceUnavailable)
     with tempfile.TemporaryDirectory() as weights_dir:
         unported = {
-            "flat": dict(index="flat"),
+            "flat": dict(index="flat", sharded=True),
             "graph": dict(ivf_graph_degree=32),
             "tuner": dict(ivf_target_recall=0.9),
             "sharded": dict(sharded=True),
@@ -78,8 +93,11 @@ SCRIPT = textwrap.dedent("""
                                                         device="cpu"),
                          ConfigError)
             for name, kw in unported.items()}
-    out["default_config_error"] = raises(
-        lambda: Cortex.in_memory(device="cpu"), ConfigError)
+    ivf_defaults = CortexConfig()
+    ivf_defaults.embedding.index = "ivf"
+    ivf_defaults.embedding.model = "hash-64"
+    out["ivf_default_config_error"] = raises(
+        lambda: Cortex.in_memory(ivf_defaults, device="cpu"), ConfigError)
     out["gate_error"] = raises(
         lambda: cx.store(Node.new("fact", "gated title here", "gated body",
                                   Source(agent="a")), gate=True),
@@ -119,14 +137,29 @@ def test_cuda_absent_raises(report):
 @pytest.mark.parametrize("name", ["flat", "graph", "tuner", "sharded",
                                   "local_weights"])
 def test_unported_config_raises_config_error(report, name):
+    # flat: the sharded flat index; graph and tuner: ivf_graph_degree /
+    # ivf_target_recall with index = "ivf", the only index that reads them
     msg = report["config_errors"][name]
     assert msg is not None and "ROADMAP" in msg
 
 
 def test_reference_defaults_are_refused(report):
-    # the port keeps the reference defaults: index = "flat" and
-    # ivf_graph_degree = 32, neither ported yet
-    assert "flat" in report["default_config_error"]
+    # with index = "ivf", the reference's other defaults are refused:
+    # ivf_graph_degree = 32 asks for the unported kNN-graph refinement
+    assert "ivf_graph_degree" in report["ivf_default_config_error"]
+
+
+@pytest.mark.parametrize("name", ["flat", "default", "flat_ivf_settings"])
+def test_flat_index_stores_and_searches_without_jax(report, name):
+    got = report["flat"][name]
+    assert got == {"top1": True, "filtered_kinds": ["event"],
+                   "index": "flat"}
+
+
+def test_reference_defaults_open_the_flat_index(report):
+    # the port keeps the reference defaults: index = "flat" with
+    # ivf_graph_degree = 32, which the flat index does not read
+    assert report["flat"]["default"]["index"] == "flat"
 
 
 def test_write_gate_raises_config_error(report):
