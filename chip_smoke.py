@@ -7,7 +7,8 @@
 Phases, each printing its results on its own line:
 
   1. build the CUDA kernels (every source of csrc/, one library in
-     cortex_tpu_torch/_build/) and name the card;
+     cortex_tpu_torch/_build/), name the card and say whether the
+     native host re-rank (cortex_tpu_torch/native/) built and loaded;
   2. hold each kernel against its plain torch version. probed_scores
      (IVF): a small odd shape, the 384-d shape of phase 4's layout and
      the 1M x 768 layout of phase 3 over 64 queries; unfiltered,
@@ -18,8 +19,16 @@ Phases, each printing its results on its own line:
      unfiltered, filtered and host-bias; K1's returned scores bit-equal
      to the plain scores of their rows, its cand-th value equal, its row
      sets equal but for exact ties at the boundary; K2's scores within
-     SCORE_ATOL, ids equal but for near-ties of NEAR_TIE. Each kernel's
-     and plain version's times at the 1M shapes (CUDA events);
+     SCORE_ATOL, ids equal but for near-ties of NEAR_TIE. Then each
+     kernel's and its plain version's times (CUDA events) at the 1M
+     shapes at batch 64 and at batch 1 (K1 also at cand 2048, beside
+     torch._int_mm computing its int8 product alone, "product only"),
+     each beside its bound: the least time the card could take, the
+     larger of the bytes the function must move over 3.35 TB/s and its
+     operations over the peak for their type (int8 1,979 TOP/s, fp32
+     67 TFLOP/s; NVIDIA's H100 SXM data sheet), and its share of the
+     bound (bound / time); probed_scores' bytes count the distinct lists
+     the queries probe;
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -46,7 +55,9 @@ set to 0 just before each and read just after it: probed_scores from
 the first, quant_candidates and quant_rerank from the second; launches
 made in phase 2 do not count. The line before the last lists the
 kernels as JSON, the line before that the card's name and power limit;
-the last line is the device JSON. Any failed check raises, so the
+the last line is the device JSON. At the end the script fails if any
+module of the JAX package (cortex_tpu or cortex_tpu.*) was imported:
+the port and this script import none. Any failed check raises, so the
 script exits non-zero; so it does without CUDA or without the
 cortex_tpu_torch package beside it.
 
@@ -55,7 +66,9 @@ each one's search speed as phases 3 and 5 do, then traces
 PROFILE_ROUNDS searches at batch 64 and at batch 1 with torch.profiler:
 host ms per search in each layer's span, device ms per kernel, and the
 device's idle share of the traced wall. The Chrome traces go to
-profile_out/ beside this script.
+profile_out/ beside this script. Last, it times K1's kernel whole and
+cut short after each of its parts (csrc/flat_scan.cu built alone with
+CORTEX_K1_PARTS) on the flat index's planes.
 """
 
 from __future__ import annotations
@@ -73,6 +86,9 @@ D_BIG, N_BIG, BATCH, K = 768, 1_000_000, 64, 10
 N_NODES, DIM_NODES = 20_000, 384
 QPS_RUNS, QPS_ROUNDS, N_LAT = 5, 30, 1000
 PROFILE_ROUNDS = 20
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM peaks, NVIDIA's data sheet
+INT8_OPS_PER_S = 1.979e15       # dense int8 tensor cores
+F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
 SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
 FLAT_CANDS = (64, 2048)   # k = 10 (k bucket 16) and search_threshold's 1000
@@ -216,9 +232,27 @@ def time_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def bound_ms(nbytes, ops, peak):
+    """(ms, "bytes" or "operations"): the least time the card could
+    take for a function that moves nbytes (each input read once, each
+    output written once) and does ops operations of a type whose peak
+    rate is `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def timing(kernel_ms, plain_ms, bound, **extra):
+    """One measured shape: the kernel's and plain version's times, the
+    bound and the kernel's share of it."""
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "share_of_bound": bound[0] / kernel_ms,
+            **extra}
+
+
 def check_real_layout(kc, index, queries):
     """Phase 2 at the 1M layout: the probes and int8 queries of a real
-    default-nprobe search; returns (kernel ms, plain ms)."""
+    default-nprobe search; returns the timings at batch 64 and 1."""
     import torch
     from cortex_tpu_torch.ops.ivf_gather import (probed_scores,
                                                  probed_scores_plain)
@@ -237,9 +271,18 @@ def check_real_layout(kc, index, queries):
                 *filter_lists(dev, rows, on=True, agent=0)), filtered=True)
     bias = torch.from_numpy(co._host_bias(["k1"], None, None)).to(dev)
     kc.compare(args, filtered=False, host_bias=bias)
-    kernel_ms = time_ms(lambda: probed_scores(*args, filtered=False), 20)
-    plain_ms = time_ms(lambda: probed_scores_plain(*args, filtered=False), 3)
-    return kernel_ms, plain_ms, p
+    out = {}
+    for b in (BATCH, 1):
+        a = (emb, rinv, rows, kinds, agents, probe[:b], qi8[:b], *off)
+        lists = int(torch.unique(probe[:b]).numel())
+        nbytes = (lists * emb.shape[1] * (emb.shape[2] + 16) + b * q.shape[1]
+                  + 4 * b * p + 8 * b * p * emb.shape[1])
+        out[f"b{b}"] = timing(
+            time_ms(lambda: probed_scores(*a, filtered=False), 20),
+            time_ms(lambda: probed_scores_plain(*a, filtered=False), 3),
+            bound_ms(nbytes, 2 * b * p * emb.shape[1] * emb.shape[2],
+                     INT8_OPS_PER_S), lists_probed=lists)
+    return out, p
 
 
 # ------------------------------------------------ phase 2, flat kernels
@@ -441,12 +484,10 @@ def phase_index(dev, n, d, gen, kc):
         build_s=round(t_build, 2))
     q_np = noisy_centers(gen, centers, BATCH)
     q_lat = noisy_centers(gen, centers, N_LAT)
-    kernel_ms, plain_ms, p = check_real_layout(kc, index, q_np)
-    say("2-kernel-1M", batch=BATCH, nprobe=int(p), cases=kc.cases,
-        max_abs_err=kc.max_abs_err, kernel_ms=kernel_ms,
-        plain_ms=plain_ms)
-    return index, q_np, q_lat, (kernel_ms, plain_ms), (x_h, ids, kinds,
-                                                      q_np)
+    perf, p = check_real_layout(kc, index, q_np)
+    say("2-kernel-1M", nprobe=int(p), cases=kc.cases,
+        max_abs_err=kc.max_abs_err, **perf)
+    return index, q_np, q_lat, perf, (x_h, ids, kinds, q_np)
 
 
 def search_speed(index, q_np, q_lat):
@@ -526,7 +567,7 @@ def seeded_nodes(n, seed, *, topics=400):
     """Seeded nodes of mixed kinds and agents whose texts cluster by
     topic, as a real memory store does: each node draws most of its
     words from one of `topics` 40-word vocabularies."""
-    from cortex_tpu.types import Node, Source
+    from cortex_tpu_torch.types import Node, Source
     rng = np.random.default_rng(seed)
     vocab = np.array([f"w{i}" for i in range(topics * 40)])
     kinds = ("fact", "event", "decision", "goal", "observation")
@@ -728,8 +769,10 @@ def phase_flat_build(dev, rows, fc):
 def check_flat_real(fc, index, q_np):
     """Phase 2 at the flat index's own planes and 64 real queries: K1
     with cand 64 and 2048, unfiltered, filtered and host bias, each
-    followed by K2; then the kernels' and the plain versions' times at
-    the main path's shapes (cand 64, k bucket 16, unfiltered)."""
+    followed by K2; then the kernels' and the plain versions' times,
+    unfiltered, at batch 64 and 1: K1 at cand 64 (the main path's, k
+    bucket 16) and 2048 beside torch._int_mm's product alone, K2 at
+    cand 64 and k 16."""
     import torch
     from cortex_tpu_torch.ops import similarity as sim
     co = index._corpus
@@ -741,7 +784,6 @@ def check_flat_real(fc, index, q_np):
         None, None, [co._id_of[r] for r in range(0, 20000, 97)])).to(
             emb.device)
     biases = flat_biases(live, kinds, agents, None, host=host, agent=0)
-    out = None
     for bias in biases:
         for cand in FLAT_CANDS:
             cv, ci = fc.k1(emb_i8, rinv, qi8, qs, bias, cand)
@@ -749,21 +791,31 @@ def check_flat_real(fc, index, q_np):
                 if k <= cand:
                     fc.k2(emb, q, cv, ci, k)
     b0 = biases[0]
-    cv, ci = sim.quant_candidates(emb_i8, rinv, qi8, qs, b0, FLAT_CANDS[0])
-    out = {
-        "quant_candidates": (
-            time_ms(lambda: sim.quant_candidates(emb_i8, rinv, qi8, qs, b0,
-                                                 FLAT_CANDS[0]), 20),
-            time_ms(lambda: sim.quant_candidates_plain(
-                emb_i8, rinv, qi8, qs, b0, FLAT_CANDS[0]), 5)),
-        "quant_rerank": (
-            time_ms(lambda: sim.quant_rerank(emb, q, cv, ci, 16), 50),
-            time_ms(lambda: sim.quant_rerank_plain(emb, q, cv, ci, 16), 20)),
-    }
-    say("2-flat-kernels-1M", batch=len(q_np), cands=list(FLAT_CANDS),
-        cases=fc.cases, k1_max_abs_err=fc.k1_err, k2_max_abs_err=fc.k2_err,
-        **{f"{n}_ms": t[0] for n, t in out.items()},
-        **{f"{n}_plain_ms": t[1] for n, t in out.items()})
+    out = {"quant_candidates": {}, "quant_rerank": {}}
+    cap, d = emb_i8.shape
+    for b in (BATCH, 1):
+        qb, qib, qsb = q[:b], qi8[:b], qs[:b]
+        qp = torch.nn.functional.pad(qib, (0, 0, 0, max(0, 32 - b)))
+        product_ms = time_ms(lambda: torch._int_mm(qp, emb_i8.T), 5)
+        for cand in FLAT_CANDS:
+            nbytes = cap * d + 8 * cap + b * d + 4 * b + 8 * b * cand
+            out["quant_candidates"][f"b{b}_cand{cand}"] = timing(
+                time_ms(lambda: sim.quant_candidates(emb_i8, rinv, qib, qsb,
+                                                     b0, cand), 10),
+                time_ms(lambda: sim.quant_candidates_plain(
+                    emb_i8, rinv, qib, qsb, b0, cand), 5),
+                bound_ms(nbytes, 2 * b * cap * d, INT8_OPS_PER_S),
+                int_mm_product_only_ms=product_ms)
+        cv, ci = sim.quant_candidates(emb_i8, rinv, qib, qsb, b0,
+                                      FLAT_CANDS[0])
+        valid = int((cv > -1e29).sum())
+        nbytes = 4 * valid * d + 4 * b * d + 8 * cv.numel() + 8 * b * 16
+        out["quant_rerank"][f"b{b}"] = timing(
+            time_ms(lambda: sim.quant_rerank(emb, qb, cv, ci, 16), 50),
+            time_ms(lambda: sim.quant_rerank_plain(emb, qb, cv, ci, 16), 20),
+            bound_ms(nbytes, 2 * valid * d, F32_OPS_PER_S))
+    say("2-flat-kernels-1M", cands=list(FLAT_CANDS), cases=fc.cases,
+        k1_max_abs_err=fc.k1_err, k2_max_abs_err=fc.k2_err, **out)
     return out
 
 
@@ -971,7 +1023,104 @@ def profile_index(name, index, q_np, q_lat, card):
     profile_layers(name, index, q_np, q_lat)
 
 
+def build_k1_parts():
+    """csrc/flat_scan.cu alone as plain-C libraries, whole and cut short
+    after each of K1's parts (CORTEX_K1_PARTS), one nvcc each, side by
+    side. Returns {CORTEX_K1_PARTS value: ctypes.CDLL}."""
+    import ctypes
+    import subprocess
+    from cortex_tpu_torch.ops import build
+    src = build._CSRC / "flat_scan.cu"
+    out = build._BUILD / "k1_parts"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [build._nvcc(), *build._NVCC_FLAGS, "-shared",
+         f"-DCORTEX_K1_PARTS={n}", str(src), "-o",
+         str(out / f"flat_scan_parts{n}.so")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in (0, 1, 2)}
+    for n, p in procs.items():
+        log = p.communicate()[0]
+        check(p.returncode == 0, f"nvcc failed on K1 parts {n}:\n{log}")
+    return {n: ctypes.CDLL(str(out / f"flat_scan_parts{n}.so"))
+            for n in procs}
+
+
+def profile_k1_parts(index, q_np, card):
+    """K1's kernel alone (no merge) at the flat index's 1M x 768 planes,
+    at batch 64 and 1 and cand 64 and 2048: whole, and cut short after
+    the int8 product and after epilogue 1 (descale and threshold filter
+    into the score tile); then whole again on the same planes rolled so
+    that the rows the index has not used yet (masked, at the start)
+    come last. In the cut kernels the thresholds never rise, so epilogue
+    1 does the exact division for every score: its share is an upper
+    bound."""
+    import ctypes
+    import torch
+    from cortex_tpu_torch.ops import similarity as sim
+
+    class Plan(ctypes.Structure):                   # flat_scan.cuh
+        _fields_ = [(f, ctypes.c_int) for f in (
+            "qt", "n_groups", "n_part", "m", "capb", "bufs_global", "smem",
+            "aligned")]
+
+    libs = build_k1_parts()
+    co = index._corpus
+    emb_i8, rinv = co._dev_q
+    cap, d = emb_i8.shape
+    check(d % 16 == 0, "K1 parts are timed on 16-byte rows only")
+    dev = emb_i8.device
+    bias = torch.where(co._dev[1].bool(), 0.0, -1e30).float()   # live rows
+    unused = int(torch.argmax(co._dev[1].int()))    # rows before the first
+    planes = (emb_i8, rinv, bias)
+    rolled = tuple(torch.roll(t, -unused, 0).contiguous() for t in planes)
+    cases = {"whole_ms": (libs[0], planes), "product_ms": (libs[1], planes),
+             "product_and_epilogue1_ms": (libs[2], planes),
+             "whole_unused_rows_last_ms": (libs[0], rolled)}
+    q = torch.from_numpy(q_np).to(dev)
+    ptr = ctypes.c_void_p
+    stream = ptr(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for b in (BATCH, 1):
+        qi8, qs = sim.quantize_queries(q[:b])
+        for cand in FLAT_CANDS:
+            row = {}
+            for label, (lib, (e, r, bs)) in cases.items():
+                plan = Plan()
+                check(lib.cortex_quant_scan_plan(b, cap, d, cand, 1,
+                                                 ctypes.byref(plan)) == 0,
+                      "K1 parts: no launch shape")
+                ov = torch.empty(b, plan.n_part * plan.m, device=dev)
+                oi = torch.empty_like(ov, dtype=torch.int32)
+                nbuf = (plan.n_groups * plan.n_part * plan.qt * plan.capb
+                        if plan.bufs_global else 1)
+                bv = torch.empty(nbuf, device=dev)
+                bi = torch.empty_like(bv, dtype=torch.int32)
+                pub = torch.zeros(plan.n_groups * plan.qt * (plan.n_part + 1),
+                                  dtype=torch.int32, device=dev)
+                args = [ptr(t.data_ptr()) for t in (
+                    e, r, qi8, qs, bs, ov, oi, bv, bi, pub)]
+
+                def run():
+                    pub.zero_()
+                    check(lib.cortex_quant_scan_launch(
+                        ctypes.byref(plan), *args, b, cap, d, cand,
+                        stream) == 0, "K1 parts: launch failed")
+                row[label] = time_ms(run, 10)
+            row["selection_ms"] = (row["whole_ms"]
+                                   - row["product_and_epilogue1_ms"])
+            out[f"b{b}_cand{cand}"] = row
+    say("profile-flat-k1-parts", card=card, unused_rows_first=unused, **out)
+
+
 # ------------------------------------------------------------ main
+
+
+def check_no_reference_import():
+    """Fail if any module of the JAX package was imported."""
+    loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+        m == "cortex_tpu" or m.startswith("cortex_tpu.")))
+    check(not loaded, f"the JAX package was imported: {loaded[:5]}")
 
 
 def main(argv) -> int:
@@ -983,6 +1132,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from cortex_tpu_torch import native
     from cortex_tpu_torch.ops import build
     from cortex_tpu_torch.utils.device import card_identity, resolve_device
 
@@ -994,7 +1144,8 @@ def main(argv) -> int:
     lib = build.build_library()
     build.load_ops()
     say("1-build", seconds=time.monotonic() - t0, library=str(lib),
-        torch=torch.__version__, cuda=torch.version.cuda, card=card)
+        torch=torch.__version__, cuda=torch.version.cuda, card=card,
+        native_rerank=native.available())
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1007,6 +1158,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         index, _ = phase_flat_build(dev, rows, fc)
         profile_index("flat", index, q_np, q_lat, card)
+        profile_k1_parts(index, q_np, card)
+        check_no_reference_import()
         print(card, flush=True)
         return 0
     check_synthetic(kc, dev, gen, 16, 37, 100, 5, 3)        # small, odd
@@ -1016,9 +1169,9 @@ def main(argv) -> int:
     say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err,
         flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
         k2_max_abs_err=fc.k2_err)
-    index, q_np, q_lat, ivf_ms, rows = phase_index(dev, N_BIG, D_BIG, gen,
-                                                   kc)
-    times = {"probed_scores": ivf_ms}
+    index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
+                                                     gen, kc)
+    perf = {"probed_scores": ivf_perf}
 
     reset_launches()                          # the IVF main path
     phase_search(index, q_np, q_lat, gen, dev, card)
@@ -1028,8 +1181,8 @@ def main(argv) -> int:
         phase_cortex(dev, workdir)
     launches = {"probed_scores": launch_counts()["probed_scores"]}
 
-    index, flat_ms = phase_flat_build(dev, rows, fc)
-    times.update(flat_ms)
+    index, flat_perf = phase_flat_build(dev, rows, fc)
+    perf.update(flat_perf)
     del rows
     reset_launches()                          # the flat main path
     phase_flat_search(index, q_np, q_lat, gen, dev, card)
@@ -1045,11 +1198,28 @@ def main(argv) -> int:
 
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
             "quant_rerank": fc.k2_err}
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src, "replaces": repl,
-        "launches": launches[name], "max_abs_err": errs[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, repl) in KERNELS.items()]}), flush=True)
+    main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
+                   "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
+                                        f"b1_cand{FLAT_CANDS[0]}"),
+                   "quant_rerank": (f"b{BATCH}", "b1")}
+    say("2-bounds", card=card, **{
+        name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
+                                          "share_of_bound")}
+               for shape, t in perf[name].items()}
+        for name in KERNELS})
+    check_no_reference_import()
+    kernels = []
+    for name, (src, repl) in KERNELS.items():
+        b64, b1 = (perf[name][k] for k in main_shapes[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": b64["ms"], "plain_ms": b64["plain_ms"],
+            "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
+            "library_ms": None, "batch1": b1,
+            **{k: v for k, v in perf[name].items()
+               if k not in main_shapes[name]}})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """cortex_tpu_torch — the port of cortex_tpu to PyTorch and CUDA.
 
 The JAX package `cortex_tpu` stays beside it as the reference. This
-package reuses cortex_tpu's host modules that import without jax (node
-types, errors, storage, hooks, the native re-rank) and ports the rest.
-It never imports jax.
+package imports nothing of it, and never imports jax. The host modules
+it needs are copies kept under the reference's names: `errors`,
+`types`, `hooks` and `storage` (byte-for-byte the reference's, so a
+database written by one package opens in the other), and the native
+exact re-rank (`native/`).
 
 Ported so far: store -> search over the flat index (`[embedding] index
 = "flat"`, the default), with the int8 candidate scan and the exact

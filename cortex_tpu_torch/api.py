@@ -5,7 +5,7 @@ Counterpart of cortex_tpu/api.py::Cortex, limited to the slice this
 package ports: open / in_memory, store / store_batch / update_node /
 delete_node, get_node / list_nodes, search with the score-decay re-rank
 and access recording, and close. Storage (SQLite or memory), node types
-and hooks are cortex_tpu's host modules, reused as they are.
+and hooks are the port's copies of the reference's modules.
 
 At open the index is rebuilt from the stored embeddings (index
 snapshots are not ported). The device is an argument: "cuda" (the
@@ -20,14 +20,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from cortex_tpu.errors import ConfigError
-from cortex_tpu.hooks import HookRegistry, MutationHook
-from cortex_tpu.storage import MemoryStorage, NodeFilter, SqliteStorage, \
-    Storage
-from cortex_tpu.types import Node
-
 from .config import GATE_ITEM, CortexConfig, check_ported
+from .errors import ConfigError
+from .hooks import HookRegistry, MutationHook
 from .linker.decay import DecayEngine
+from .storage import MemoryStorage, NodeFilter, SqliteStorage, Storage
+from .types import Node
 from .utils.device import resolve_device
 from .vector.embedding import default_embedder
 from .vector.index import TorchFlatIndex, VectorFilter

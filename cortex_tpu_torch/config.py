@@ -21,8 +21,7 @@ import tomllib
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
-from cortex_tpu.errors import ConfigError
-
+from .errors import ConfigError
 from .vector.scoring import ScoreDecayConfig
 
 #: ROADMAP items that port what this slice refuses

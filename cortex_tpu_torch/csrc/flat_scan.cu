@@ -10,28 +10,46 @@
 //
 // K1 quant_scan: scores s[b, r] = float(sum_j qi8[b, j] * emb_i8[r, j])
 //   * (rinv[r] / qs[b]) + bias[r], in that order of operations, each
-//   rounded once (__fdiv_rn, __fmul_rn, __fadd_rn: nvcc must not fuse the
-//   multiply and the add, or the scores would differ from the plain
-//   version's). The sum is an int32 __dp4a sum, exact at any d.
+//   rounded once (__int2float_rn, __fdiv_rn, __fmul_rn, __fadd_rn: nvcc
+//   must not fuse the multiply and the add, or the scores would differ
+//   from the plain version's). The sum is the int32 sum of the int8
+//   tensor cores, exact at any d.
 //
-//   What bounds it: every row is d bytes read against 2*B*d integer
-//   operations (B*cap*d/4 __dp4a, ~12.3 G at batch 64 and 1M x 768).
-//   Measured on an H100 (PERF.md), the time grows with the number of
-//   query tiles (0.63 ms for 1 tile, 4.68 ms for 8), so each tile's pass
-//   over the rows, one thread streaming its own row, bounds it at ~1.3
-//   TB/s effective. The design reads each row once per tile of queries,
-//   never once per query: a block takes a chunk of rows x a tile of up
-//   to 8 queries, with the query tiles of one chunk adjacent in the grid
-//   so that the chunk is served from L2 to all of them. One thread
-//   scores one row against every query of the tile (the queries sit in
-//   shared memory, read as broadcasts), and the chunk's scores stay in
-//   shared memory, never in device memory. Each warp then selects its query's exact
-//   top-m of the chunk (m = min(cand, chunk)) with a 4-pass radix select
-//   over the order-preserving integer image of the float scores, and
-//   writes the partials [B, n_chunks, m]. The merge of the partials is a
-//   torch.topk in the wrapper (ops/similarity.py), as the reference's
-//   merge is a separate lax.top_k. The later fix: int8 tensor-core tiles
-//   (mma/wgmma) over all the batch's queries, fed by coalesced loads.
+//   What bounds it: the corpus, cap * d bytes, read once per group of up
+//   to 64 queries (805 MB at cap 1,048,576 x 768: 0.24 ms at 3.35 TB/s),
+//   against 2 * B * cap * d integer operations that the int8 tensor
+//   cores do in less. The design:
+//   - a persistent grid, one block per SM (more where they fit), each
+//     looping over tiles of kRows rows (part, part + n_part, ..., from
+//     the last) for one group of qt <= 64 queries; the group's queries
+//     sit in shared memory for the whole kernel (48 KB at d = 768);
+//   - each tile streams through a kStages-deep ring of 128-byte K slices
+//     (cp.async.cg, 16 bytes a thread, 8 neighbouring threads on one
+//     row's 128 contiguous bytes; rows of any other d are assembled from
+//     bytes, zero-padded), swizzled so that ldmatrix reads are free of
+//     bank conflicts;
+//   - mma.sync m16n8k32 s8 x s8 -> s32: each warp takes 16 rows of the
+//     tile against every query of the group (qt / 16 m-tiles);
+//   - epilogue, 1: every thread descales its accumulators into a shared
+//     score tile [qt][kRows], paying for the exact division only where a
+//     cheap estimate can beat the query's threshold (-inf elsewhere), and
+//     flags the queries that have a score above it;
+//   - epilogue, 2: warp w owns queries w, w + 8, ...: for a flagged query
+//     it appends the tile's scores above the threshold to the query's
+//     candidate buffer (shared memory, or device memory when it does not
+//     fit) and, when the buffer fills, compacts it to its exact top m
+//     (up to 256 entries held in registers and the m-th found bit by bit
+//     with ballots, a radix select beyond) and raises the threshold to
+//     the m-th score;
+//   - a shared bound: at its tiles 0, 1, 3, 7 and 15 each block
+//     publishes its best score per query in device memory and raises its
+//     thresholds to a lower bound of the query's cand-th best over the
+//     whole corpus that the published scores prove (refresh_bounds), so
+//     that after the first tiles almost no score is appended anywhere.
+//   Each block writes its top m per query to partials [B, n_part, m];
+//   the merge of the partials is a torch.topk in the wrapper
+//   (ops/similarity.py), as the reference's merge is a separate
+//   lax.top_k.
 //
 // K2 quant_rerank: one block per query. The query sits in shared
 //   memory; each warp scores candidates with coalesced row reads and f32
@@ -44,17 +62,36 @@
 // The PyTorch op binding lives in flat_scan_op.cpp, so this file never
 // includes PyTorch's headers.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "flat_scan.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTile = 8;            // queries per K1 block
+constexpr int kRows = 16 * kWarps;     // rows per K1 tile, 16 per warp
+constexpr int kSlice = 128;            // bytes of K per pipeline stage
+constexpr int kStages = 3;
+constexpr int kMaxQ = 64;              // queries per K1 block
+constexpr int kSPitch = kRows + 8;     // floats a query takes in the score tile
 constexpr int kBins = 256;
+constexpr int kMinBufSlack = 96;       // capb - m, at least (>= 32)
+constexpr int kMaxBufSlack = 1024;     // capb - m, at most
+constexpr int kPubChunks = 5;          // blocks that publish: 32 * kPubChunks
 constexpr float kNegInf = -1e30f;
+
+// K1 cut short, to time its parts (`chip_smoke.py --profile` builds this
+// file with -DCORTEX_K1_PARTS=1 or 2): 1 ends each tile after the
+// product, 2 after epilogue 1. The library built for the ops keeps 0,
+// the whole kernel; a cut kernel's partials are meaningless.
+#ifndef CORTEX_K1_PARTS
+#define CORTEX_K1_PARTS 0
+#endif
+constexpr int kParts = CORTEX_K1_PARTS;
 
 // -inf, below every score a row can get (masked rows score ~kNegInf)
 __device__ __forceinline__ float minus_inf() {
@@ -68,207 +105,692 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// kLoad: 16 = int4 row loads (d % 16 == 0), 4 = int loads (d % 4 == 0),
-// 1 = words assembled from bytes (rows not 4-byte aligned)
-template <int kLoad>
-__global__ void __launch_bounds__(kThreads) quant_scan_kernel(
-    const int8_t* __restrict__ emb, const float* __restrict__ rinv,
-    const int8_t* __restrict__ qi8, const float* __restrict__ qs,
-    const float* __restrict__ bias, float* __restrict__ out_v,
-    int32_t* __restrict__ out_i, int b, int cap, int d, int tile,
-    int chunk, int m) {
-  extern __shared__ int smem[];
-  const int nw = (d + 3) / 4;
-  float* sc = reinterpret_cast<float*>(smem);          // [tile][chunk]
-  int* qw = smem + tile * chunk;                      // [tile][nw]
-  int* hist = qw + tile * nw;                         // [kWarps][kBins]
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
 
-  const int q0 = blockIdx.x * tile;
-  const int nq = min(tile, b - q0);
-  const int n_chunks = gridDim.y;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * chunk;
-  const int nrows = static_cast<int>(
-      min(static_cast<int64_t>(chunk), static_cast<int64_t>(cap) - row0));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // the tile's queries as int32 words, zero-padded (rows past nq stay 0)
-  for (int t = threadIdx.x; t < tile * nw; t += kThreads) {
-    const int qi = t / nw;
-    const int w = t - qi * nw;
-    uint32_t word = 0;
-    if (qi < nq) {
-      const int8_t* q = qi8 + static_cast<int64_t>(q0 + qi) * d;
-      for (int j = 0; j < 4; ++j) {
-        const int i = 4 * w + j;
-        if (i < d) {
-          word |= static_cast<uint32_t>(static_cast<unsigned char>(q[i]))
-                  << (8 * j);
-        }
-      }
-    }
-    qw[t] = static_cast<int>(word);
-  }
-  float qsr[kMaxTile];
-#pragma unroll
-  for (int qi = 0; qi < kMaxTile; ++qi) {
-    qsr[qi] = qi < nq ? qs[q0 + qi] : 1.0f;
-  }
-  __syncthreads();
+// 16 bytes global -> shared, asynchronous; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
 
-  // phase A: one thread per row, every query of the tile
-  const int n_full = d >> 2;
-  for (int r = threadIdx.x; r < chunk; r += kThreads) {
-    if (r >= nrows) {                   // past the corpus: never selected
-      for (int qi = 0; qi < tile; ++qi) sc[qi * chunk + r] = minus_inf();
-      continue;
-    }
-    const int64_t row = row0 + r;
-    const int8_t* rp = emb + row * d;
-    int acc[kMaxTile];
-#pragma unroll
-    for (int qi = 0; qi < kMaxTile; ++qi) acc[qi] = 0;
-    if (kLoad == 16) {
-      const int4* r4 = reinterpret_cast<const int4*>(rp);
-      for (int v = 0; v < (d >> 4); ++v) {
-        const int4 x = __ldg(r4 + v);
-#pragma unroll
-        for (int qi = 0; qi < kMaxTile; ++qi) {
-          if (qi < tile) {
-            const int* qq = qw + qi * nw + 4 * v;
-            int a = __dp4a(x.x, qq[0], acc[qi]);
-            a = __dp4a(x.y, qq[1], a);
-            a = __dp4a(x.z, qq[2], a);
-            acc[qi] = __dp4a(x.w, qq[3], a);
-          }
-        }
-      }
-    } else {
-      for (int w = 0; w < n_full; ++w) {
-        int x;
-        if (kLoad == 4) {
-          x = __ldg(reinterpret_cast<const int*>(rp) + w);
-        } else {
-          const unsigned char* bp =
-              reinterpret_cast<const unsigned char*>(rp) + 4 * w;
-          x = static_cast<int>(static_cast<uint32_t>(__ldg(bp)) |
-                               (static_cast<uint32_t>(__ldg(bp + 1)) << 8) |
-                               (static_cast<uint32_t>(__ldg(bp + 2)) << 16) |
-                               (static_cast<uint32_t>(__ldg(bp + 3)) << 24));
-        }
-#pragma unroll
-        for (int qi = 0; qi < kMaxTile; ++qi) {
-          if (qi < tile) acc[qi] = __dp4a(x, qw[qi * nw + w], acc[qi]);
-        }
-      }
-      for (int i = 4 * n_full; i < d; ++i) {        // the d % 4 tail
-        const int x = static_cast<int>(rp[i]);
-#pragma unroll
-        for (int qi = 0; qi < kMaxTile; ++qi) {
-          if (qi < tile) {
-            const int8_t* qb = reinterpret_cast<const int8_t*>(qw + qi * nw);
-            acc[qi] += x * static_cast<int>(qb[i]);
-          }
-        }
-      }
-    }
-    const float ri = rinv[row];
-    const float bi = bias[row];
-#pragma unroll
-    for (int qi = 0; qi < kMaxTile; ++qi) {
-      if (qi < tile) {
-        const float s = __fmul_rn(__int2float_rn(acc[qi]),
-                                  __fdiv_rn(ri, qsr[qi]));
-        sc[qi * chunk + r] = __fadd_rn(s, bi);
-      }
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // phase B: per query (one warp each), the exact top-m of the chunk
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 accumulate
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of the 16-byte chunk `c` (of 128-byte slices) of row `r`
+// in a tile whose rows are `stride` bytes: chunks XOR-swizzled by r % 8
+__device__ __forceinline__ int swz(int r, int c, int stride) {
+  return r * stride + ((c & ~7) << 4) + (((c & 7) ^ (r & 7)) << 4);
+}
+
+struct ScanArgs {
+  const int8_t* emb;
+  const float* rinv;
+  const int8_t* qi8;
+  const float* qs;
+  const float* bias;
+  float* out_v;        // [b, n_part * m]
+  int32_t* out_i;
+  float* buf_v;        // [n_groups * n_part * qt * capb], or null
+  int32_t* buf_i;
+  uint32_t* pub;       // [n_groups * qt * (n_part + 1)], zeroed
+  int b, cap, d, cand, n_slices, n_tiles, m, capb;
+};
+
+// Shared memory of a K1 block: queries, the ring of slices, the tile's
+// scores, the radix histograms, per-query counts and thresholds, then
+// (unless in device memory) the candidate buffers.
+__host__ __device__ inline size_t scan_smem_fixed(int qt, int n_slices) {
+  return static_cast<size_t>(qt) * n_slices * kSlice +
+         static_cast<size_t>(kStages) * kRows * kSlice +
+         static_cast<size_t>(qt) * kSPitch * sizeof(float) +
+         static_cast<size_t>(kWarps) * kBins * sizeof(int) +
+         4 * kMaxQ * sizeof(int);
+}
+
+// candidate buffer length per query for m candidates
+__host__ __device__ inline int scan_capb(int m) {
+  const int slack = m < kMinBufSlack ? kMinBufSlack : m;
+  return m + (slack < kMaxBufSlack ? slack : kMaxBufSlack);
+}
+
+// Warp-wide, n <= 256: the exact top-m of the n > m entries (v, ix),
+// moved to positions [0, m) in place (scores above the m-th, then the
+// first of those equal to it in buffer order). Returns the m-th score.
+// The entries sit in registers, 8 a lane (entry 32 j + lane); the m-th
+// key is found bit by bit below the bits all keys share, counting the
+// keys at or above each candidate with ballots.
+__device__ float compact_top_small(float* v, int32_t* ix, int n, int m,
+                                   int lane) {
   const uint32_t lt_mask = (1u << lane) - 1u;
-  int* h = hist + warp * kBins;
-  for (int qi = warp; qi < nq; qi += kWarps) {
-    const float* s = sc + qi * chunk;
-    const int64_t out0 =
-        (static_cast<int64_t>(q0 + qi) * n_chunks + blockIdx.y) * m;
-    if (m >= chunk) {                   // the whole chunk is the answer
-      for (int i = lane; i < chunk; i += 32) {
-        out_v[out0 + i] = s[i];
-        out_i[out0 + i] = i < nrows ? static_cast<int32_t>(row0 + i) : 0;
-      }
-      continue;
+  float sv[8];
+  int32_t si[8];
+  uint32_t k[8];
+  uint32_t kmax = 0u, kmin = 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = 32 * j + lane;
+    sv[j] = p < n ? v[p] : minus_inf();
+    si[j] = p < n ? ix[p] : 0;
+    k[j] = p < n ? order_key(sv[j]) : 0u;             // pads count last
+    if (p < n) {
+      kmax = max(kmax, k[j]);
+      kmin = min(kmin, k[j]);
     }
-    // radix select: the key of the m-th largest score, 8 bits a pass
-    uint32_t prefix = 0, pmask = 0;
-    int want = m;                       // rank inside the current bucket
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int i = lane; i < kBins; i += 32) h[i] = 0;
-      __syncwarp();
-      for (int i = lane; i < chunk; i += 32) {
-        const uint32_t k = order_key(s[i]);
-        if ((k & pmask) == prefix) atomicAdd(&h[(k >> shift) & 0xff], 1);
+  }
+  kmax = __reduce_max_sync(0xffffffffu, kmax);
+  kmin = __reduce_min_sync(0xffffffffu, kmin);
+  const int top = kmax == kmin ? -1 : 31 - __clz(kmax ^ kmin);
+  uint32_t kth = top < 0 ? kmax : kmax & ~((2u << top) - 1u);
+  for (int bit = top; bit >= 0; --bit) {  // the largest key with >= m above
+    const uint32_t test = kth | (1u << bit);
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c += __popc(__ballot_sync(0xffffffffu,
+                                                          k[j] >= test));
+    if (c >= m) kth = test;
+  }
+  int above = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) above += __popc(__ballot_sync(0xffffffffu,
+                                                            k[j] > kth));
+  const int want = m - above;           // entries equal to the m-th, kept
+  __syncwarp();
+  int out = 0, eq_seen = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool eq = 32 * j + lane < n && k[j] == kth;
+    const uint32_t eqb = __ballot_sync(0xffffffffu, eq);
+    const bool sel = k[j] > kth || (eq && eq_seen + __popc(eqb & lt_mask) <
+                                              want);
+    const uint32_t sb = __ballot_sync(0xffffffffu, sel);
+    if (sel) {
+      const int slot = out + __popc(sb & lt_mask);
+      v[slot] = sv[j];
+      ix[slot] = si[j];
+    }
+    out += __popc(sb);
+    eq_seen += __popc(eqb);
+  }
+  __syncwarp();
+  return key_value(kth);
+}
+
+// Warp-wide: the exact top-m of the n > m entries (v, ix), moved to
+// positions [0, m) in place (scores above the m-th, then the first of
+// those equal to it in buffer order). Returns the m-th score. A radix
+// select over the order-preserving keys, 8 bits a pass from the highest
+// bit in which the keys differ (so that the first pass spreads them).
+__device__ __noinline__ float compact_top(float* v, int32_t* ix, int n,
+                                          int m, int* h, int lane) {
+  if (n <= 256) return compact_top_small(v, ix, n, m, lane);
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  constexpr int kBatch = 8;             // loads in flight per lane
+  uint32_t kmax = 0u, kmin = 0xffffffffu;
+  for (int base = 0; base < n; base += 32 * kBatch) {
+    uint32_t k[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + 32 * j + lane;
+      k[j] = i < n ? order_key(v[i]) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (base + 32 * j + lane < n) {
+        kmax = max(kmax, k[j]);
+        kmin = min(kmin, k[j]);
       }
-      __syncwarp();
-      // lane l holds bins 255-8l .. 248-8l (descending); find the bin
-      // where the count from the top reaches `want`
-      int c[8];
-      int tot = 0;
+    }
+  }
+  kmax = __reduce_max_sync(0xffffffffu, kmax);
+  kmin = __reduce_min_sync(0xffffffffu, kmin);
+  const uint32_t diff = kmax ^ kmin;
+  const int passes = diff == 0u ? 0 : (32 - __clz(diff) + 7) / 8;
+  uint32_t pmask = passes == 4 ? 0u : ~((1u << (8 * passes)) - 1u);
+  uint32_t prefix = kmax & pmask;       // the bits every key shares
+  int want = m;                         // rank inside the current bucket
+  for (int shift = 8 * (passes - 1); shift >= 0; shift -= 8) {
+    for (int i = lane; i < kBins; i += 32) h[i] = 0;
+    __syncwarp();
+    for (int base = 0; base < n; base += 32 * kBatch) {
+      uint32_t k[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = base + 32 * j + lane;
+        k[j] = i < n ? order_key(v[i]) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (base + 32 * j + lane < n && (k[j] & pmask) == prefix) {
+          atomicAdd(&h[(k[j] >> shift) & 0xff], 1);
+        }
+      }
+    }
+    __syncwarp();
+    // lane l holds bins 255-8l .. 248-8l (descending); find the bin
+    // where the count from the top reaches `want`
+    int c[8];
+    int tot = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = h[kBins - 1 - (8 * lane + j)];
+      tot += c[j];
+    }
+    int incl = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int excl = incl - tot;
+    const bool here = excl < want && want <= incl;
+    const int src = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
+    int digit = 0, next = 0;
+    if (here) {
+      int cum = excl;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        c[j] = h[kBins - 1 - (8 * lane + j)];
-        tot += c[j];
+        if (next == 0 && cum + c[j] >= want) {
+          digit = kBins - 1 - (8 * lane + j);
+          next = want - cum;
+        }
+        cum += c[j];
       }
-      int incl = tot;
+    }
+    digit = __shfl_sync(0xffffffffu, digit, src);
+    want = __shfl_sync(0xffffffffu, next, src);
+    prefix |= static_cast<uint32_t>(digit) << shift;
+    pmask |= 0xffu << shift;
+    __syncwarp();
+  }
+  // stable in-place compaction: an entry moves to a position <= its own,
+  // and a batch of chunks is read whole before any of it is written
+  int out = 0, eq_seen = 0;
+  for (int base = 0; base < n; base += 32 * kBatch) {
+    float sv[kBatch];
+    int32_t si[kBatch];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + 32 * j + lane;
+      sv[j] = i < n ? v[i] : minus_inf();
+      si[j] = i < n ? ix[i] : 0;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const bool in = base + 32 * j + lane < n;
+      const uint32_t k = order_key(sv[j]);
+      const bool gt = in && k > prefix;
+      const bool eq = in && k == prefix;
+      const uint32_t eqb = __ballot_sync(0xffffffffu, eq);
+      const bool sel = gt || (eq && eq_seen + __popc(eqb & lt_mask) < want);
+      const uint32_t sb = __ballot_sync(0xffffffffu, sel);
+      if (sel) {
+        const int slot = out + __popc(sb & lt_mask);
+        v[slot] = sv[j];
+        ix[slot] = si[j];
       }
-      const int excl = incl - tot;
-      const bool here = excl < want && want <= incl;
-      const int src = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
-      int digit = 0, next = 0;
-      if (here) {
-        int cum = excl;
+      out += __popc(sb);
+      eq_seen += __popc(eqb);
+    }
+    __syncwarp();
+  }
+  return key_value(prefix);
+}
+
+// Warp-wide, at a refresh tile: raise the threshold of each of this
+// warp's queries (q = q0 + kWarps w < nq, w < kQ) to a lower bound of the
+// query's cand-th best score over the whole corpus, one key below it so
+// that rows equal to it still pass. Two sources, both in device memory
+// that every block of the query group reads and writes (`pub`: per
+// query, n_part + 1 keys, zeroed before the launch):
+// - each of the first 32 * kPubChunks blocks publishes its best score so
+//   far (slot `part`), one row of its own partition: any x with at least
+//   cand of these keys >= x is a bound (needs cand <= the publishers).
+//   It is found bit by bit below the bits all published keys share, to
+//   kBoundBits bits and at least down to bit kFloorBit, which keeps 8
+//   bits of mantissa however far apart the keys lie (a block whose best
+//   so far is a masked row's -1e30 beside a real score shares no bit
+//   with it). A truncated x is smaller, so still a bound;
+// - each block that keeps m = cand candidates raises slot n_part to its
+//   threshold after a compaction: it holds cand rows at or above it.
+// The keys of all the warp's queries are loaded at once.
+template <int kQ>
+__device__ __noinline__ void refresh_bounds(uint32_t* pub, int pstride,
+                                            int n_part, int cand, int part,
+                                            bool share_max, bool share_thr,
+                                            float* thr, const uint32_t* bestk,
+                                            int q0, int nq, int lane) {
+  constexpr uint32_t kReal = 0x00800000u;   // keys above -inf's
+  constexpr int kBoundBits = 8;
+  constexpr int kFloorBit = 15;             // 8 bits below the exponent
+  const int n_pub = min(n_part, 32 * kPubChunks);
+  uint32_t key[kQ][kPubChunks];
+  if (share_max) {
+    if (lane == 0 && part < n_pub) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (next == 0 && cum + c[j] >= want) {
-            digit = kBins - 1 - (8 * lane + j);
-            next = want - cum;
+      for (int w = 0; w < kQ; ++w) {
+        const int q = q0 + kWarps * w;
+        if (q < nq && bestk[q] > kReal) __stcg(pub + q * pstride + part,
+                                               bestk[q]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int w = 0; w < kQ; ++w) {
+      const int q = q0 + kWarps * w;
+#pragma unroll
+      for (int c = 0; c < kPubChunks; ++c) {
+        const int i = 32 * c + lane;
+        key[w][c] = q < nq && i < n_pub ? __ldcg(pub + q * pstride + i) : 0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < kQ; ++w) {
+    const int q = q0 + kWarps * w;
+    if (q >= nq) break;
+    uint32_t bound = 0u;
+    if (share_max) {
+      uint32_t hi = 0u, lo = 0xffffffffu;
+      int n_real = 0;
+#pragma unroll
+      for (int c = 0; c < kPubChunks; ++c) {
+        if (key[w][c] > kReal) {
+          hi = max(hi, key[w][c]);
+          lo = min(lo, key[w][c]);
+        }
+        n_real += __popc(__ballot_sync(0xffffffffu, key[w][c] > kReal));
+      }
+      if (n_real >= cand) {
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        const int top = hi == lo ? 0 : 31 - __clz(hi ^ lo);
+        bound = hi & ~((2u << top) - 1u);   // the bits above `top`
+        const int last = max(0, min(top - kBoundBits + 1, kFloorBit));
+        for (int bit = top; bit >= last; --bit) {
+          const uint32_t test = bound | (1u << bit);
+          int n = 0;
+#pragma unroll
+          for (int c = 0; c < kPubChunks; ++c) {
+            n += __popc(__ballot_sync(0xffffffffu, key[w][c] >= test));
           }
-          cum += c[j];
+          if (n >= cand) bound = test;
         }
       }
-      digit = __shfl_sync(0xffffffffu, digit, src);
-      want = __shfl_sync(0xffffffffu, next, src);
-      prefix |= static_cast<uint32_t>(digit) << shift;
-      pmask |= 0xffu << shift;
+    }
+    if (share_thr) bound = max(bound, __ldcg(pub + q * pstride + n_part));
+    if (lane == 0 && bound > kReal) {
+      thr[q] = fmaxf(thr[q], key_value(bound - 1u));
+    }
+  }
+}
+
+template <int MT, bool kAligned>
+__global__ void __launch_bounds__(kThreads, 1)
+    quant_scan_kernel(const ScanArgs a) {
+  constexpr int qt = 16 * MT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int dpad = a.n_slices * kSlice;
+  unsigned char* qsm = smem;                                // [qt][dpad]
+  unsigned char* ring = qsm + qt * dpad;       // [kStages][kRows][kSlice]
+  float* stile = reinterpret_cast<float*>(ring + kStages * kRows * kSlice);
+  int* hist = reinterpret_cast<int*>(stile + qt * kSPitch);
+  int* cnt = hist + kWarps * kBins;                         // [kMaxQ]
+  float* thr = reinterpret_cast<float*>(cnt + kMaxQ);       // [kMaxQ]
+  int* flag = reinterpret_cast<int*>(thr + kMaxQ);          // [kMaxQ]
+  uint32_t* bestk = reinterpret_cast<uint32_t*>(flag + kMaxQ);  // [kMaxQ]
+  const int part = blockIdx.x;
+  const int n_part = gridDim.x;
+  const int q0 = blockIdx.y * qt;
+  const int nq = min(qt, a.b - q0);
+  float* bv;
+  int32_t* bi;
+  if (a.buf_v != nullptr) {
+    const int64_t base = (static_cast<int64_t>(blockIdx.y) * n_part + part) *
+                         qt * a.capb;
+    bv = a.buf_v + base;
+    bi = a.buf_i + base;
+  } else {
+    bv = reinterpret_cast<float*>(bestk + kMaxQ);
+    bi = reinterpret_cast<int32_t*>(bv + qt * a.capb);
+  }
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // the group's queries, zero-padded to qt x dpad, swizzled like the ring
+  const int qchunks = dpad / 16;
+  for (int t = tid; t < qt * qchunks; t += kThreads) {
+    const int qr = t / qchunks;
+    const int c = t - qr * qchunks;
+    const int k0 = c * 16;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (qr < nq) {
+      const int8_t* qp = a.qi8 + static_cast<int64_t>(q0 + qr) * a.d + k0;
+      if (kAligned && k0 < a.d) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(qp));
+        w[0] = x.x;
+        w[1] = x.y;
+        w[2] = x.z;
+        w[3] = x.w;
+      } else if (!kAligned) {
+        for (int j = 0; j < 16 && k0 + j < a.d; ++j) {
+          w[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(qp[j]))
+                       << (8 * (j & 3));
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(qsm + swz(qr, c, dpad)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (tid < kMaxQ) {
+    cnt[tid] = 0;
+    thr[tid] = minus_inf();
+    flag[tid] = 0;
+    bestk[tid] = 0u;
+  }
+  // each thread's queries: m-tile i, half h -> query 16 i + lane / 4 + 8 h,
+  // with its scale and the scale's reciprocal
+  float qsr[MT][2], qrc[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 16 * i + (lane >> 2) + 8 * h;
+      qsr[i][h] = q < nq ? a.qs[q0 + q] : 1.0f;
+      qrc[i][h] = __frcp_rn(qsr[i][h]);
+    }
+  }
+
+  // the shared bound (see refresh_bounds): this group's published keys,
+  // [qt][n_part + 1]
+  const int pstride = n_part + 1;
+  uint32_t* pub = a.pub + static_cast<int64_t>(blockIdx.y) * qt * pstride;
+  const bool share_max = a.cand <= min(n_part, 32 * kPubChunks);
+  const bool share_thr = a.m == a.cand;
+
+  // this block's tiles part, part + n_part, ..., taken from the last:
+  // the corpus hands out its free rows from the end (vector/shard.py), so
+  // the rows a fresh capacity has not used yet lie at the start, masked.
+  // Met after the live rows, they fall below the thresholds instead of
+  // filling the candidate buffers while these are still empty.
+  const int n_my = (a.n_tiles - part + n_part - 1) / n_part;
+  const int total = n_my * a.n_slices;
+  auto tile_of = [&](int step) {
+    return part + (n_my - 1 - step / a.n_slices) * n_part;
+  };
+
+  // one pipeline step: slice `step % n_slices` of this block's tile
+  // tile_of(step) into ring stage `step % kStages`
+  auto load_step = [&](int step) {
+    const int tile = tile_of(step);
+    const int slice = step % a.n_slices;
+    unsigned char* st = ring + (step % kStages) * (kRows * kSlice);
+#pragma unroll
+    for (int j = 0; j < (kRows * 8) / kThreads; ++j) {
+      const int t = tid + j * kThreads;
+      const int r = t >> 3;
+      const int c = t & 7;
+      const int64_t row = static_cast<int64_t>(tile) * kRows + r;
+      const int k0 = slice * kSlice + c * 16;
+      unsigned char* dst = st + swz(r, c, kSlice);
+      if (kAligned) {
+        const bool ok = row < a.cap && k0 < a.d;
+        cp_async16(dst, ok ? a.emb + row * a.d + k0 : a.emb, ok ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (row < a.cap) {
+          const int8_t* rp = a.emb + row * a.d + k0;
+          for (int b = 0; b < 16 && k0 + b < a.d; ++b) {
+            w[b >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(rp[b]))
+                         << (8 * (b & 3));
+          }
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  };
+
+  // the tile's rows under this thread's accumulators, with their rinv
+  // and bias, loaded at the tile's first slice (used in its epilogue)
+  int32_t rows[2][2];
+  float ri[2][2], bs[2][2];
+  int acc[MT][2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+  int sink = 0;                  // keeps a cut kernel's work (kParts)
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_step(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < total; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (step + kStages - 1 < total) load_step(step + kStages - 1);
+    cp_async_commit();
+
+    const int slice = step % a.n_slices;
+    const int tile = tile_of(step);
+    if (slice == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t row = static_cast<int64_t>(tile) * kRows +
+                              16 * warp + 8 * j + 2 * (lane & 3) + e;
+          const bool in = row < a.cap;
+          rows[j][e] = in ? static_cast<int32_t>(row) : -1;
+          ri[j][e] = in ? __ldg(a.rinv + row) : 0.0f;
+          bs[j][e] = in ? __ldg(a.bias + row) : 0.0f;
+        }
+      }
+    }
+    const unsigned char* st = ring + (step % kStages) * (kRows * kSlice);
+    const int mi = lane >> 3;
+    const int mr = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < kSlice / 32; ++kk) {
+      // B: rows 16 warp + 8 (mi / 2) + mr, K chunk 2 kk + mi % 2
+      uint32_t bf[4];
+      ldmatrix_x4(bf, st + swz(16 * warp + 8 * (mi >> 1) + mr,
+                               2 * kk + (mi & 1), kSlice));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // A: queries 16 i + 8 (mi % 2) + mr, K chunk 2 kk + mi / 2
+        uint32_t af[4];
+        ldmatrix_x4(af, qsm + swz(16 * i + 8 * (mi & 1) + mr,
+                                  8 * slice + 2 * kk + (mi >> 1), dpad));
+        mma_s8(acc[i][0], af, bf[0], bf[1]);
+        mma_s8(acc[i][1], af, bf[2], bf[3]);
+      }
+    }
+    if (slice != a.n_slices - 1) continue;
+    if (kParts == 1) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            sink ^= acc[i][j][r];
+            acc[i][j][r] = 0;
+          }
+      continue;
+    }
+
+    // ---- epilogue of the tile, 1: the scores into the score tile. A
+    // score can only beat its query's threshold t if its estimate with
+    // the correctly rounded reciprocal of qs does, within a margin far
+    // above the estimate's error (a few ulps of each term); only those
+    // entries pay for the exact division, the rest are written as -inf.
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 16 * i + (lane >> 2) + 8 * h;
+        const float t = thr[q];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float s2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 2 * h + e;
+            float s = minus_inf();
+            if (rows[j][e] >= 0 && q < nq) {
+              const float x = __int2float_rn(acc[i][j][r]);
+              const float est = x * ri[j][e] * qrc[i][h];
+              const float margin = (fabsf(est) + fabsf(bs[j][e])) * 0x1p-16f;
+              if (est + bs[j][e] + margin > t) {
+                s = __fadd_rn(__fmul_rn(x, __fdiv_rn(ri[j][e], qsr[i][h])),
+                              bs[j][e]);
+                if (s > t) flag[q] = 1;
+              }
+            }
+            s2[e] = s;
+            acc[i][j][r] = 0;
+          }
+          *reinterpret_cast<float2*>(stile + q * kSPitch + 16 * warp +
+                                     8 * j + 2 * (lane & 3)) =
+              make_float2(s2[0], s2[1]);
+        }
+      }
+    __syncthreads();
+    if (kParts == 2) {
+      sink ^= __float_as_int(stile[tid]);
+      continue;
+    }
+    // 2: each warp appends the scores of its own queries (q = warp mod
+    // kWarps) flagged in 1 that beat their thresholds, compacting a full
+    // buffer to its top m and raising the threshold on the way; no other
+    // warp waits. At the refresh tiles it also raises the thresholds to
+    // the shared bound.
+#pragma unroll
+    for (int w = 0; w < 2 * MT; ++w) {
+      const int q = warp + kWarps * w;
+      if (q >= nq) break;
+      if (flag[q] == 0) continue;
+      const float* srow = stile + q * kSPitch;
+      const int64_t o = static_cast<int64_t>(q) * a.capb;
+      const int64_t row0 = static_cast<int64_t>(tile) * kRows;
+      float t = thr[q];
+      int c = cnt[q];
+      uint32_t top = 0u;
+#pragma unroll
+      for (int k = 0; k < kRows / 32; ++k) {
+        const float v = srow[32 * k + lane];
+        bool pass = v > t;
+        uint32_t bal = __ballot_sync(0xffffffffu, pass);
+        if (bal == 0u) continue;
+        if (pass) top = max(top, order_key(v));
+        if (c + __popc(bal) > a.capb) {
+          __syncwarp();
+          t = compact_top(bv + o, bi + o, c, a.m, hist + warp * kBins, lane);
+          c = a.m;
+          if (share_thr && lane == 0) {
+            atomicMax(pub + q * pstride + n_part, order_key(t));
+          }
+          pass = v > t;
+          bal = __ballot_sync(0xffffffffu, pass);
+        }
+        if (pass) {
+          const int slot = c + __popc(bal & ((1u << lane) - 1u));
+          bv[o + slot] = v;
+          bi[o + slot] = static_cast<int32_t>(row0 + 32 * k + lane);
+        }
+        c += __popc(bal);
+      }
+      top = __reduce_max_sync(0xffffffffu, top);
       __syncwarp();
-    }
-    // write every score above the m-th, then the first `want` equal to
-    // it in row order: exactly m entries
-    const int n_gt = m - want;
-    int gt_seen = 0, eq_seen = 0;
-    for (int base = 0; base < chunk; base += 32) {
-      const int i = base + lane;
-      const uint32_t k = order_key(s[i]);
-      const uint32_t gt = __ballot_sync(0xffffffffu, k > prefix);
-      const uint32_t eq = __ballot_sync(0xffffffffu, k == prefix);
-      int slot = -1;
-      if (k > prefix) {
-        slot = gt_seen + __popc(gt & lt_mask);
-      } else if (k == prefix) {
-        const int rnk = eq_seen + __popc(eq & lt_mask);
-        if (rnk < want) slot = n_gt + rnk;
+      if (lane == 0) {
+        cnt[q] = c;
+        thr[q] = t;
+        flag[q] = 0;
+        bestk[q] = max(bestk[q], top);
       }
-      if (slot >= 0) {
-        out_v[out0 + slot] = s[i];
-        out_i[out0 + slot] = i < nrows ? static_cast<int32_t>(row0 + i) : 0;
-      }
-      gt_seen += __popc(gt);
-      eq_seen += __popc(eq);
     }
+    const int ti = step / a.n_slices;
+    if (ti < 16 && (ti & (ti + 1)) == 0) {       // tiles 0, 1, 3, 7, 15
+      __syncwarp();
+      refresh_bounds<2 * MT>(pub, pstride, n_part, a.cand, part, share_max,
+                             share_thr, thr, bestk, warp, nq, lane);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (kParts != 0) {
+    if (sink == 0x7fffffff) a.out_i[0] = sink;
+    return;
+  }
+
+  // each query's top m of this partition -> partials [b, n_part, m],
+  // padded with (-inf, row 0) where the partition held fewer rows
+  for (int q = warp; q < nq; q += kWarps) {
+    const int64_t o = static_cast<int64_t>(q) * a.capb;
+    int n = min(cnt[q], a.capb);
+    if (n > a.m) {
+      compact_top(bv + o, bi + o, n, a.m, hist + warp * kBins, lane);
+      n = a.m;
+    }
+    const int64_t out0 =
+        (static_cast<int64_t>(q0 + q) * n_part + part) * a.m;
+    for (int t = lane; t < a.m; t += 32) {
+      a.out_v[out0 + t] = t < n ? bv[o + t] : minus_inf();
+      a.out_i[out0 + t] = t < n ? bi[o + t] : 0;
+    }
+  }
+}
+
+using ScanKernel = void (*)(ScanArgs);
+
+ScanKernel scan_kernel(int mt, bool aligned) {
+  switch (mt * 2 + (aligned ? 1 : 0)) {
+    case 2: return quant_scan_kernel<1, false>;
+    case 3: return quant_scan_kernel<1, true>;
+    case 4: return quant_scan_kernel<2, false>;
+    case 5: return quant_scan_kernel<2, true>;
+    case 6: return quant_scan_kernel<3, false>;
+    case 7: return quant_scan_kernel<3, true>;
+    case 8: return quant_scan_kernel<4, false>;
+    default: return quant_scan_kernel<4, true>;
   }
 }
 
@@ -364,23 +886,6 @@ __global__ void __launch_bounds__(kThreads) quant_rerank_kernel(
   }
 }
 
-template <int kLoad>
-int launch_scan(dim3 grid, size_t smem, cudaStream_t stream,
-                const void* emb, const void* rinv, const void* qi8,
-                const void* qs, const void* bias, void* out_v, void* out_i,
-                int b, int cap, int d, int tile, int chunk, int m) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      quant_scan_kernel<kLoad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quant_scan_kernel<kLoad><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(emb), static_cast<const float*>(rinv),
-      static_cast<const int8_t*>(qi8), static_cast<const float*>(qs),
-      static_cast<const float*>(bias), static_cast<float*>(out_v),
-      static_cast<int32_t*>(out_i), b, cap, d, tile, chunk, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <bool kVec4>
 int launch_rerank(size_t smem, cudaStream_t stream, const void* emb,
                   const void* q, const void* cv, const void* ci, void* out_v,
@@ -398,33 +903,106 @@ int launch_rerank(size_t smem, cudaStream_t stream, const void* emb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// per device: SM count and the opt-in shared memory of a block
+int g_sm_count[64];
+int g_smem_optin[64];
+
 }  // namespace
 
-// K1: enqueue the scan on `stream`; returns the cudaError_t of the launch
-// (0 = success). The caller has checked shapes, types and devices and
-// chosen tile, chunk and m (flat_scan_op.cpp); n_chunks = ceil(cap/chunk).
+// K1's launch shape (see QuantScanPlan). Returns a cudaError_t (0 =
+// success).
+extern "C" int cortex_quant_scan_plan(int b, int cap, int d, int cand,
+                                      int aligned, QuantScanPlan* plan) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&g_smem_optin[dev],
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&g_sm_count[dev],
+                                   cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t optin = static_cast<size_t>(g_smem_optin[dev]);
+  const int n_slices = (d + kSlice - 1) / kSlice;
+  // the largest query group that fits beside the ring (64 up to d 2048)
+  int qt = std::min(kMaxQ, std::max(16, (b + 15) / 16 * 16));
+  while (qt > 16 && scan_smem_fixed(qt, n_slices) > optin) qt -= 16;
+  if (scan_smem_fixed(qt, n_slices) > optin) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = (cap + kRows - 1) / kRows;
+  const int m0 = std::min(cand, cap);
+  const int capb0 = scan_capb(m0);
+  const size_t bufs = static_cast<size_t>(qt) * capb0 *
+                      (sizeof(float) + sizeof(int32_t));
+  const bool in_smem = scan_smem_fixed(qt, n_slices) + bufs <= optin;
+  const size_t smem = scan_smem_fixed(qt, n_slices) + (in_smem ? bufs : 0);
+  const ScanKernel k = scan_kernel(qt / 16, aligned != 0);
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_part = std::max(1, std::min(n_tiles, g_sm_count[dev] *
+                                                       std::max(per_sm, 1)));
+  // a partition never holds more rows than its tiles: keep at most those
+  const int64_t part_rows =
+      static_cast<int64_t>((n_tiles + n_part - 1) / n_part) * kRows;
+  const int m = static_cast<int>(std::min<int64_t>(m0, part_rows));
+  plan->qt = qt;
+  plan->n_groups = (b + qt - 1) / qt;
+  plan->n_part = n_part;
+  plan->m = m;
+  plan->capb = scan_capb(m);
+  plan->bufs_global = in_smem ? 0 : 1;
+  plan->smem = static_cast<int>(smem);
+  plan->aligned = aligned != 0 ? 1 : 0;
+  return 0;
+}
+
+// K1: enqueue the scan on `stream` with the shape `plan` chose; returns
+// the cudaError_t of the launch. The caller has checked shapes, types and
+// devices and allocated the partials and (bufs_global) the buffers.
 extern "C" int cortex_quant_scan_launch(
-    const void* emb, const void* rinv, const void* qi8, const void* qs,
-    const void* bias, void* out_v, void* out_i, int b, int cap, int d,
-    int tile, int chunk, int m, void* stream) {
+    const QuantScanPlan* plan, const void* emb, const void* rinv,
+    const void* qi8, const void* qs, const void* bias, void* out_v,
+    void* out_i, void* buf_v, void* buf_i, void* pub, int b, int cap, int d,
+    int cand, void* stream) {
   if (b == 0 || cap == 0) return 0;
-  const int n_chunks = (cap + chunk - 1) / chunk;
-  const dim3 grid(static_cast<unsigned>((b + tile - 1) / tile),
-                  static_cast<unsigned>(n_chunks));
-  const size_t smem =
-      (static_cast<size_t>(tile) * chunk + static_cast<size_t>(tile) *
-       ((d + 3) / 4) + static_cast<size_t>(kWarps) * kBins) * sizeof(int);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 16 == 0) {
-    return launch_scan<16>(grid, smem, s, emb, rinv, qi8, qs, bias, out_v,
-                           out_i, b, cap, d, tile, chunk, m);
-  }
-  if (d % 4 == 0) {
-    return launch_scan<4>(grid, smem, s, emb, rinv, qi8, qs, bias, out_v,
-                          out_i, b, cap, d, tile, chunk, m);
-  }
-  return launch_scan<1>(grid, smem, s, emb, rinv, qi8, qs, bias, out_v,
-                        out_i, b, cap, d, tile, chunk, m);
+  ScanArgs a;
+  a.emb = static_cast<const int8_t*>(emb);
+  a.rinv = static_cast<const float*>(rinv);
+  a.qi8 = static_cast<const int8_t*>(qi8);
+  a.qs = static_cast<const float*>(qs);
+  a.bias = static_cast<const float*>(bias);
+  a.out_v = static_cast<float*>(out_v);
+  a.out_i = static_cast<int32_t*>(out_i);
+  a.buf_v = plan->bufs_global ? static_cast<float*>(buf_v) : nullptr;
+  a.buf_i = plan->bufs_global ? static_cast<int32_t*>(buf_i) : nullptr;
+  a.pub = static_cast<uint32_t*>(pub);
+  a.cand = cand;
+  a.b = b;
+  a.cap = cap;
+  a.d = d;
+  a.n_slices = (d + kSlice - 1) / kSlice;
+  a.n_tiles = (cap + kRows - 1) / kRows;
+  a.m = plan->m;
+  a.capb = plan->capb;
+  const ScanKernel k = scan_kernel(plan->qt / 16, plan->aligned != 0);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(plan->n_part),
+                  static_cast<unsigned>(plan->n_groups));
+  k<<<grid, kThreads, static_cast<size_t>(plan->smem),
+      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K2: enqueue the re-rank on `stream`; returns the cudaError_t of the

@@ -1,9 +1,10 @@
 // PyTorch binding of the flat-index kernels (flat_scan.cu): registers
-// torch.ops.cortex_tpu_torch.quant_scan (K1, the per-chunk partials of
-// the int8 candidate scan) and quant_rerank (K2), checks every argument,
-// picks K1's block shape, allocates the outputs and enqueues the kernel
-// on the current stream of the tensors' device. A launch the runtime
-// refuses raises; nothing here falls back to another implementation.
+// torch.ops.cortex_tpu_torch.quant_scan (K1, the per-partition partials
+// of the int8 candidate scan) and quant_rerank (K2), checks every
+// argument, asks flat_scan.cu for K1's launch shape, allocates the
+// outputs and enqueues the kernel on the current stream of the tensors'
+// device. A launch the runtime refuses raises; nothing here falls back
+// to another implementation.
 
 #include <algorithm>
 #include <cstdint>
@@ -11,33 +12,19 @@
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
+#include <ATen/ops/zeros.h>
 #include <c10/core/DeviceGuard.h>
 #include <c10/core/impl/VirtualGuardImpl.h>
 #include <torch/library.h>
 
-extern "C" int cortex_quant_scan_launch(
-    const void* emb, const void* rinv, const void* qi8, const void* qs,
-    const void* bias, void* out_v, void* out_i, int b, int cap, int d,
-    int tile, int chunk, int m, void* stream);
-extern "C" int cortex_quant_rerank_launch(
-    const void* emb, const void* q, const void* cv, const void* ci,
-    void* out_v, void* out_i, int b, int cap, int d, int cand, int cand_p2,
-    int k, void* stream);
-extern "C" const char* cortex_cuda_error_string(int err);
+#include "flat_scan.cuh"
 
 namespace {
 
-// K1 keeps tile * chunk f32 scores in shared memory (64 KiB): a chunk of
-// 2048 rows x 8 queries, or a longer chunk and fewer queries when cand
-// is large, so that a chunk holds at least 4 * cand rows where it can
-// and the partials stay well below [B, cap].
-constexpr int64_t kScoreWords = 16384;
-constexpr int64_t kMinChunk = 2048;
-constexpr int64_t kMaxTile = 8;
-constexpr int64_t kMaxScanDim = 4096;      // query words in shared memory
+constexpr int64_t kMaxScanDim = 4096;      // K1's queries in shared memory
+constexpr int64_t kMaxScanBatch = 65535 * 16;   // K1's grid.y query groups
 constexpr int64_t kMaxCand = 16384;        // K2 sorts cand in shared memory
 constexpr int64_t kMaxRerankDim = 8192;
-constexpr int64_t kMaxGridY = 65535;
 
 void check_arg(const char* op, const at::Tensor& t, const char* name,
                at::ScalarType dtype, int64_t dim, const at::Device& device) {
@@ -79,23 +66,38 @@ std::tuple<at::Tensor, at::Tensor> quant_scan_cuda(
               " out of range [1, 2^31)");
   TORCH_CHECK(d >= 1 && d <= kMaxScanDim, op, ": d=", d,
               " out of range [1, ", kMaxScanDim, "]");
-
-  int64_t chunk = kMinChunk;
-  while (chunk < 4 * cand && chunk < kScoreWords) chunk *= 2;
-  const int64_t tile = std::min(kMaxTile, kScoreWords / chunk);
-  const int64_t m = std::min(cand, chunk);
-  const int64_t n_chunks = (cap + chunk - 1) / chunk;
-  TORCH_CHECK(n_chunks <= kMaxGridY, op, ": cap ", cap,
-              " exceeds the grid limit of ", kMaxGridY, " chunks");
+  TORCH_CHECK(b <= kMaxScanBatch, op, ": B=", b, " out of range [0, ",
+              kMaxScanBatch, "]");
 
   const c10::DeviceGuard guard(device);
-  auto vals = at::empty({b, n_chunks * m}, emb_i8.options().dtype(at::kFloat));
-  auto rows = at::empty({b, n_chunks * m}, emb_i8.options().dtype(at::kInt));
-  const int err = cortex_quant_scan_launch(
-      emb_i8.data_ptr(), rinv.data_ptr(), qi8.data_ptr(), qs.data_ptr(),
-      bias.data_ptr(), vals.data_ptr(), rows.data_ptr(),
-      static_cast<int>(b), static_cast<int>(cap), static_cast<int>(d),
-      static_cast<int>(tile), static_cast<int>(chunk), static_cast<int>(m),
+  const bool aligned =
+      d % 16 == 0 &&
+      reinterpret_cast<std::uintptr_t>(emb_i8.data_ptr()) % 16 == 0 &&
+      reinterpret_cast<std::uintptr_t>(qi8.data_ptr()) % 16 == 0;
+  const int kcand = static_cast<int>(std::min<int64_t>(cand, cap));
+  QuantScanPlan plan{};
+  int err = cortex_quant_scan_plan(static_cast<int>(b), static_cast<int>(cap),
+                                   static_cast<int>(d), kcand,
+                                   aligned ? 1 : 0, &plan);
+  TORCH_CHECK(err == 0, op, ": no launch shape: ",
+              cortex_cuda_error_string(err));
+  const int64_t width = static_cast<int64_t>(plan.n_part) * plan.m;
+  auto vals = at::empty({b, width}, emb_i8.options().dtype(at::kFloat));
+  auto rows = at::empty({b, width}, emb_i8.options().dtype(at::kInt));
+  const int64_t nbuf = plan.bufs_global
+      ? static_cast<int64_t>(plan.n_groups) * plan.n_part * plan.qt *
+            plan.capb
+      : 0;
+  auto buf_v = at::empty({nbuf}, emb_i8.options().dtype(at::kFloat));
+  auto buf_i = at::empty({nbuf}, emb_i8.options().dtype(at::kInt));
+  auto pub = at::zeros({static_cast<int64_t>(plan.n_groups) * plan.qt *
+                        (plan.n_part + 1)},
+                       emb_i8.options().dtype(at::kInt));
+  err = cortex_quant_scan_launch(
+      &plan, emb_i8.data_ptr(), rinv.data_ptr(), qi8.data_ptr(),
+      qs.data_ptr(), bias.data_ptr(), vals.data_ptr(), rows.data_ptr(),
+      buf_v.data_ptr(), buf_i.data_ptr(), pub.data_ptr(),
+      static_cast<int>(b), static_cast<int>(cap), static_cast<int>(d), kcand,
       current_stream(device));
   TORCH_CHECK(err == 0, op, ": kernel launch failed: ",
               cortex_cuda_error_string(err));

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import time
 
-from cortex_tpu.storage.base import Storage
-
 from ..config import DecayConfig
+from ..storage.base import Storage
 
 
 class DecayEngine:

@@ -153,9 +153,9 @@ def quant_candidates(emb_i8: torch.Tensor, rinv: torch.Tensor,
     (quantize_queries); bias [cap] f32 (0, or <= NEG_INF per row).
     Scores float(qi8 . row_i8) * (rinv / qs) + bias; returns their exact
     top-`cand` (values [B, cand] f32, rows [B, cand] int32), padded with
-    (NEG_INF, row 0) when cap < cand. On the card the kernel writes each
-    row chunk's top candidates and torch.topk merges them: no [B, cap]
-    score plane."""
+    (NEG_INF, row 0) when cap < cand. On the card the kernel (int8
+    tensor cores, csrc/flat_scan.cu) writes each row partition's top
+    candidates and torch.topk merges them: no [B, cap] score plane."""
     dev = emb_i8.device
     if dev.type == "cuda":
         pv, pi = load_ops().quant_scan(emb_i8, rinv, qi8, qs, bias,

@@ -12,7 +12,7 @@ import subprocess
 
 import torch
 
-from cortex_tpu.errors import DeviceUnavailable
+from ..errors import DeviceUnavailable
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -19,8 +19,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from cortex_tpu.errors import ConfigError, EmbeddingError
-from cortex_tpu.types import Node, kind_display
+from ..errors import ConfigError, EmbeddingError
+from ..types import Node, kind_display
 
 _WORD_RE = re.compile(r"[a-z0-9]+")
 

@@ -17,8 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cortex_tpu.errors import IndexError_
-
+from ..errors import IndexError_
 from ..utils.device import resolve_device
 from .shard import DeviceCorpus
 

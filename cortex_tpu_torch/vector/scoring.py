@@ -1,7 +1,7 @@
 """Query-time score decay with access-echo boost (host numpy).
 
-Ported as it is from cortex_tpu/vector/scoring.py, which cannot be
-imported without jax (its package __init__ imports the device index).
+Ported as it is from cortex_tpu/vector/scoring.py: the port imports
+nothing of cortex_tpu.
 
 Formula parity (crates/cortex-core/src/vector/scoring.rs:22-114):
 
@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-from cortex_tpu.types import Node
+from ..types import Node
 
 
 @dataclass

@@ -52,9 +52,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cortex_tpu.errors import IndexError_
-from cortex_tpu.native import rerank_topk_native
-
+from ..errors import IndexError_
+from ..native import rerank_topk_native
 from ..ops.similarity import (NEG_INF, cosine_topk_approx,
                               cosine_topk_quant_exact, cosine_topk_xla,
                               normalize_rows, quant_candidates,

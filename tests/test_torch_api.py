@@ -27,6 +27,8 @@ from cortex_tpu.vector.ivf import (IvfCorpus, _ivf_search_pallas,
                                    _ivf_search_pallas_hostbias)
 from cortex_tpu_torch import Cortex
 from cortex_tpu_torch.config import CortexConfig
+from cortex_tpu_torch.storage import MemoryStorage as TorchMemoryStorage
+from cortex_tpu_torch.types import Node as TorchNode
 from cortex_tpu_torch.vector import VectorFilter
 
 ATOL = 1e-4
@@ -67,6 +69,11 @@ def seeded_nodes(n, seed=0):
     return nodes
 
 
+def port_nodes(nodes):
+    """The port's own Node copies of reference nodes (same fields)."""
+    return [TorchNode.from_dict(n.to_dict()) for n in nodes]
+
+
 class Pair:
     """The same operations on both engines."""
 
@@ -74,7 +81,7 @@ class Pair:
         self.kind = kind
         self.tmp_path = tmp_path
         self.jcfg, self.tcfg = configs()
-        self.mem = (MemoryStorage(), MemoryStorage())
+        self.mem = (MemoryStorage(), TorchMemoryStorage())
         self.open()
 
     def open(self):
@@ -108,10 +115,10 @@ def pair(request, tmp_path):
     p = Pair(request.param, tmp_path)
     nodes = seeded_nodes(100)
     p.ref.store_batch(copy.deepcopy(nodes))
-    p.port.store_batch(copy.deepcopy(nodes))
+    p.port.store_batch(port_nodes(nodes))
     for node in seeded_nodes(3, seed=1):
         p.ref.store(copy.deepcopy(node))
-        p.port.store(copy.deepcopy(node))
+        p.port.store(port_nodes([node])[0])
     p.nodes = nodes
     p.deleted = nodes[7].id
     assert p.ref.delete_node(p.deleted) and p.port.delete_node(p.deleted)

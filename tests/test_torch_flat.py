@@ -24,8 +24,10 @@ from cortex_tpu.vector import TpuFlatIndex
 from cortex_tpu.vector import VectorFilter as JaxFilter
 from cortex_tpu_torch import Cortex
 from cortex_tpu_torch.config import CortexConfig
+from cortex_tpu_torch.storage import MemoryStorage as TorchMemoryStorage
 from cortex_tpu_torch.vector import TorchFlatIndex, VectorFilter
-from test_torch_api import SEARCHES, assert_same, queries, seeded_nodes
+from test_torch_api import (SEARCHES, assert_same, port_nodes, queries,
+                            seeded_nodes)
 
 ATOL = 1e-5
 PATHS = ["exact", "approx", "quant", "auto"]
@@ -230,7 +232,7 @@ class Pair:
         for cfg in (self.jcfg, self.tcfg):
             for key, v in embedding.items():
                 setattr(cfg.embedding, key, v)
-        self.mem = (MemoryStorage(), MemoryStorage())
+        self.mem = (MemoryStorage(), TorchMemoryStorage())
         self.open()
 
     def open(self):
@@ -266,10 +268,10 @@ def pair(request, tmp_path):
     p = Pair(kind, tmp_path, **embedding)
     nodes = seeded_nodes(100)
     p.ref.store_batch(copy.deepcopy(nodes))
-    p.port.store_batch(copy.deepcopy(nodes))
+    p.port.store_batch(port_nodes(nodes))
     for node in seeded_nodes(3, seed=1):
         p.ref.store(copy.deepcopy(node))
-        p.port.store(copy.deepcopy(node))
+        p.port.store(port_nodes([node])[0])
     p.nodes = nodes
     p.deleted = nodes[7].id
     assert p.ref.delete_node(p.deleted) and p.port.delete_node(p.deleted)

@@ -156,30 +156,76 @@ def _plain_scores(emb, rinv, qi8, qs, bias):
     return sim.int8_dot(qi8, emb) * (rinv[None, :] / qs[:, None]) + bias
 
 
-@pytest.mark.parametrize("cand", [64, 2048])
-@pytest.mark.parametrize("case", BIAS_CASES)
-@pytest.mark.parametrize("shape", FLAT_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
-def test_quant_candidates_equals_plain(dev, shape, case, cand):
-    args = _flat_inputs(dev, *shape, case)
+def _check_k1(args, cand):
+    """K1 against its plain version on `args` (see the criteria above)."""
+    b = args[2].shape[0]
     before = sim.quant_candidates.launches
     v, i = sim.quant_candidates(*args, cand)
     torch.cuda.synchronize()
     assert sim.quant_candidates.launches == before + 1
     pv, pi = sim.quant_candidates_plain(*args, cand)
-    assert v.shape == pv.shape == (shape[2], cand)
+    assert v.shape == pv.shape == (b, cand)
     assert i.dtype == pi.dtype == torch.int32
     full = _plain_scores(*args)
-    cap = shape[0]
-    kk = min(cand, cap)
+    kk = min(cand, args[0].shape[0])
     # every returned row's score is the plain score of that row, bit for bit
     assert torch.equal(v[:, :kk], torch.gather(full, 1, i[:, :kk].long()))
     assert torch.equal(v[:, kk - 1], pv[:, kk - 1])        # the cand-th value
     assert (v[:, kk:] <= -1e29).all() and (i[:, kk:] == 0).all()
-    for b in range(shape[2]):
-        got, want = set(i[b, :kk].tolist()), set(pi[b, :kk].tolist())
-        edge = float(pv[b, kk - 1])
-        assert all(float(full[b, r]) == edge for r in got ^ want)
+    ih, ph = i[:, :kk].cpu().numpy(), pi[:, :kk].cpu().numpy()
+    edge, fh = pv[:, kk - 1].cpu().numpy(), None
+    for r in range(b):
+        diff = set(ih[r].tolist()) ^ set(ph[r].tolist())
+        if diff:
+            fh = full.cpu().numpy() if fh is None else fh
+            assert all(fh[r, x] == edge[r] for x in diff)
+    assert all(len(set(row.tolist())) == kk for row in ih)  # no row twice
+
+
+@pytest.mark.parametrize("cand", [64, 2048])
+@pytest.mark.parametrize("case", BIAS_CASES)
+@pytest.mark.parametrize("shape", FLAT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_quant_candidates_equals_plain(dev, shape, case, cand):
+    _check_k1(_flat_inputs(dev, *shape, case), cand)
+
+
+# K1's query groups (64 a block), widths that shrink the group or move
+# its candidate buffers to device memory, row counts at a tile's edge
+# (128 rows), an all-masked bias and inputs full of exact ties
+@pytest.mark.parametrize("cand", [1, 64, 2048])
+@pytest.mark.parametrize("b", [1, 65, 130, 512])
+def test_quant_candidates_batches(dev, b, cand):
+    _check_k1(_flat_inputs(dev, 20000, 768, b, "filtered", seed=b), cand)
+
+
+@pytest.mark.parametrize("cand", [1, 64, 2048])
+@pytest.mark.parametrize("d", [37, 1536, 4096])
+def test_quant_candidates_widths(dev, d, cand):
+    _check_k1(_flat_inputs(dev, 4096, d, 40, "host", seed=d), cand)
+
+
+@pytest.mark.parametrize("cand", [1, 64, 2048])
+@pytest.mark.parametrize("cap", [127, 128, 129])
+def test_quant_candidates_tile_edges(dev, cap, cand):
+    _check_k1(_flat_inputs(dev, cap, 64, 5, "none", seed=cap), cand)
+
+
+@pytest.mark.parametrize("cand", [1, 64, 2048])
+def test_quant_candidates_all_masked(dev, cand):
+    emb, rinv, qi8, qs, bias = _flat_inputs(dev, 5000, 384, 9, "none")
+    _check_k1((emb, rinv, qi8, qs, torch.full_like(bias, -1e30)), cand)
+
+
+@pytest.mark.parametrize("cand", [1, 64, 2048])
+@pytest.mark.parametrize("b", [3, 64])
+def test_quant_candidates_exact_ties(dev, b, cand):
+    # 30 distinct rows repeated over 9,000, one rinv: every score is
+    # shared by ~300 rows, so the boundary falls inside a tie
+    emb, rinv, qi8, qs, bias = _flat_inputs(dev, 9000, 256, b, "none")
+    emb = emb[:30].repeat(300, 1).contiguous()
+    rinv = torch.full_like(rinv, 0.004)
+    _check_k1((emb, rinv, qi8, qs, bias), cand)
 
 
 @pytest.mark.parametrize("k", [10, 16, 100])
@@ -236,11 +282,14 @@ def test_int8_dot_is_exact(dev, b, d):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
-                                 "cand", "dim"])
+                                 "cand", "dim", "batch"])
 def test_quant_candidates_argument_checks_raise(dev, bad):
     emb, rinv, qi8, qs, bias = _flat_inputs(
         dev, 300, 4097 if bad == "dim" else 64, 2, "none")
     cand = 0 if bad == "cand" else 64
+    if bad == "batch":                     # more query groups than grid.y
+        qi8 = torch.zeros(65535 * 16 + 1, 64, dtype=torch.int8, device=dev)
+        qs = torch.ones(qi8.shape[0], device=dev)
     if bad == "dtype":
         rinv = rinv.double()
     elif bad == "noncontig":

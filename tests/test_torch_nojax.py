@@ -1,7 +1,8 @@
-"""cortex_tpu_torch imports and runs with jax blocked.
+"""cortex_tpu_torch imports and runs with jax and cortex_tpu blocked.
 
-One subprocess blocks jax (sys.modules['jax'] = sys.modules['jaxlib'] =
-None, so any import of it raises), imports the port, runs tiny
+One subprocess blocks jax and the JAX package (sys.modules['jax'] =
+sys.modules['jaxlib'] = sys.modules['cortex_tpu'] = None, so any import
+of them raises), imports the port, runs tiny
 store -> search passes on the CPU (the IVF index, the flat index and the
 default config), and reports what it saw as JSON; the tests below check
 that report.
@@ -21,10 +22,11 @@ SCRIPT = textwrap.dedent("""
     import json, sys, tempfile
     sys.modules["jax"] = None
     sys.modules["jaxlib"] = None
+    sys.modules["cortex_tpu"] = None
     import torch
     import cortex_tpu_torch
-    from cortex_tpu.errors import ConfigError, DeviceUnavailable
-    from cortex_tpu.types import Node, Source
+    from cortex_tpu_torch.errors import ConfigError, DeviceUnavailable
+    from cortex_tpu_torch.types import Node, Source
     from cortex_tpu_torch import Cortex
     from cortex_tpu_torch.config import CortexConfig
     from cortex_tpu_torch.utils.device import resolve_device
@@ -67,6 +69,10 @@ SCRIPT = textwrap.dedent("""
     out["jax_loaded"] = any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         for m, v in sys.modules.items() if v is not None)
+    out["cortex_tpu_loaded"] = sorted(
+        m for m, v in sys.modules.items()
+        if v is not None and (m == "cortex_tpu"
+                              or m.startswith("cortex_tpu.")))
 
     def raises(fn, exc):
         try:
@@ -124,6 +130,12 @@ def test_store_search_runs_without_jax(report):
 
 def test_jax_never_imported(report):
     assert report["jax_loaded"] is False
+
+
+def test_cortex_tpu_never_imported(report):
+    # after store -> search on the IVF index, the flat index and the
+    # default config: no module of the JAX package was loaded
+    assert report["cortex_tpu_loaded"] == []
 
 
 def test_cuda_absent_raises(report):
