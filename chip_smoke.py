@@ -12,8 +12,10 @@ Phases, each printing its results on its own line:
   2. hold each kernel against its plain torch version. probed_scores
      (IVF): a small odd shape, the 384-d shape of phase 4's layout and
      the 1M x 768 layout of phase 3 over 64 queries; unfiltered,
-     filtered and host-bias; scores and rows equal exactly on unmasked
-     entries, with equal masks. quant_candidates (K1) and quant_rerank
+     filtered and host-bias, and at the 1M layout also skewed probes (64
+     copies of one query) and repeated and invalid probe ids; scores and
+     rows equal exactly on unmasked entries, with equal masks and equal
+     empty slots (row -1). quant_candidates (K1) and quant_rerank
      (K2, flat): a small odd shape, the 384-d shape of phase 6 and the
      1M x 768 planes of phase 5 over 64 queries, cand 64 and 2048,
      unfiltered, filtered and host-bias; K1's returned scores bit-equal
@@ -28,7 +30,9 @@ Phases, each printing its results on its own line:
      operations over the peak for their type (int8 1,979 TOP/s, fp32
      67 TFLOP/s; NVIDIA's H100 SXM data sheet), and its share of the
      bound (bound / time); probed_scores' bytes count the distinct lists
-     the queries probe;
+     the queries probe (printed with the mean queries per probed list),
+     and it too is timed beside torch._int_mm's product alone over the
+     same rows;
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -66,9 +70,11 @@ each one's search speed as phases 3 and 5 do, then traces
 PROFILE_ROUNDS searches at batch 64 and at batch 1 with torch.profiler:
 host ms per search in each layer's span, device ms per kernel, and the
 device's idle share of the traced wall. The Chrome traces go to
-profile_out/ beside this script. Last, it times K1's kernel whole and
-cut short after each of its parts (csrc/flat_scan.cu built alone with
-CORTEX_K1_PARTS) on the flat index's planes.
+profile_out/ beside this script. Last, on the flat index's planes, it
+times K1's kernel whole and cut short after each of its parts, and K2
+with its largest warp sort of 64, 256 and 1,024 entries, each from
+csrc/flat_scan.cu built alone with a compile-time switch
+(CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX).
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ PROFILE_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM peaks, NVIDIA's data sheet
 INT8_OPS_PER_S = 1.979e15       # dense int8 tensor cores
 F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
+SPIN_CYCLES_PER_S = 2e9         # >= the SM clock (1.98 GHz at boost)
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
 SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
 FLAT_CANDS = (64, 2048)   # k = 10 (k bucket 16) and search_threshold's 1000
@@ -150,6 +157,8 @@ class KernelCheck:
             want = (apply_host_bias(want[0], want[1], host_bias), want[1])
         torch.cuda.synchronize()
         (s1, r1), (s2, r2) = got, want
+        check(torch.equal(r1 == -1, r2 == -1), "kernel and plain empty "
+              "slots differ")
         m1, m2 = s1 > -1e29, s2 > -1e29
         check(torch.equal(m1, m2), "kernel and plain masks differ")
         check(bool(m1.any()), "comparison saw no unmasked entry")
@@ -217,11 +226,21 @@ def check_synthetic(kc, dev, gen, c, l, d, b, p):
 
 
 def time_ms(fn, reps):
-    """Device time per call from CUDA events, after two warm-up calls."""
+    """Device time per call from CUDA events around `reps` calls, after
+    two warm-up calls. A spin kernel (torch.cuda._sleep) holds the device
+    while the calls are enqueued, longer than one call's host and device
+    time each, so that the calls run back to back and the events time
+    the device, not the host's enqueueing (which exceeds a short
+    kernel's time)."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(2.0, 2 * reps * (time.perf_counter() - t0) + 1e-3)
+    torch.cuda._sleep(int(hold_s * SPIN_CYCLES_PER_S))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -271,17 +290,40 @@ def check_real_layout(kc, index, queries):
                 *filter_lists(dev, rows, on=True, agent=0)), filtered=True)
     bias = torch.from_numpy(co._host_bias(["k1"], None, None)).to(dev)
     kc.compare(args, filtered=False, host_bias=bias)
+    # skewed: 64 copies of one query, so each of its lists is probed 64
+    # times; repeats: each query probes lists twice, plus invalid ids
+    skew = (emb, rinv, rows, kinds, agents, probe[:1].expand_as(probe)
+            .contiguous(), qi8[:1].expand_as(qi8).contiguous())
+    kc.compare((*skew, *off), filtered=False)
+    kc.compare((*skew, *filter_lists(dev, rows, on=True, agent=0)),
+               filtered=True)
+    rep = probe.clone()
+    rep[:, 1::2] = rep[:, 0::2][:, :p // 2]
+    rep[::5, 3] = cent.shape[0]
+    rep[1::5, 7] = -1
+    kc.compare((emb, rinv, rows, kinds, agents, rep, qi8, *off),
+               filtered=False)
     out = {}
+    c, l, d = emb.shape
     for b in (BATCH, 1):
         a = (emb, rinv, rows, kinds, agents, probe[:b], qi8[:b], *off)
         lists = int(torch.unique(probe[:b]).numel())
-        nbytes = (lists * emb.shape[1] * (emb.shape[2] + 16) + b * q.shape[1]
-                  + 4 * b * p + 8 * b * p * emb.shape[1])
+        # unfiltered, a slot's bytes are its row, rinv and slot_rows
+        nbytes = (lists * l * (d + 8) + b * d + 4 * b * p + 8 * b * p * l)
+        # the int8 product alone over the same rows ("product only": not
+        # the same function): at batch 64 every list (the batch probes
+        # them all), at batch 1 the first 128 lists, against the query
+        # padded to 32 rows (cuBLASLt's shape rule)
+        qp = torch.nn.functional.pad(qi8[:b], (0, 0, 0, max(0, 32 - b)))
+        rows_mm = (emb.reshape(c * l, d) if b > 1
+                   else emb[:p].reshape(p * l, d))
         out[f"b{b}"] = timing(
             time_ms(lambda: probed_scores(*a, filtered=False), 20),
             time_ms(lambda: probed_scores_plain(*a, filtered=False), 3),
-            bound_ms(nbytes, 2 * b * p * emb.shape[1] * emb.shape[2],
-                     INT8_OPS_PER_S), lists_probed=lists)
+            bound_ms(nbytes, 2 * b * p * l * d, INT8_OPS_PER_S),
+            lists_probed=lists, queries_per_probed_list=b * p / lists,
+            int_mm_product_only_ms=time_ms(
+                lambda: torch._int_mm(qp, rows_mm.T), 5))
     return out, p
 
 
@@ -1023,27 +1065,37 @@ def profile_index(name, index, q_np, q_lat, card):
     profile_layers(name, index, q_np, q_lat)
 
 
-def build_k1_parts():
-    """csrc/flat_scan.cu alone as plain-C libraries, whole and cut short
-    after each of K1's parts (CORTEX_K1_PARTS), one nvcc each, side by
-    side. Returns {CORTEX_K1_PARTS value: ctypes.CDLL}."""
+def build_flat_scan(macro, values):
+    """csrc/flat_scan.cu alone as plain-C libraries, one for each value
+    of the compile-time switch `macro`, one nvcc each, side by side.
+    Returns ({value: ctypes.CDLL}, {value: nvcc wall seconds})."""
     import ctypes
     import subprocess
     from cortex_tpu_torch.ops import build
     src = build._CSRC / "flat_scan.cu"
-    out = build._BUILD / "k1_parts"
+    out = build._BUILD / "flat_scan_variants"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [build._nvcc(), *build._NVCC_FLAGS, "-shared",
-         f"-DCORTEX_K1_PARTS={n}", str(src), "-o",
-         str(out / f"flat_scan_parts{n}.so")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in (0, 1, 2)}
+    logs = {n: out / f"{macro}_{n}.log" for n in values}
+    t0 = time.perf_counter()
+    procs = {}
+    for n in values:
+        with open(logs[n], "w") as log:
+            procs[n] = subprocess.Popen(
+                [build._nvcc(), *build._NVCC_FLAGS, "-shared",
+                 f"-D{macro}={n}", str(src), "-o",
+                 str(out / f"{macro}_{n}.so")],
+                stdout=log, stderr=subprocess.STDOUT)
+    secs = {}
+    while len(secs) < len(procs):
+        for n, p in procs.items():
+            if n not in secs and p.poll() is not None:
+                secs[n] = time.perf_counter() - t0
+        time.sleep(0.05)
     for n, p in procs.items():
-        log = p.communicate()[0]
-        check(p.returncode == 0, f"nvcc failed on K1 parts {n}:\n{log}")
-    return {n: ctypes.CDLL(str(out / f"flat_scan_parts{n}.so"))
-            for n in procs}
+        check(p.returncode == 0,
+              f"nvcc failed on {macro}={n}:\n{logs[n].read_text()}")
+    return ({n: ctypes.CDLL(str(out / f"{macro}_{n}.so")) for n in procs},
+            secs)
 
 
 def profile_k1_parts(index, q_np, card):
@@ -1064,7 +1116,7 @@ def profile_k1_parts(index, q_np, card):
             "qt", "n_groups", "n_part", "m", "capb", "bufs_global", "smem",
             "aligned")]
 
-    libs = build_k1_parts()
+    libs, _ = build_flat_scan("CORTEX_K1_PARTS", (0, 1, 2))
     co = index._corpus
     emb_i8, rinv = co._dev_q
     cap, d = emb_i8.shape
@@ -1113,6 +1165,54 @@ def profile_k1_parts(index, q_np, card):
     say("profile-flat-k1-parts", card=card, unused_rows_first=unused, **out)
 
 
+def profile_k2_sorts(index, q_np, card):
+    """K2 alone at the flat index's fp32 planes on K1's candidates (k 16),
+    at batch 64 and 1 and cand 64 to 2048, built with its largest warp
+    sort of 64, 256 (the ops' build) and 1,024 entries
+    (CORTEX_K2_WARP_SORT_MAX; beyond it the shared-memory sort), with
+    each build's nvcc seconds (the three compile side by side). The
+    three builds' results must be equal."""
+    import ctypes
+    import torch
+    from cortex_tpu_torch.ops import similarity as sim
+    sorts = (64, 256, 1024)
+    libs, secs = build_flat_scan("CORTEX_K2_WARP_SORT_MAX", sorts)
+    co = index._corpus
+    emb = co._dev[0]
+    emb_i8, rinv = co._dev_q
+    cap, d = emb.shape
+    bias = torch.where(co._dev[1].bool(), 0.0, -1e30).float()   # live rows
+    q = torch.from_numpy(q_np).to(emb.device)
+    qi8, qs = sim.quantize_queries(q)
+    ptr = ctypes.c_void_p
+    stream = ptr(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for cand in (64, 128, 256, 1024, 2048):
+        cv, ci = sim.quant_candidates(emb_i8, rinv, qi8, qs, bias, cand)
+        cand_p2 = 1 << (cand - 1).bit_length()
+        for b in (BATCH, 1):
+            ov = torch.empty(b, 16, device=emb.device)
+            oi = torch.empty_like(ov, dtype=torch.int32)
+            args = [ptr(t.data_ptr()) for t in (emb, q[:b], cv[:b], ci[:b],
+                                                ov, oi)]
+            row, first = {}, None
+            for n in sorts:
+                def run():
+                    check(libs[n].cortex_quant_rerank_launch(
+                        *args, b, cap, d, cand, cand_p2, 16, stream) == 0,
+                        "K2 sorts: launch failed")
+                row[f"warp_sort_max_{n}_ms"] = time_ms(run, 20)
+                run()
+                got = (ov.clone(), oi.clone())
+                if first is None:
+                    first = got
+                check(torch.equal(got[0], first[0])
+                      and torch.equal(got[1], first[1]),
+                      f"K2 sorts: builds differ at cand {cand}, batch {b}")
+            out[f"b{b}_cand{cand}"] = row
+    say("profile-flat-k2-sorts", card=card, nvcc_s=secs, **out)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1159,6 +1259,7 @@ def main(argv) -> int:
         index, _ = phase_flat_build(dev, rows, fc)
         profile_index("flat", index, q_np, q_lat, card)
         profile_k1_parts(index, q_np, card)
+        profile_k2_sorts(index, q_np, card)
         check_no_reference_import()
         print(card, flush=True)
         return 0

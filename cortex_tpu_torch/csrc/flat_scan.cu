@@ -51,13 +51,20 @@
 //   (ops/similarity.py), as the reference's merge is a separate
 //   lax.top_k.
 //
-// K2 quant_rerank: one block per query. The query sits in shared
-//   memory; each warp scores candidates with coalesced row reads and f32
-//   FMAs (Precision.HIGHEST's class: no TF32, no bf16), the scores stay
-//   in shared memory, and a bitonic sort (score descending, candidate
-//   position ascending on ties) orders them; the first min(k, cand) are
-//   written, padded to k. Bound by the gather of B*cand rows (B*cand*d*4
-//   bytes, ~12.6 MB at batch 64, cand 64, d 768): latency, not bandwidth.
+// K2 quant_rerank: exact f32 dots of each valid candidate's row with its
+//   query (f32 FMAs: Precision.HIGHEST's class, no TF32, no bf16), then
+//   the order score descending, candidate position ascending on ties;
+//   the first min(k, cand) are written, padded to k. Bound by the gather
+//   of B*cand rows (B*cand*d*4 bytes, ~12.6 MB at batch 64, cand 64, d
+//   768), which one block per query left to a chain of latencies (one
+//   row after another per warp, on B of the 132 SMs). So every candidate
+//   row of a query is in flight at once: a thread block cluster of up to
+//   8 blocks per query (grid.x = 8 B) spreads the rows over 64 warps,
+//   each issuing a whole row's 16-byte loads before its first FMA; the
+//   scores meet in the first block through distributed shared memory,
+//   where warp 0 sorts up to 256 of them in registers (a bitonic sort
+//   with shuffles, no block barrier per stage); larger cand (up to
+//   16,384) keep the bitonic sort in shared memory.
 //
 // The PyTorch op binding lives in flat_scan_op.cpp, so this file never
 // includes PyTorch's headers.
@@ -65,11 +72,15 @@
 #include <algorithm>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "device_common.cuh"
 #include "flat_scan.cuh"
 
 namespace {
+
+using namespace cortex_dev;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -93,6 +104,19 @@ constexpr float kNegInf = -1e30f;
 #endif
 constexpr int kParts = CORTEX_K1_PARTS;
 
+// K2's largest warp sort: up to 64 candidates sort 2 entries a lane, up
+// to kWarpSortMax candidates kWarpSortMax / 32 a lane, more in shared
+// memory. `chip_smoke.py --profile` builds this file with 64, 256 and
+// 1024 to time the choice; the ops' library keeps 256 (a warp sort of
+// 1,024 was slower than the shared-memory sort, and slow to compile).
+#ifndef CORTEX_K2_WARP_SORT_MAX
+#define CORTEX_K2_WARP_SORT_MAX 256
+#endif
+constexpr int kWarpSortMax = CORTEX_K2_WARP_SORT_MAX;
+static_assert(kWarpSortMax == 64 || kWarpSortMax == 256 ||
+                  kWarpSortMax == 1024,
+              "CORTEX_K2_WARP_SORT_MAX is 64, 256 or 1024");
+
 // -inf, below every score a row can get (masked rows score ~kNegInf)
 __device__ __forceinline__ float minus_inf() {
   return __int_as_float(0xff800000);
@@ -107,52 +131,6 @@ __device__ __forceinline__ uint32_t order_key(float f) {
 
 __device__ __forceinline__ float key_value(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// byte offset of the 16-byte chunk `c` (of 128-byte slices) of row `r`
-// in a tile whose rows are `stride` bytes: chunks XOR-swizzled by r % 8
-__device__ __forceinline__ int swz(int r, int c, int stride) {
-  return r * stride + ((c & ~7) << 4) + (((c & 7) ^ (r & 7)) << 4);
 }
 
 struct ScanArgs {
@@ -800,112 +778,296 @@ __device__ __forceinline__ bool ranks_before(float va, int pa, float vb,
   return va > vb || (va == vb && pa < pb);
 }
 
+constexpr int kRerankCluster = 8;      // blocks per query, at most
+constexpr int kRerankLoads = 8;        // loads of a row in flight per lane
+
+// The exact f32 dot of an f32 row with the query in shared memory, one
+// warp: lane-strided 16-byte (kVec4) or 4-byte loads, kRerankLoads of
+// them issued before the first is used, FMAs in order per lane, then a
+// butterfly across the warp.
 template <bool kVec4>
+__device__ __forceinline__ float row_dot(const float* __restrict__ rp,
+                                         const float* qf, int d, int lane) {
+  float acc = 0.0f;
+  if (kVec4) {
+    const float4* r4 = reinterpret_cast<const float4*>(rp);
+    const float4* q4 = reinterpret_cast<const float4*>(qf);
+    const int n = d >> 2;
+    for (int base = 0; base < n; base += 32 * kRerankLoads) {
+      float4 x[kRerankLoads];
+#pragma unroll
+      for (int u = 0; u < kRerankLoads; ++u) {
+        const int j = base + 32 * u + lane;
+        x[u] = j < n ? __ldg(r4 + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kRerankLoads; ++u) {
+        const int j = base + 32 * u + lane;
+        if (j < n) {
+          const float4 y = q4[j];
+          acc = fmaf(x[u].x, y.x, acc);
+          acc = fmaf(x[u].y, y.y, acc);
+          acc = fmaf(x[u].z, y.z, acc);
+          acc = fmaf(x[u].w, y.w, acc);
+        }
+      }
+    }
+  } else {
+    for (int base = 0; base < d; base += 32 * kRerankLoads) {
+      float x[kRerankLoads];
+#pragma unroll
+      for (int u = 0; u < kRerankLoads; ++u) {
+        const int j = base + 32 * u + lane;
+        x[u] = j < d ? __ldg(rp + j) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRerankLoads; ++u) {
+        const int j = base + 32 * u + lane;
+        if (j < d) acc = fmaf(x[u], qf[j], acc);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  return acc;
+}
+
+// Warp-wide bitonic sort of 32 kE entries (v, p) into the final order
+// (score descending, position ascending); entry lane * kE + e sits in
+// register e of `lane`. Stages with stride < kE compare-exchange inside
+// a lane's registers, the others with lane ^ (stride / kE) by shuffles:
+// no shared memory and no block barrier.
+template <int kE>
+__device__ __forceinline__ void warp_sort(float (&v)[kE], int (&p)[kE],
+                                          int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * kE; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= kE) {
+        const int ls = stride / kE;
+        const bool lower = (lane & ls) == 0;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const float ov = __shfl_xor_sync(0xffffffffu, v[e], ls);
+          const int op = __shfl_xor_sync(0xffffffffu, p[e], ls);
+          const bool desc = ((lane * kE + e) & size) == 0;
+          // the lower entry of a descending pair keeps the one ranked first
+          if (ranks_before(v[e], p[e], ov, op) != (lower == desc)) {
+            v[e] = ov;
+            p[e] = op;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int f = e ^ stride;
+          if (f > e) {
+            const bool desc = ((lane * kE + e) & size) == 0;
+            const bool swap = desc ? ranks_before(v[f], p[f], v[e], p[e])
+                                   : ranks_before(v[e], p[e], v[f], p[f]);
+            if (swap) {
+              const float tv = v[e];
+              v[e] = v[f];
+              v[f] = tv;
+              const int tp = p[e];
+              p[e] = p[f];
+              p[f] = tp;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// K2, one thread block cluster of n_g <= kRerankCluster blocks per query
+// (grid.x = n_g * B). Block g scores candidates [g per, (g + 1) per),
+// one warp a row with all of the row's loads in flight, so that every
+// candidate row of the query is read at once; the scores and candidate
+// rows go to block 0's shared memory (distributed shared memory), and
+// block 0 orders them: up to 32 kE entries in warp 0's registers (kE >
+// 0), else by a bitonic sort of cand_p2 entries in shared memory.
+template <bool kVec4, int kE>
 __global__ void __launch_bounds__(kThreads) quant_rerank_kernel(
     const float* __restrict__ emb, const float* __restrict__ q,
     const float* __restrict__ cv, const int32_t* __restrict__ ci,
     float* __restrict__ out_v, int32_t* __restrict__ out_i, int cap, int d,
     int cand, int cand_p2, int k) {
-  extern __shared__ float smf[];
-  float* qf = smf;                                    // [d]
-  float* val = qf + d;                                // [cand_p2]
-  int* pos = reinterpret_cast<int*>(val + cand_p2);   // [cand_p2]
-  const int b = blockIdx.x;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  // no block writes to block 0 before every block of the cluster runs:
+  // arrive now, wait before the first remote write
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+  extern __shared__ __align__(16) float smf[];
+  const int dq = (d + 3) & ~3;
+  float* qf = smf;                                    // [dq]
+  // this block's scores and candidate rows; in block 0, all of them
+  float* val = qf + dq;                               // [cand_p2]
+  int* ids = reinterpret_cast<int*>(val + cand_p2);   // [cand_p2]
+  const int n_g = static_cast<int>(cluster.num_blocks());
+  const int g = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / n_g;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int per = (cand + n_g - 1) / n_g;
+  const int lo = min(cand, g * per);
+  const int hi = min(cand, lo + per);
+  const int64_t c0 = static_cast<int64_t>(b) * cand;
+  // this warp's first candidate, read while the query loads
+  int c = lo + warp;
+  float cvv = c < hi ? cv[c0 + c] : kNegInf;
+  int id = c < hi ? ci[c0 + c] : 0;
   const float* qb = q + static_cast<int64_t>(b) * d;
-  for (int j = threadIdx.x; j < d; j += kThreads) qf[j] = qb[j];
+  for (int j = tid; j < d; j += kThreads) qf[j] = qb[j];
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t c0 = static_cast<int64_t>(b) * cand;
-  for (int c = warp; c < cand; c += kWarps) {
-    const bool valid = cv[c0 + c] > kNegInf * 0.5f;
-    int row = valid ? ci[c0 + c] : 0;
-    row = min(max(row, 0), cap - 1);
-    const float* rp = emb + static_cast<int64_t>(row) * d;
-    float acc = 0.0f;
-    if (kVec4) {
-      const float4* r4 = reinterpret_cast<const float4*>(rp);
-      const float4* q4 = reinterpret_cast<const float4*>(qf);
-      for (int j = lane; j < (d >> 2); j += 32) {
-        const float4 x = __ldg(r4 + j);
-        const float4 y = q4[j];
-        acc = fmaf(x.x, y.x, acc);
-        acc = fmaf(x.y, y.y, acc);
-        acc = fmaf(x.z, y.z, acc);
-        acc = fmaf(x.w, y.w, acc);
-      }
-    } else {
-      for (int j = lane; j < d; j += 32) acc = fmaf(__ldg(rp + j), qf[j], acc);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (; c < hi; c += kWarps) {
+    float s = kNegInf;
+    if (cvv > kNegInf * 0.5f) {
+      const int row = min(max(id, 0), cap - 1);
+      s = row_dot<kVec4>(emb + static_cast<int64_t>(row) * d, qf, d, lane);
     }
     if (lane == 0) {
-      val[c] = valid ? acc : kNegInf;
-      pos[c] = c;
+      val[c - lo] = s;
+      ids[c - lo] = id;
+    }
+    if (c + kWarps < hi) {
+      cvv = cv[c0 + c + kWarps];
+      id = ci[c0 + c + kWarps];
     }
   }
-  for (int c = cand + threadIdx.x; c < cand_p2; c += kThreads) {
-    val[c] = minus_inf();              // padding sorts after everything
-    pos[c] = c;
-  }
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
   __syncthreads();
-
-  // bitonic sort of cand_p2 entries, descending by (score, -position)
-  for (int size = 2; size <= cand_p2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (cand_p2 >> 1); t += kThreads) {
-        const int i = (t / stride) * stride * 2 + (t % stride);
-        const int j = i + stride;
-        const bool desc = (i & size) == 0;
-        const bool swap = desc ? ranks_before(val[j], pos[j], val[i], pos[i])
-                               : ranks_before(val[i], pos[i], val[j], pos[j]);
-        if (swap) {
-          const float tv = val[i];
-          val[i] = val[j];
-          val[j] = tv;
-          const int tp = pos[i];
-          pos[i] = pos[j];
-          pos[j] = tp;
-        }
-      }
-      __syncthreads();
+  if (g != 0) {
+    float* dst_v = cluster.map_shared_rank(val, 0);
+    int* dst_i = cluster.map_shared_rank(ids, 0);
+    for (int x = lo + tid; x < hi; x += kThreads) {
+      dst_v[x] = val[x - lo];
+      dst_i[x] = ids[x - lo];
     }
   }
+  cluster.sync();                          // block 0 holds every score
+  if (g != 0) return;
+
   const int kk = min(k, cand);
   const int64_t o0 = static_cast<int64_t>(b) * k;
-  for (int t = threadIdx.x; t < k; t += kThreads) {
-    if (t < kk) {
-      out_v[o0 + t] = val[t];
-      out_i[o0 + t] = ci[c0 + pos[t]];
-    } else {
+  if constexpr (kE > 0) {
+    if (warp != 0) return;
+    float v[kE];
+    int p[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int i = lane * kE + e;
+      v[e] = i < cand ? val[i] : minus_inf();    // padding sorts last
+      p[e] = i;
+    }
+    warp_sort<kE>(v, p, lane);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int i = lane * kE + e;
+      if (i < kk) {
+        out_v[o0 + i] = v[e];
+        out_i[o0 + i] = ids[p[e]];
+      }
+    }
+    for (int t = kk + lane; t < k; t += 32) {
       out_v[o0 + t] = kNegInf;
       out_i[o0 + t] = 0;
     }
+  } else {
+    int* pos = ids + cand_p2;                           // [cand_p2]
+    for (int x = tid; x < cand_p2; x += kThreads) {
+      if (x >= cand) val[x] = minus_inf();     // padding sorts last
+      pos[x] = x;
+    }
+    __syncthreads();
+    // bitonic sort of cand_p2 entries, descending by (score, -position)
+    for (int size = 2; size <= cand_p2; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int t = tid; t < (cand_p2 >> 1); t += kThreads) {
+          const int i = (t / stride) * stride * 2 + (t % stride);
+          const int j = i + stride;
+          const bool desc = (i & size) == 0;
+          const bool swap = desc
+                                ? ranks_before(val[j], pos[j], val[i], pos[i])
+                                : ranks_before(val[i], pos[i], val[j], pos[j]);
+          if (swap) {
+            const float tv = val[i];
+            val[i] = val[j];
+            val[j] = tv;
+            const int tp = pos[i];
+            pos[i] = pos[j];
+            pos[j] = tp;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int t = tid; t < k; t += kThreads) {
+      if (t < kk) {
+        out_v[o0 + t] = val[t];
+        out_i[o0 + t] = ids[pos[t]];
+      } else {
+        out_v[o0 + t] = kNegInf;
+        out_i[o0 + t] = 0;
+      }
+    }
   }
 }
 
-template <bool kVec4>
-int launch_rerank(size_t smem, cudaStream_t stream, const void* emb,
-                  const void* q, const void* cv, const void* ci, void* out_v,
-                  void* out_i, int b, int cap, int d, int cand, int cand_p2,
-                  int k) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      quant_rerank_kernel<kVec4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <bool kVec4, int kE>
+int launch_rerank(cudaStream_t stream, const void* emb, const void* q,
+                  const void* cv, const void* ci, void* out_v, void* out_i,
+                  int b, int cap, int d, int cand, int cand_p2, int k) {
+  const auto kernel = quant_rerank_kernel<kVec4, kE>;
+  // the query, then scores and rows [cand_p2] each, then (shared-memory
+  // sort) positions [cand_p2]: 225 KiB at d 8192, cand 16384
+  const size_t dq = static_cast<size_t>((d + 3) & ~3);
+  const size_t smem = dq * sizeof(float) +
+                      static_cast<size_t>(cand_p2) * (kE > 0 ? 2 : 3) * 4;
+  DeviceLimits lim;
+  int per_sm = 0;
+  cudaError_t err = fit_kernel(reinterpret_cast<const void*>(kernel),
+                               kThreads, smem, &lim, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  quant_rerank_kernel<kVec4><<<b, kThreads, smem, stream>>>(
-      static_cast<const float*>(emb), static_cast<const float*>(q),
-      static_cast<const float*>(cv), static_cast<const int32_t*>(ci),
-      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), cap, d, cand,
-      cand_p2, k);
+  const int n_g = std::min(kRerankCluster, (cand + kWarps - 1) / kWarps);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_g);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_g) * static_cast<unsigned>(b));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(emb),
+      static_cast<const float*>(q), static_cast<const float*>(cv),
+      static_cast<const int32_t*>(ci), static_cast<float*>(out_v),
+      static_cast<int32_t*>(out_i), cap, d, cand, cand_p2, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// per device: SM count and the opt-in shared memory of a block
-int g_sm_count[64];
-int g_smem_optin[64];
+template <bool kVec4>
+int launch_rerank_for(cudaStream_t s, const void* emb, const void* q,
+                      const void* cv, const void* ci, void* out_v,
+                      void* out_i, int b, int cap, int d, int cand,
+                      int cand_p2, int k) {
+  // warp sorts of 64 and kWarpSortMax entries; beyond, the shared-memory
+  // sort
+  const decltype(&launch_rerank<kVec4, 0>) launch =
+      cand <= 64             ? launch_rerank<kVec4, 2>
+      : cand <= kWarpSortMax ? launch_rerank<kVec4, kWarpSortMax / 32>
+                             : launch_rerank<kVec4, 0>;
+  return launch(s, emb, q, cv, ci, out_v, out_i, b, cap, d, cand, cand_p2, k);
+}
 
 }  // namespace
 
@@ -913,20 +1075,10 @@ int g_smem_optin[64];
 // success).
 extern "C" int cortex_quant_scan_plan(int b, int cap, int d, int cand,
                                       int aligned, QuantScanPlan* plan) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  DeviceLimits lim;
+  cudaError_t err = device_limits(&lim);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&g_smem_optin[dev],
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&g_sm_count[dev],
-                                   cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const size_t optin = static_cast<size_t>(g_smem_optin[dev]);
+  const size_t optin = static_cast<size_t>(lim.smem_optin);
   const int n_slices = (d + kSlice - 1) / kSlice;
   // the largest query group that fits beside the ring (64 up to d 2048)
   int qt = std::min(kMaxQ, std::max(16, (b + 15) / 16 * 16));
@@ -942,14 +1094,11 @@ extern "C" int cortex_quant_scan_plan(int b, int cap, int d, int cand,
   const bool in_smem = scan_smem_fixed(qt, n_slices) + bufs <= optin;
   const size_t smem = scan_smem_fixed(qt, n_slices) + (in_smem ? bufs : 0);
   const ScanKernel k = scan_kernel(qt / 16, aligned != 0);
-  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads,
-                                                      smem);
+  err = fit_kernel(reinterpret_cast<const void*>(k), kThreads, smem, &lim,
+                   &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_part = std::max(1, std::min(n_tiles, g_sm_count[dev] *
+  const int n_part = std::max(1, std::min(n_tiles, lim.sm_count *
                                                        std::max(per_sm, 1)));
   // a partition never holds more rows than its tiles: keep at most those
   const int64_t part_rows =
@@ -966,7 +1115,8 @@ extern "C" int cortex_quant_scan_plan(int b, int cap, int d, int cand,
   return 0;
 }
 
-// K1: enqueue the scan on `stream` with the shape `plan` chose; returns
+// K1: enqueue the scan on `stream` with the shape `plan` chose (the plan
+// also raised the kernel's shared memory limit on this device); returns
 // the cudaError_t of the launch. The caller has checked shapes, types and
 // devices and allocated the partials and (bufs_global) the buffers.
 extern "C" int cortex_quant_scan_launch(
@@ -995,9 +1145,6 @@ extern "C" int cortex_quant_scan_launch(
   a.m = plan->m;
   a.capb = plan->capb;
   const ScanKernel k = scan_kernel(plan->qt / 16, plan->aligned != 0);
-  const cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(plan->n_part),
                   static_cast<unsigned>(plan->n_groups));
   k<<<grid, kThreads, static_cast<size_t>(plan->smem),
@@ -1012,14 +1159,11 @@ extern "C" int cortex_quant_rerank_launch(
     void* out_v, void* out_i, int b, int cap, int d, int cand, int cand_p2,
     int k, void* stream) {
   if (b == 0) return 0;
-  const size_t smem = static_cast<size_t>(d) * sizeof(float) +
-                      static_cast<size_t>(cand_p2) * (sizeof(float) +
-                                                      sizeof(int));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0) {
-    return launch_rerank<true>(smem, s, emb, q, cv, ci, out_v, out_i, b, cap,
-                               d, cand, cand_p2, k);
+    return launch_rerank_for<true>(s, emb, q, cv, ci, out_v, out_i, b, cap,
+                                   d, cand, cand_p2, k);
   }
-  return launch_rerank<false>(smem, s, emb, q, cv, ci, out_v, out_i, b, cap,
-                              d, cand, cand_p2, k);
+  return launch_rerank_for<false>(s, emb, q, cv, ci, out_v, out_i, b, cap, d,
+                                  cand, cand_p2, k);
 }

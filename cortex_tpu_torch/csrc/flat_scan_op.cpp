@@ -25,6 +25,8 @@ constexpr int64_t kMaxScanDim = 4096;      // K1's queries in shared memory
 constexpr int64_t kMaxScanBatch = 65535 * 16;   // K1's grid.y query groups
 constexpr int64_t kMaxCand = 16384;        // K2 sorts cand in shared memory
 constexpr int64_t kMaxRerankDim = 8192;
+// K2 runs a cluster of up to 8 blocks per query in grid.x
+constexpr int64_t kMaxRerankBatch = ((int64_t{1} << 31) - 1) / 8;
 
 void check_arg(const char* op, const at::Tensor& t, const char* name,
                at::ScalarType dtype, int64_t dim, const at::Device& device) {
@@ -130,6 +132,8 @@ std::tuple<at::Tensor, at::Tensor> quant_rerank_cuda(
               " out of range [1, 2^31)");
   TORCH_CHECK(d >= 1 && d <= kMaxRerankDim, op, ": d=", d,
               " out of range [1, ", kMaxRerankDim, "]");
+  TORCH_CHECK(b <= kMaxRerankBatch, op, ": B=", b, " out of range [0, ",
+              kMaxRerankBatch, "]");
   int64_t cand_p2 = 1;
   while (cand_p2 < cand) cand_p2 *= 2;
 

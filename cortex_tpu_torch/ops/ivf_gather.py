@@ -66,8 +66,10 @@ def probed_scores_plain(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`probed_scores` in plain torch: gather the probed blocks, f32
     batched matmul (exact: int8 products summed below 2^24), times rinv,
-    then the masks. Materializes the [n, p*L, d] f32 gather, so queries
-    run in chunks of at most PLAIN_BUDGET_BYTES each."""
+    then the masks. A probe id outside [0, C) scores its segment as
+    empty (NEG_INF, row -1), as the kernel does. Materializes the
+    [n, p*L, d] f32 gather, so queries run in chunks of at most
+    PLAIN_BUDGET_BYTES each."""
     require_exact_f32(emb_i8, "probed_scores_plain")
     b, p = probe.shape
     c, l, d = emb_i8.shape
@@ -80,11 +82,13 @@ def probed_scores_plain(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
     s_parts, r_parts = [], []
     for s0 in range(0, b, qc):
         pr = probe[s0:s0 + qc].long()
+        bad = ((pr < 0) | (pr >= c)).repeat_interleave(l, dim=1)
+        pr = pr.clamp(0, max(c - 1, 0))
         n = pr.shape[0]
         blk = emb_i8[pr].reshape(n, p * l, d).float()
         q = qi8[s0:s0 + qc].float().unsqueeze(2)
         s = torch.bmm(blk, q).squeeze(2) * rinv_sl[pr].reshape(n, p * l)
-        rows = slot_rows[pr].reshape(n, p * l)
+        rows = torch.where(bad, -1, slot_rows[pr].reshape(n, p * l))
         ok = rows >= 0
         if filtered:
             kc = kind_sl[pr].reshape(n, p * l)

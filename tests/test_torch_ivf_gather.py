@@ -92,13 +92,27 @@ def _plain(emb, ri, sr, kc, ac, probe, qi8, ak, aa, ex, filtered):
 SHAPES = [(16, 24, 64, 5, 6), (11, 37, 100, 3, 3), (7, 13, 37, 4, 5)]
 
 
+def _probes(pattern, rng, c, b, p):
+    """[B, p] probe ids: random, or the patterns the CUDA kernel groups
+    by list: every query probing the same lists, every pair on one list,
+    lists probed twice in a row by the same query."""
+    probe = rng.integers(0, c, (b, p)).astype(np.int32)
+    if pattern == "same_lists":
+        probe[:] = probe[0]
+    elif pattern == "one_list":
+        probe[:] = c - 1
+    elif pattern == "repeats":
+        probe[:, 1::2] = probe[:, 0::2][:, :p // 2]
+    return probe
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("case", CASES)
-def test_plain_bit_equal_to_pallas_kernel(case, shape):
+def test_plain_bit_equal_to_pallas_kernel(case, shape, pattern="random"):
     c, l, d, b, p = shape
     emb, ri, sr, kc, ac = _layout(seed=c + d, c=c, l=l, d=d)
     rng = np.random.default_rng(1)
-    probe = rng.integers(0, c, (b, p)).astype(np.int32)
+    probe = _probes(pattern, rng, c, b, p)
     qi8, _ = _quantize(rng.standard_normal((b, d)).astype(np.float32))
     ak, aa, ex = _filters(case)
     filtered = case != "none"
@@ -115,6 +129,14 @@ def test_plain_bit_equal_to_pallas_kernel(case, shape):
     np.testing.assert_array_equal(got > -1e29, mask)
     np.testing.assert_array_equal(got[mask], want[mask])
     np.testing.assert_array_equal(rows[mask], want_rows[mask])
+
+
+@pytest.mark.parametrize("pattern", ["same_lists", "one_list", "repeats"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("case", ["none", "all"])
+def test_plain_bit_equal_to_pallas_kernel_skewed_probes(case, shape,
+                                                        pattern):
+    test_plain_bit_equal_to_pallas_kernel(case, shape, pattern)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -141,6 +163,27 @@ def test_plain_matches_xla_reference(case):
     np.testing.assert_allclose(got[mask] / np.broadcast_to(
         qs[:, None], got.shape)[mask], want[mask], rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(rows[mask], want_rows[mask])
+
+
+def test_plain_invalid_probe_scores_as_empty():
+    """An id outside [0, C) scores its segment as empty (NEG_INF, row
+    -1), as the CUDA kernel does; the other segments are unchanged."""
+    emb, ri, sr, kc, ac = _layout()
+    c, l = sr.shape
+    rng = np.random.default_rng(4)
+    probe = rng.integers(0, c, (4, 5)).astype(np.int32)
+    qi8, _ = _quantize(rng.standard_normal((4, emb.shape[2])
+                                           ).astype(np.float32))
+    bad = probe.copy()
+    bad[0, 1], bad[2, 3] = c, -1
+    args = (emb, ri, sr, kc, ac)
+    want, want_rows = _plain(*args, probe, qi8, *_filters("all"), True)
+    got, rows = _plain(*args, bad, qi8, *_filters("all"), True)
+    empty = np.zeros_like(got, dtype=bool)
+    empty[0, l:2 * l] = empty[2, 3 * l:4 * l] = True
+    assert (got[empty] <= -1e29).all() and (rows[empty] == -1).all()
+    np.testing.assert_array_equal(got[~empty], want[~empty])
+    np.testing.assert_array_equal(rows[~empty], want_rows[~empty])
 
 
 def test_empty_batch():

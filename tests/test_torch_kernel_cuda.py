@@ -90,6 +90,75 @@ def test_invalid_probe_scores_as_empty(dev):
     s, r = ivf_gather.probed_scores(*args, filtered=False)
     torch.cuda.synchronize()
     assert (s[0, 16:32] <= -1e29).all() and (r[0, 16:32] == -1).all()
+    _check_probed(args, filtered=False)
+
+
+def _check_probed(args, filtered):
+    """The kernel against the plain version, bit for bit, with the same
+    empty slots (row -1: an empty slot, or an invalid probe id's
+    segment)."""
+    before = ivf_gather.probed_scores.launches
+    s, r = ivf_gather.probed_scores(*args, filtered=filtered)
+    torch.cuda.synchronize()
+    assert ivf_gather.probed_scores.launches == before + 1
+    ps, pr = ivf_gather.probed_scores_plain(*args, filtered=filtered)
+    assert torch.equal(r == -1, pr == -1)
+    _assert_equal((s, r), (ps, pr))
+
+
+# The kernel groups the (query, probe) pairs by list, up to 64 queries a
+# chunk: every query probing the same lists, 130 queries (1,040 pairs) on
+# one list, a list probed twice by one query, and invalid ids
+@pytest.mark.parametrize("pattern", ["same_lists", "one_list", "repeats",
+                                     "invalid"])
+def test_probed_scores_probe_patterns(dev, pattern):
+    args = _inputs(dev, 32, 200, 768, 130, 8, "all", seed=7)
+    probe = args[5]
+    if pattern == "same_lists":
+        probe[:] = probe[0].clone()
+    elif pattern == "one_list":
+        probe[:] = 5
+    elif pattern == "repeats":
+        probe[:, 1::2] = probe[:, ::2].clone()
+    else:
+        probe[::3, 2] = 32                    # == C
+        probe[1::3, 4] = -1
+    _check_probed(args, filtered=True)
+
+
+@pytest.mark.parametrize("b", [1, 65, 130, 512])
+def test_probed_scores_batches(dev, b):
+    _check_probed(_inputs(dev, 64, 150, 768, b, 16, "all", seed=b),
+                  filtered=True)
+
+
+def test_probed_scores_batch_past_old_grid_limit(dev):
+    # the batch has no grid dimension: 70,000 queries > 65,535
+    _check_probed(_inputs(dev, 8, 4, 16, 70000, 2, "none", seed=3),
+                  filtered=False)
+
+
+@pytest.mark.parametrize("l", [1, 127, 128, 129, 1280])
+def test_probed_scores_list_lengths(dev, l):
+    _check_probed(_inputs(dev, 12, l, 384, 9, 5, "excl", seed=l),
+                  filtered=True)
+
+
+# d not a multiple of 16 (bytes assembled), 1040 (the exact limit: 9
+# slices, 64 queries a chunk in 72 KiB of shared memory)
+@pytest.mark.parametrize("d", [37, 100, 384, 768, 1040])
+def test_probed_scores_widths(dev, d):
+    _check_probed(_inputs(dev, 10, 70, d, 64, 4, "kind", seed=d),
+                  filtered=True)
+
+
+# the plan counts each list's probes in shared memory up to 32,768 lists,
+# past that in its scratch buffer
+@pytest.mark.parametrize("c", [32768, 32769, 100000])
+def test_probed_scores_many_lists(dev, c):
+    args = _inputs(dev, c, 3, 32, 70, 64, "excl", seed=c)
+    args[5][0, :8] = c - 1                   # the last list, 8 times
+    _check_probed(args, filtered=True)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
@@ -228,12 +297,8 @@ def test_quant_candidates_exact_ties(dev, b, cand):
     _check_k1((emb, rinv, qi8, qs, bias), cand)
 
 
-@pytest.mark.parametrize("k", [10, 16, 100])
-@pytest.mark.parametrize("cand", [64, 2048])
-@pytest.mark.parametrize("d", [37, 384, 768])
-def test_quant_rerank_equals_plain(dev, d, cand, k):
-    rng = np.random.default_rng(d + cand)
-    cap, b = 6000, 9
+def _rerank_inputs(dev, cap, d, b, cand, seed):
+    rng = np.random.default_rng(seed)
     emb = rng.standard_normal((cap, d)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     q = rng.standard_normal((b, d)).astype(np.float32)
@@ -241,21 +306,69 @@ def test_quant_rerank_equals_plain(dev, d, cand, k):
     ci = rng.integers(0, cap, (b, cand)).astype(np.int32)
     cv = rng.standard_normal((b, cand)).astype(np.float32)
     cv[rng.random((b, cand)) < 0.2] = -1e30            # invalid candidates
-    emb_t, q_t, cv_t, ci_t = (torch.from_numpy(a).to(dev)
-                              for a in (emb, q, cv, ci))
+    return [torch.from_numpy(a).to(dev) for a in (emb, q, cv, ci)]
+
+
+def _check_k2(args, k):
+    """K2 against its plain version: scores within RERANK_ATOL, ids equal
+    but at near-ties; returns the kernel's (values, ids)."""
+    b = args[1].shape[0]
     before = sim.quant_rerank.launches
-    v, i = sim.quant_rerank(emb_t, q_t, cv_t, ci_t, k)
+    v, i = sim.quant_rerank(*args, k)
     torch.cuda.synchronize()
     assert sim.quant_rerank.launches == before + 1
-    pv, pi = sim.quant_rerank_plain(emb_t, q_t, cv_t, ci_t, k)
+    pv, pi = sim.quant_rerank_plain(*args, k)
     assert v.shape == (b, k) and i.dtype == torch.int32
     torch.testing.assert_close(v, pv, atol=RERANK_ATOL, rtol=0)
+    vh, ih, ph = pv.cpu().numpy(), i.cpu().numpy(), pi.cpu().numpy()
+    for r, j in zip(*np.nonzero(ih != ph)):
+        near = [abs(vh[r, j] - vh[r, t]) for t in (j - 1, j + 1)
+                if 0 <= t < k]
+        assert min(near) <= NEAR_TIE
+    return v, i
+
+
+@pytest.mark.parametrize("k", [10, 16, 100])
+@pytest.mark.parametrize("cand", [64, 2048])
+@pytest.mark.parametrize("d", [37, 384, 768])
+def test_quant_rerank_equals_plain(dev, d, cand, k):
+    _check_k2(_rerank_inputs(dev, 6000, d, 9, cand, d + cand), k)
+
+
+# each sort of K2 (a warp's registers up to 1,024 candidates, shared
+# memory beyond), a cluster of fewer than 8 blocks (cand < 64), k above
+# cand
+@pytest.mark.parametrize("cand", [1, 63, 64, 65, 1024, 1025, 2048, 16384])
+@pytest.mark.parametrize("b", [1, 64, 130])
+def test_quant_rerank_sizes(dev, b, cand):
+    args = _rerank_inputs(dev, 20000, 384, b, cand, b * cand)
+    for k in (16, cand + 5):
+        _check_k2(args, k)
+
+
+@pytest.mark.parametrize("cand", [64, 1024, 2048])
+def test_quant_rerank_exact_ties(dev, cand):
+    # 16 distinct rows behind every id: scores tie exactly, and tied
+    # candidates come out in candidate order
+    rng = np.random.default_rng(cand)
+    cap, d, b = 4 * cand, 128, 3
+    base = rng.standard_normal((16, d)).astype(np.float32)
+    emb = torch.from_numpy(base[np.arange(cap) % 16]).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)
+                         ).to(dev)
+    ci_h = np.stack([rng.permutation(cap)[:cand] for _ in range(b)]
+                    ).astype(np.int32)
+    ci = torch.from_numpy(ci_h).to(dev)
+    cv = torch.zeros((b, cand), device=dev)
+    k = min(cand, 100)
+    v, i = _check_k2([emb, q, cv, ci], k)
+    vh, ih = v.cpu().numpy(), i.cpu().numpy()
     for r in range(b):
-        for j in range(k):
-            if int(i[r, j]) != int(pi[r, j]):
-                near = [abs(float(pv[r, j]) - float(pv[r, t]))
-                        for t in (j - 1, j + 1) if 0 <= t < k]
-                assert min(near) <= NEAR_TIE
+        at = {int(x): j for j, x in enumerate(ci_h[r])}
+        assert (np.diff(vh[r]) <= 0).all()
+        for j in range(k - 1):
+            if vh[r, j] == vh[r, j + 1]:
+                assert at[int(ih[r, j])] < at[int(ih[r, j + 1])]
 
 
 def test_quant_rerank_pads_past_cand(dev):
