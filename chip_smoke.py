@@ -32,7 +32,18 @@ Phases, each printing its results on its own line:
      bound (bound / time); probed_scores' bytes count the distinct lists
      the queries probe (printed with the mean queries per probed list),
      and it too is timed beside torch._int_mm's product alone over the
-     same rows;
+     same rows. The graph mirror's kernels, frontier_bfs (G1) and
+     bfs_relax (G2): small odd tables with duplicate, -1 and isolated
+     anchors, caps that overflow and caps that do not, 0 to 8 hops, and
+     a 10,000,000 x 64 table (~10 neighbours a row, 0.1 % hubs full to
+     the width, the 100M-edge tier's shape) with 1 and 8 anchors: G1's
+     overflow flag always equal to the plain version's and its depths
+     equal whenever the flag is false, G2's depths equal; then each
+     kernel's and plain version's times at that table beside their
+     bounds in bytes (G1: dist written once, the frontier slots and
+     rows it reads, a dist entry a pair, the next frontier; G2: the
+     table and dist in and out, a round), and the compaction's
+     torch.topk at out_cap 16,384;
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -52,12 +63,34 @@ Phases, each printing its results on its own line:
   6. Cortex with CortexConfig() unchanged (flat, float32, auto) on
      SQLite and 20,000 nodes: own text first, a kind filter, > 64
      exclusions, results equal to the exact path's, the same after a
-     reopen.
+     reopen;
+  7. hybrid search at BASELINE config #4 on phase 5's flat index: 1M
+     light nodes in a MemoryStorage, ~5M seeded edges (mostly within a
+     row's cluster, Pareto-tailed degree up to the table's 64) in the
+     packed snapshot (from the seeded arrays through PackedAdjacency's
+     constructor, held against PackedAdjacency.build on a 20,000-row
+     subset), limit 17 (a 51-hit vector leg), 2-hop anchors; no anchors,
+     anchors, a kind filter and an edge-less anchor, each against a
+     numpy oracle (exact fp32 scores of the vector leg's hits fused with
+     multi_bfs depths); every anchor through G1 (HOST_FRONTIER_BUDGET =
+     0) with the host tier's results, and G1 against its plain version
+     on the snapshot's table at each query's anchors; batch-1 latency
+     (p50, p99) of both tiers, split into vector leg, proximity leg and
+     fusion;
+  8. Cortex with edges on phase 6's store: 10,000 seeded create_edge
+     calls, search_hybrid against the same oracle (depths from a plain
+     BFS), traverse / neighborhood / find_paths against a host BFS, G2
+     through per_anchor (HOST_FRONTIER_BUDGET = 0) and G1 then G2
+     through depths_from (the frontier cap forced to overflow) with the
+     host tier's results, G1 and G2 against their plain versions on
+     the mirror's table, delete_edge, and the same after a reopen.
 
-Two main paths: phases 3-4 (IVF) and 5-6 (flat). Every launch count is
-set to 0 just before each and read just after it: probed_scores from
-the first, quant_candidates and quant_rerank from the second; launches
-made in phase 2 do not count. The line before the last lists the
+Three main paths: phases 3-4 (IVF), 5-6 (flat) and 7-8 (graph, on the
+flat index). Every launch count is set to 0 just before each and read
+just after it: probed_scores from the first, quant_candidates and
+quant_rerank from the second and third, frontier_bfs and bfs_relax
+from the third; launches made in phase 2, or to compare a kernel with
+its plain version in phases 7-8, do not count. The line before the last lists the
 kernels as JSON, the line before that the card's name and power limit;
 the last line is the device JSON. At the end the script fails if any
 module of the JAX package (cortex_tpu or cortex_tpu.*) was imported:
@@ -79,6 +112,7 @@ csrc/flat_scan.cu built alone with a compile-time switch
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -99,6 +133,12 @@ SPIN_CYCLES_PER_S = 2e9         # >= the SM clock (1.98 GHz at boost)
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
 SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
 FLAT_CANDS = (64, 2048)   # k = 10 (k bucket 16) and search_threshold's 1000
+GRAPH_ROWS, GRAPH_DEG = 10_000_000, 64   # the 100M-edge tier's table
+GRAPH_MEAN_DEG, GRAPH_HUBS = 9.0, 0.001  # ~10 neighbours a row, 0.1 % hubs
+GRAPH_CAP, GRAPH_OUT_CAP = 8192, 16384   # DEVICE_FRONTIER_CAP, PACKED_OUT_CAP
+HYB_EDGES, HYB_LIMIT, HYB_HOPS = 5_000_000, 17, 2    # BASELINE config #4
+HYB_QUERIES, HYB_LAT = 48, 300
+CX_EDGES = 10_000
 KERNELS = {               # name -> (source, what it replaces)
     "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
                       "cortex_tpu/ops/ivf_gather.py:114"),
@@ -106,6 +146,10 @@ KERNELS = {               # name -> (source, what it replaces)
                          "cortex_tpu/ops/similarity.py:167"),
     "quant_rerank": ("cortex_tpu_torch/csrc/flat_scan.cu",
                      "cortex_tpu/ops/similarity.py:239"),
+    "frontier_bfs": ("cortex_tpu_torch/csrc/graph_bfs.cu",
+                     "cortex_tpu/graph/csr.py:70"),
+    "bfs_relax": ("cortex_tpu_torch/csrc/graph_bfs.cu",
+                  "cortex_tpu/graph/csr.py:47"),
 }
 
 
@@ -119,19 +163,35 @@ def say(phase, **fields):
 
 
 def _wrappers():
-    from cortex_tpu_torch.ops import ivf_gather, similarity
+    from cortex_tpu_torch.ops import graph_bfs, ivf_gather, similarity
     return {"probed_scores": ivf_gather.probed_scores,
             "quant_candidates": similarity.quant_candidates,
-            "quant_rerank": similarity.quant_rerank}
+            "quant_rerank": similarity.quant_rerank,
+            "frontier_bfs": graph_bfs.frontier_bfs,
+            "bfs_relax": graph_bfs.bfs_relax}
 
 
-def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+def reset_launches(names=None):
+    for name, fn in _wrappers().items():
+        if names is None or name in names:
+            fn.launches = 0
 
 
 def launch_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside compare a kernel with its plain version on the
+    main path's inputs: they are not the main path's, so every count is
+    put back afterwards."""
+    before = launch_counts()
+    try:
+        yield
+    finally:
+        for name, fn in _wrappers().items():
+            fn.launches = before[name]
 
 
 # ------------------------------------------------------------ phase 2
@@ -437,16 +497,21 @@ def flat_biases(live, kinds, agents, gen, host=None, agent=1):
 # ------------------------------------------------------------ phase 3
 
 
-def clustered_rows(gen, dev, n, d, *, groups, spread=0.35):
+def clustered_rows(gen, dev, n, d, *, groups, spread=0.35,
+                   with_member=False):
     """Seeded clustered unit rows on the device: `groups` random centers
-    and n members, center + spread * noise (unit-scale vectors)."""
+    and n members, center + spread * noise (unit-scale vectors); with
+    the rows' cluster numbers (a host array) when with_member."""
     import torch
     centers = torch.randn((groups, d), device=dev, generator=gen)
     centers /= centers.norm(dim=1, keepdim=True)
     member = torch.randint(0, groups, (n,), device=dev, generator=gen)
     x = centers[member] + spread * torch.randn(
         (n, d), device=dev, generator=gen) / d ** 0.5
-    return x / x.norm(dim=1, keepdim=True), centers
+    x = x / x.norm(dim=1, keepdim=True)
+    if with_member:
+        return x, centers, member.cpu().numpy()
+    return x, centers
 
 
 def noisy_centers(gen, centers, n):
@@ -504,7 +569,9 @@ def phase_index(dev, n, d, gen, kc):
     import torch
     from cortex_tpu_torch.vector.ivf import TorchIvfIndex
     t0 = time.monotonic()
-    x, centers = clustered_rows(gen, dev, n, d, groups=max(1, n // 50))
+    x, centers, member = clustered_rows(gen, dev, n, d,
+                                        groups=max(1, n // 50),
+                                        with_member=True)
     x_h = x.cpu().numpy()
     del x
     kinds = [f"k{i % 4}" for i in range(n)]
@@ -529,7 +596,7 @@ def phase_index(dev, n, d, gen, kc):
     perf, p = check_real_layout(kc, index, q_np)
     say("2-kernel-1M", nprobe=int(p), cases=kc.cases,
         max_abs_err=kc.max_abs_err, **perf)
-    return index, q_np, q_lat, perf, (x_h, ids, kinds, q_np)
+    return index, q_np, q_lat, perf, (x_h, ids, kinds, q_np, member)
 
 
 def search_speed(index, q_np, q_lat):
@@ -791,7 +858,7 @@ def phase_flat_build(dev, rows, fc):
     at its 1M x 768 planes. Returns (index, timings)."""
     import torch
     from cortex_tpu_torch.vector import TorchFlatIndex
-    x_h, ids, kinds, q_np = rows
+    x_h, ids, kinds, q_np, _ = rows
     index = TorchFlatIndex(x_h.shape[1], device=dev)   # auto, float32
     t0 = time.monotonic()
     index.insert_batch(ids, x_h, kinds=kinds)
@@ -993,6 +1060,757 @@ def phase_cortex_flat(dev, workdir):
         search_ms_p50=statistics.median(lat), self_top1=len(sample),
         equal_to_exact=len(before), reopen_and_search_s=t_reopen,
         same_after_rebuild=True)
+
+
+# ------------------------------------------------ phase 2, graph kernels
+
+
+class GraphKernelCheck:
+    """G1 and G2 against their plain versions: G1's overflow flag always
+    equal and its depths equal whenever the flag is false (after an
+    overflow only the order of the truncated frontier differs, and every
+    caller discards that result); G2's depths equal. max_abs_err is the
+    largest depth difference compared (must stay 0)."""
+
+    def __init__(self):
+        self.max_abs_err = {"frontier_bfs": 0, "bfs_relax": 0}
+        self.cases = 0
+        self.overflows = 0
+
+    def walk(self, nb, anchors, hops, cap):
+        import torch
+        from cortex_tpu_torch.ops import graph_bfs as g
+        dist, over = g.frontier_bfs(nb, anchors, hops, cap)
+        pdist, pover = g.frontier_bfs_plain(nb, anchors, hops, cap)
+        torch.cuda.synchronize()
+        check(bool(over) == bool(pover),
+              f"G1 overflow flag {bool(over)} != plain {bool(pover)} "
+              f"(hops {hops}, cap {cap})")
+        if not bool(over):
+            err = int((dist.long() - pdist.long()).abs().max())
+            check(err == 0, f"G1 depths differ from plain by {err}")
+            self.max_abs_err["frontier_bfs"] = max(
+                self.max_abs_err["frontier_bfs"], err)
+        self.cases += 1
+        self.overflows += bool(over)
+        return bool(over)
+
+    def relax(self, nb, dist0, hops):
+        import torch
+        from cortex_tpu_torch.ops import graph_bfs as g
+        got = g.bfs_relax(nb, dist0, hops)
+        want = g.bfs_relax_plain(nb, dist0, hops)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"G2 depths differ from plain by {err}")
+        self.max_abs_err["bfs_relax"] = max(self.max_abs_err["bfs_relax"],
+                                            err)
+        self.cases += 1
+
+
+def graph_table(dev, gen, n, d, mean_deg, hubs):
+    """[n, d] int32 neighbour table packed left as the mirror builds it:
+    Poisson(mean_deg) uniform neighbours a row, hub rows (share `hubs`)
+    truncated at the full width d, -1 after."""
+    import torch
+    deg = torch.poisson(torch.full((n,), float(mean_deg), device=dev),
+                        generator=gen)
+    deg[torch.rand(n, device=dev, generator=gen) < hubs] = d
+    nb = torch.randint(0, n, (n, d), dtype=torch.int32, device=dev,
+                       generator=gen)
+    nb.masked_fill_(torch.arange(d, device=dev)[None, :] >= deg[:, None], -1)
+    return nb
+
+
+def graph_anchors(dev, gen, n, a):
+    """a anchors with a duplicate and a -1 pad among them (a >= 3)."""
+    import torch
+    out = torch.randint(0, n, (a,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    if a >= 3:
+        out[1] = out[0]
+        out[-1] = -1
+    return out
+
+
+def sources(dev, anchors, n):
+    """dist0 [A, n]: depth 0 at each valid anchor's row, INF elsewhere."""
+    import torch
+    from cortex_tpu_torch.ops.graph_bfs import INF_DEPTH
+    valid = anchors[anchors >= 0].long()
+    dist0 = torch.full((max(1, valid.numel()), n), INF_DEPTH,
+                       dtype=torch.int32, device=dev)
+    dist0[torch.arange(valid.numel(), device=dev), valid] = 0
+    return dist0
+
+
+def check_graph_small(gc, dev, gen):
+    """Phase 2, graph kernels at small odd shapes: duplicate, padded and
+    isolated anchors, caps that overflow at every hop and caps that do
+    not, 0 to 8 hops (9 for G2, which takes min(hops, 8) rounds)."""
+    import torch
+    from cortex_tpu_torch.ops import graph_bfs as g
+    for n, d, mean, a in ((1, 8, 0.5, 1), (37, 5, 2.0, 4),
+                          (1000, 16, 3.0, 8), (4099, 64, 9.0, 64)):
+        nb = graph_table(dev, gen, n, d, mean, 0.01)
+        anchors = graph_anchors(dev, gen, n, a)
+        for cap in sorted({a, 16, 300, GRAPH_CAP} - set(range(a))):
+            for hops in (0, 1, 2, 3, 8):
+                gc.walk(nb, anchors, hops, cap)
+        dist0 = sources(dev, anchors, n)
+        for hops in (0, 1, 3, 8, 9):
+            gc.relax(nb, dist0, hops)
+    iso = torch.full((64, 8), -1, dtype=torch.int32, device=dev)
+    iso[0, :2] = torch.tensor([1, 2], dtype=torch.int32)
+    for a in ([40], [40, 40, -1], [0, 63]):
+        anchors = torch.tensor(a, dtype=torch.int32, device=dev)
+        gc.walk(iso, anchors, 3, 8)
+        gc.relax(iso, sources(dev, anchors, 64), 3)
+    try:
+        g.frontier_bfs(iso, torch.tensor([64], dtype=torch.int32,
+                                         device=dev), 2, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("G1 took an anchor outside the table")
+    check(0 < gc.overflows < gc.cases, "the small graph cases did not "
+          "cover both sides of the frontier cap")
+
+
+def walk_bytes(nb, anchors, hops, cap):
+    """The bytes G1 must move for these inputs: dist [N] written once,
+    the anchors read and seeded, and per hop the frontier slots read,
+    the live rows gathered, one dist entry read per pair, and the next
+    frontier written (replays the walk's counts on the device)."""
+    import torch
+    from cortex_tpu_torch.ops.graph_bfs import INF_DEPTH
+    n, d = nb.shape
+    dist = torch.full((n,), INF_DEPTH, dtype=torch.int32, device=nb.device)
+    dist[anchors[anchors >= 0].long()] = 0
+    total = 4 * n + 8 * anchors.numel()
+    front = anchors
+    for h in range(hops):
+        front = front[:cap]
+        live = front[front >= 0]
+        pairs = nb[live.long()].reshape(-1)
+        pairs = pairs[(pairs >= 0) & (pairs < n)]
+        new = pairs[dist[pairs.long()] == INF_DEPTH]
+        dist[new.long()] = h + 1
+        total += 4 * (front.numel() + d * live.numel() + pairs.numel()
+                      + min(cap, new.numel()))
+        front = new
+    return total
+
+
+def check_graph_big(gc, dev, gen, card):
+    """Phase 2 at the 100M-edge tier's table (GRAPH_ROWS x 64): G1 with 1
+    and 8 anchors at 3 and 8 hops, G2 with 1 and 8 anchors at 3 and 8
+    rounds, each against its plain version; then device times beside
+    the bounds, and the compaction's torch.topk at out_cap 16,384."""
+    import torch
+    from cortex_tpu_torch.ops import graph_bfs as g
+    t0 = time.monotonic()
+    nb = graph_table(dev, gen, GRAPH_ROWS, GRAPH_DEG, GRAPH_MEAN_DEG,
+                     GRAPH_HUBS)
+    torch.cuda.synchronize()
+    t_gen = time.monotonic() - t0
+    live = int((nb >= 0).sum())
+    anchors = {a: torch.randint(0, GRAPH_ROWS, (a,), dtype=torch.int32,
+                                device=dev, generator=gen) for a in (1, 8)}
+    flags = {}
+    for a, anc in anchors.items():
+        for hops in (3, 8):
+            flags[f"a{a}_h{hops}"] = gc.walk(nb, anc, hops, GRAPH_CAP)
+        for hops in (3, 8):
+            gc.relax(nb, sources(dev, anc, GRAPH_ROWS), hops)
+    out = {"frontier_bfs": {}, "bfs_relax": {}}
+    n, d = nb.shape
+    for a, anc in anchors.items():
+        hops = 3
+        out["frontier_bfs"][f"a{a}_h{hops}"] = timing(
+            time_ms(lambda: g.frontier_bfs(nb, anc, hops, GRAPH_CAP), 20),
+            time_ms(lambda: g.frontier_bfs_plain(nb, anc, hops, GRAPH_CAP),
+                    3),
+            bound_ms(walk_bytes(nb, anc, hops, GRAPH_CAP), 0,
+                     F32_OPS_PER_S),
+            overflow=flags[f"a{a}_h{hops}"])
+        dist0 = sources(dev, anc, GRAPH_ROWS)
+        for rounds in (3, 8):
+            out["bfs_relax"][f"a{a}_r{rounds}"] = timing(
+                time_ms(lambda: g.bfs_relax(nb, dist0, rounds), 5),
+                time_ms(lambda: g.bfs_relax_plain(nb, dist0, rounds), 1),
+                bound_ms(rounds * (4 * n * d + 8 * a * n), 0,
+                         F32_OPS_PER_S))
+    dist, _ = g.frontier_bfs(nb, anchors[1], 3, GRAPH_CAP)
+    topk_ms = time_ms(lambda: torch.topk(torch.clamp_max(dist, 4),
+                                         GRAPH_OUT_CAP, largest=False), 20)
+    say("2-graph-kernels-10M", rows=n, width=d, neighbours=live,
+        gen_s=t_gen, cases=gc.cases, overflows=gc.overflows,
+        walk_overflow=flags, max_abs_err=gc.max_abs_err,
+        compaction_topk_ms=topk_ms, card=card, **out)
+    out["compaction_topk_ms"] = topk_ms
+    return out
+
+
+# ------------------------------------------------------------ phase 7
+
+
+def seeded_edges(member, n_edges, seed, cap=GRAPH_DEG):
+    """(src, dst) row arrays of about n_edges distinct directed edges
+    over the rows of phase 3: Pareto-tailed out-degree, 80 % of the
+    targets in the row's own cluster and 20 % anywhere, no self loops
+    (a storage holds one edge a pair and relation), every 1000th row
+    (i % 1000 == 999) without edges, and at most `cap` distinct
+    neighbours a row (each row keeps its first `cap` in a seeded order),
+    so the device table truncates no row and every tier's depths are
+    exact."""
+    rng = np.random.default_rng(seed)
+    n = len(member)
+    linked = np.arange(n) % 1000 != 999
+    w = rng.pareto(2.0, n) + 1.0
+    w[~linked] = 0.0
+    src = np.repeat(np.arange(n, dtype=np.int64),
+                    rng.poisson(w * (n_edges / w.sum())))
+    order = np.argsort(member, kind="stable")
+    sizes = np.bincount(member)
+    starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
+    c = member[src]
+    local = order[starts[c] + (rng.random(len(src)) * sizes[c]).astype(
+        np.int64)]
+    dst = np.where(rng.random(len(src)) < 0.8, local,
+                   rng.integers(0, n, len(src)))
+    keep = (dst != src) & linked[dst]
+    src, dst = src[keep], dst[keep]
+    pairs, inv = np.unique(np.minimum(src, dst) * n + np.maximum(src, dst),
+                           return_inverse=True)
+    pri = rng.random(len(pairs))
+    ends = np.concatenate((pairs // n, pairs % n))
+    pid = np.concatenate((np.arange(len(pairs)),) * 2)
+    o = np.lexsort((np.concatenate((pri, pri)), ends))
+    rank = np.arange(len(o)) - np.searchsorted(ends[o], ends[o])
+    ok = np.ones(len(pairs), bool)
+    ok[pid[o][rank >= cap]] = False
+    keep = ok[inv.reshape(-1)]
+    src, dst = src[keep], dst[keep]
+    _, first = np.unique(src * n + dst, return_index=True)  # one per pair
+    first.sort()
+    return src[first], dst[first]
+
+
+def packed_snapshot(src, dst, ids):
+    """PackedAdjacency of the directed edges (src, dst) over `ids`, from
+    the arrays through its constructor: the same interning-free
+    undirected, deduplicated CSR that PackedAdjacency.build makes from
+    storage.edge_endpoints (5M put_edge calls and build's interning of
+    10M id strings in Python would crowd the time limit; phase 7 checks
+    the two agree on the edges inside 400 clusters)."""
+    from cortex_tpu_torch.graph.packed import PackedAdjacency
+    n = len(ids)
+    present = np.unique(np.concatenate((src, dst)))
+    row = np.full(n, -1, np.int64)
+    row[present] = np.arange(len(present))
+    m = len(present)
+    u, v = row[src], row[dst]
+    key = np.unique(np.concatenate((u * m + v, v * m + u)))
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(key // m, minlength=m), out=indptr[1:])
+    pid = [ids[i] for i in present.tolist()]
+    return PackedAdjacency(pid, {s: j for j, s in enumerate(pid)}, indptr,
+                           (key % m).astype(np.int32), len(src))
+
+
+def check_snapshot_subset(src, dst, ids, kinds, member):
+    """The constructor's snapshot equals PackedAdjacency.build over a
+    real MemoryStorage on the edges inside the first 400 clusters (~20,000
+    rows): the same neighbour sets and multi_bfs depths by id."""
+    from cortex_tpu_torch.graph.packed import UNREACHED, PackedAdjacency
+    from cortex_tpu_torch.storage import MemoryStorage
+    from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
+    sub = (member[src] < 400) & (member[dst] < 400)
+    s, t = src[sub], dst[sub]
+    st = MemoryStorage()
+    agent = Source(agent="seed")
+    st.put_nodes_batch(Node(id=ids[i], kind=kinds[i], title=ids[i],
+                            body="", source=agent)
+                       for i in np.nonzero(member < 400)[0].tolist())
+    prov = EdgeProvenance.manual("seed")
+    st.bulk_put_edges(Edge.new(ids[a], ids[b], "related_to", 0.5, prov)
+                      for a, b in zip(s.tolist(), t.tolist()))
+    real = PackedAdjacency.build(st)
+    mine = packed_snapshot(s, t, ids)
+    check(set(real.ids) == set(mine.ids) and real.edge_count
+          == mine.edge_count, "snapshot ids or edge count differ")
+    for nid in real.ids[:2000]:
+        r, q = real.row_of[nid], mine.row_of[nid]
+        check({real.ids[j] for j in
+               real.indices[real.indptr[r]:real.indptr[r + 1]]}
+              == {mine.ids[j] for j in
+                  mine.indices[mine.indptr[q]:mine.indptr[q + 1]]},
+              f"snapshot neighbours of {nid} differ")
+    for nid in real.ids[:20]:
+        a = real.multi_bfs([real.row_of[nid]], 3)
+        b = mine.multi_bfs([mine.row_of[nid]], 3)
+        check({real.ids[i]: int(x) for i, x in enumerate(a)
+               if x != UNREACHED}
+              == {mine.ids[i]: int(x) for i, x in enumerate(b)
+                  if x != UNREACHED}, f"snapshot depths from {nid} differ")
+    return int(sub.sum())
+
+
+class QueryTable:
+    """An embedder for HybridSearch whose 'texts' are keys of seeded
+    768-d query vectors (phase 7 searches phase 3's vector space)."""
+
+    def __init__(self, vecs):
+        self.vecs = vecs
+        self.dimension = next(iter(vecs.values())).shape[0]
+
+    def embed(self, key):
+        return self.vecs[key]
+
+
+def fuse_oracle(hits, anchors, depth_of, hops, w, limit, storage):
+    """HybridSearch's fusion, written out over (id, vector score) hits in
+    vector order: tombstones skipped, graph score 1/(1+d) from the
+    nearest anchor that reaches the node within `hops` (depth_of(anchor)
+    -> {id: depth}, over the anchors that have edges), an anchor 1.0 to
+    itself, combined w*v + (1-w)*g, stable sort, top `limit`. Without
+    anchors, the vector hits as they come (combined = v)."""
+    if not anchors:
+        rows = [(nid, v, 0.0, v, None) for nid, v in hits
+                if (lambda n: n is not None and not n.deleted)(
+                    storage.get_node(nid))]
+        return rows[:limit]
+    known = [a for a in anchors if depth_of(a) is not None]
+    depths = [depth_of(a) for a in known]
+    out = []
+    for nid, v in hits:
+        node = storage.get_node(nid)
+        if node is None or node.deleted:
+            continue
+        g, nearest = 0.0, None
+        ds = [dm.get(nid, 1 << 30) for dm in depths]
+        if ds:
+            j = int(np.argmin(ds))
+            if ds[j] <= hops:
+                g, nearest = 1.0 / (1.0 + ds[j]), (known[j], ds[j])
+        if nid in anchors and g < 1.0:
+            g, nearest = 1.0, (nid, 0)
+        out.append((nid, v, g, w * v + (1.0 - w) * g, nearest))
+    out.sort(key=lambda r: -r[3])
+    return out[:limit]
+
+
+def same_hybrid(want, got, what):
+    """HybridResults against fuse_oracle rows: combined scores rank by
+    rank within SCORE_ATOL, graph scores and nearest anchors exactly
+    equal for every id both hold, vector scores within SCORE_ATOL, and
+    another id at a rank only where combined scores tie."""
+    check(len(got) == len(want), f"{what}: {len(got)} results, want "
+          f"{len(want)}")
+    wc = [r[3] for r in want]
+    np.testing.assert_allclose([r.combined_score for r in got], wc,
+                               atol=SCORE_ATOL)
+    w = {r[0]: r for r in want}
+    for r in got:
+        o = w.get(r.node.id)
+        if o is None:
+            check(abs(r.combined_score - wc[-1]) <= SCORE_ATOL,
+                  f"{what}: {r.node.id} is no tie at the cut-off")
+            continue
+        check(r.graph_score == o[2] and r.nearest_anchor == o[4],
+              f"{what}: graph score of {r.node.id} {r.graph_score} "
+              f"{r.nearest_anchor} != {o[2]} {o[4]}")
+        check(abs(r.vector_score - o[1]) <= SCORE_ATOL,
+              f"{what}: vector score of {r.node.id} differs")
+    for o, r in zip(want, got):
+        if o[0] != r.node.id:
+            check(abs(o[3] - r.combined_score) <= SCORE_ATOL,
+                  f"{what}: rank order differs beyond a tie")
+
+
+def results_key(res):
+    return [(r.node.id, r.vector_score, r.graph_score, r.nearest_anchor)
+            for r in res]
+
+
+def as_oracle(res):
+    """HybridResults as fuse_oracle rows (to hold one run to another)."""
+    return [(r.node.id, r.vector_score, r.graph_score, r.combined_score,
+             r.nearest_anchor) for r in res]
+
+
+class LegClock:
+    """Splits HybridSearch.search's host time: the vector leg (enqueue
+    plus the fetch's wait), the proximity leg (mirror.per_anchor) and
+    the rest (fusion and hydration). Wraps the instances' methods."""
+
+    def __init__(self, hybrid):
+        self.hybrid = hybrid
+        self.vector = self.proximity = 0.0
+        index, mirror = hybrid.index, hybrid.mirror
+        enqueue, per_anchor = index.search_batch_async, mirror.per_anchor
+
+        def timed_enqueue(*a, **kw):
+            t0 = time.perf_counter()
+            fetch = enqueue(*a, **kw)
+            self.vector += time.perf_counter() - t0
+
+            def timed_fetch():
+                t1 = time.perf_counter()
+                hits = fetch()
+                self.vector += time.perf_counter() - t1
+                return hits
+            return timed_fetch
+
+        def timed_per_anchor(*a, **kw):
+            t0 = time.perf_counter()
+            out = per_anchor(*a, **kw)
+            self.proximity += time.perf_counter() - t0
+            return out
+
+        index.search_batch_async = timed_enqueue
+        mirror.per_anchor = timed_per_anchor
+
+    def run(self, queries):
+        legs = {"total": [], "vector": [], "proximity": [], "fusion": []}
+        for q in queries:
+            self.vector = self.proximity = 0.0
+            t0 = time.perf_counter()
+            self.hybrid.search(q)
+            total = time.perf_counter() - t0
+            for k, v in (("total", total), ("vector", self.vector),
+                         ("proximity", self.proximity),
+                         ("fusion", total - self.vector - self.proximity)):
+                legs[k].append(v * 1e3)
+        return {f"{k}_ms_p50_p99": [float(x) for x in
+                                    np.percentile(v, [50, 99])]
+                for k, v in legs.items()}
+
+    def close(self):
+        del self.hybrid.index.search_batch_async
+        del self.hybrid.mirror.per_anchor
+
+
+def phase_hybrid(dev, index, rows, gc, card):
+    """Phase 7: HybridSearch at BASELINE config #4 on phase 5's flat index
+    (1M x 768): 1M light nodes in a MemoryStorage, ~5M seeded edges in
+    the packed snapshot (packed_snapshot, checked against the real
+    build on a subset), limit 17 (a 51-hit vector leg), 2-hop anchors.
+    Every case against fuse_oracle over the index's hits with exact
+    fp32 scores and multi_bfs depths; the host tier, then every anchor
+    through G1 (HOST_FRONTIER_BUDGET = 0) with the same results; then
+    the batch-1 latency of both tiers, split by leg."""
+    import torch
+    from cortex_tpu_torch.graph.cache import AdjacencyCache
+    from cortex_tpu_torch.graph.csr import DeviceGraphMirror
+    from cortex_tpu_torch.graph.packed import UNREACHED
+    from cortex_tpu_torch.storage import MemoryStorage
+    from cortex_tpu_torch.types import Node, Source
+    from cortex_tpu_torch.vector.hybrid import HybridQuery, HybridSearch
+    _, ids, kinds, _, member = rows
+    co = index._corpus
+    t0 = time.monotonic()
+    storage = MemoryStorage()
+    agent = Source(agent="seed")
+    storage.put_nodes_batch(Node(id=i, kind=k, title=i, body="",
+                                 source=agent) for i, k in zip(ids, kinds))
+    t_nodes = time.monotonic() - t0
+    t0 = time.monotonic()
+    # ~8.5 % of the drawn edges go to the degree cap and to duplicates
+    src, dst = seeded_edges(member, int(HYB_EDGES * 1.093), seed=17)
+    pk = packed_snapshot(src, dst, ids)
+    t_edges = time.monotonic() - t0
+    subset_edges = check_snapshot_subset(src, dst, ids, kinds, member)
+    mirror = DeviceGraphMirror(AdjacencyCache(storage), storage=storage,
+                               device=dev)
+    mirror._packed, mirror._packed_version = pk, mirror._cache.version
+    check(mirror._packed_mode() and mirror._ensure_packed() is pk,
+          "the mirror does not serve the packed snapshot")
+    rng = np.random.default_rng(23)
+    vecs, cases = {}, []
+    def usable(i):
+        lonely = (i // 1000) * 1000 + 999
+        return (ids[i] in pk.row_of and ids[i] in co._row_of
+                and lonely < len(ids) and ids[lonely] in co._row_of)
+
+    linked = [i for i in rng.integers(0, len(ids), 4 * HYB_QUERIES).tolist()
+              if usable(i)][:HYB_QUERIES]
+    check(len(linked) == HYB_QUERIES, "too few query rows")
+    for j, i in enumerate(linked):
+        r = pk.row_of[ids[i]]
+        nbr = pk.ids[int(pk.indices[pk.indptr[r]])]
+        kind = j % 4
+        if kind == 3:                      # an edge-less anchor, near it
+            i = (i // 1000) * 1000 + 999
+        x = co._emb_h[co._row_of[ids[i]]]
+        q = x + 0.35 * rng.standard_normal(x.shape[0]).astype(
+            np.float32) / x.shape[0] ** 0.5
+        vecs[f"q{j}"] = (q / np.linalg.norm(q)).astype(np.float32)
+        anchors = {0: [], 1: [nbr, ids[i]], 2: [nbr],
+                   3: [ids[i], nbr]}[kind]
+        cases.append(HybridQuery(
+            query_text=f"q{j}", anchors=anchors, limit=HYB_LIMIT,
+            max_anchor_depth=HYB_HOPS,
+            kind_filter=["k1", "k3"] if kind == 2 else None))
+    hybrid = HybridSearch(storage, QueryTable(vecs), index, mirror)
+    bfs_cache = {}
+
+    def depth_of(a):
+        if a not in pk.row_of:
+            return None
+        if a not in bfs_cache:
+            d = pk.multi_bfs([pk.row_of[a]], HYB_HOPS)
+            hit = np.nonzero(d != UNREACHED)[0]
+            bfs_cache[a] = {pk.ids[h]: int(d[h]) for h in hit.tolist()}
+        return bfs_cache[a]
+
+    def oracle(q):
+        from cortex_tpu_torch.vector import VectorFilter
+        flt = VectorFilter(kinds=q.kind_filter) if q.kind_filter else None
+        qv = vecs[q.query_text]
+        hits = index.search(qv, 3 * q.limit, flt)
+        exact = [(nid, float(co._emb_h[co._row_of[nid]] @ qv))
+                 for nid, _ in hits]
+        return fuse_oracle(exact, q.anchors, depth_of, q.max_anchor_depth,
+                           q.vector_weight, q.limit, storage)
+
+    host = [hybrid.search(q) for q in cases]
+    for j, (q, got) in enumerate(zip(cases, host)):
+        same_hybrid(oracle(q), got, f"host tier, query {j}")
+        if q.anchors and j % 4 == 3:
+            check(any(r.node.id == q.anchors[0] and r.graph_score == 1.0
+                      for r in got), f"query {j}: the edge-less anchor "
+                  f"is missing or scored below 1")
+        if q.kind_filter:
+            check(all(r.node.kind in q.kind_filter for r in got),
+                  "the kind filter let another kind through")
+    scored = sum(r.graph_score > 0 for res in host for r in res)
+    check(scored > 0, "no result took a graph score")
+    mirror.HOST_FRONTIER_BUDGET = 0
+    walks = _wrappers()["frontier_bfs"].launches
+    device = [hybrid.search(q) for q in cases]
+    walks = _wrappers()["frontier_bfs"].launches - walks
+    for j, (a, b) in enumerate(zip(host, device)):
+        check(results_key(a) == results_key(b),
+              f"query {j}: the device tier differs from the host tier")
+    check(walks == sum(len([a for a in q.anchors if a in pk.row_of])
+                       for q in cases), f"{walks} device walks")
+    check(mirror.packed_overflows == 0, "a device walk fell back")
+    with uncounted():                 # G1 at the main path's shapes
+        nbrs = mirror._packed_device_nbrs(pk)
+        for q in cases:
+            for a in q.anchors:
+                if a in pk.row_of:
+                    gc.walk(nbrs, torch.tensor([pk.row_of[a]],
+                                               dtype=torch.int32,
+                                               device=dev),
+                            min(q.max_anchor_depth, mirror.HOP_CAP),
+                            mirror.DEVICE_FRONTIER_CAP)
+    lat_q = [cases[j % len(cases)] for j in range(HYB_LAT)
+             if cases[j % len(cases)].anchors]
+    clock = LegClock(hybrid)
+    lat = {}
+    for tier, budget in (("host", type(mirror).HOST_FRONTIER_BUDGET),
+                         ("device", 0)):
+        mirror.HOST_FRONTIER_BUDGET = budget
+        clock.run(lat_q[:20])                         # warm
+        lat[tier] = clock.run(lat_q)
+    clock.close()
+    say("7-hybrid", nodes=len(ids), edges=int(len(src)),
+        snapshot_rows=pk.n, snapshot_pairs=int(len(pk.indices)),
+        max_degree=int(np.diff(pk.indptr).max()), subset_edges=subset_edges,
+        nodes_s=t_nodes, edges_and_snapshot_s=t_edges,
+        queries=len(cases), results_with_graph_score=int(scored),
+        device_walks=walks, graph_cases=gc.cases, limit=HYB_LIMIT,
+        hops=HYB_HOPS,
+        batch1_latency=lat, latency_queries=len(lat_q), card=card)
+    del mirror, hybrid
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def host_bfs(adj, srcs, hops):
+    """{id: depth} within `hops` of srcs over adjacency dict adj."""
+    dist = {s: 0 for s in srcs}
+    front = list(srcs)
+    for h in range(hops):
+        nxt = []
+        for u in front:
+            for v in adj.get(u, ()):
+                if v not in dist:
+                    dist[v] = h + 1
+                    nxt.append(v)
+        if not nxt:
+            break
+        front = nxt
+    return dist
+
+
+def phase_cortex_graph(dev, workdir, gc, card):
+    """Phase 8: Cortex with edges on phase 6's store (CortexConfig(), the
+    object-cache tier): CX_EDGES seeded create_edge calls, then
+    search_hybrid against fuse_oracle (depths from a plain BFS over the
+    seeded edges), delete_edge, traverse / neighborhood / find_paths
+    against a host BFS, the device tiers (G2 through per_anchor, G1 then
+    G2 through depths_from with the frontier cap forced to overflow),
+    and the same after a reopen."""
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.graph import BOTH, OUTGOING, PathRequest
+    from cortex_tpu_torch.graph import TraversalRequest
+    from cortex_tpu_torch.types import Edge, EdgeProvenance
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    path = os.path.join(workdir, "cortex_flat.db")
+    cx = Cortex.open(path, CortexConfig(), device=dev)
+    nodes = sorted(cx.list_nodes(), key=lambda n: n.id)
+    ids = [n.id for n in nodes]
+    rng = np.random.default_rng(31)
+    prov = EdgeProvenance.manual("seed")
+    made, edges = set(), []
+    t0 = time.monotonic()
+    while len(edges) < CX_EDGES:
+        a = int(rng.integers(0, len(ids)))
+        b = (a + int(rng.integers(1, 40))) % len(ids)
+        if (a, b) in made or (b, a) in made:
+            continue
+        made.add((a, b))
+        e = Edge.new(ids[a], ids[b], "related_to",
+                     float(rng.uniform(0.2, 1.0)), prov)
+        cx.create_edge(e)
+        edges.append(e)
+    t_edges = time.monotonic() - t0
+
+    def adjacency(es):
+        und, out = {}, {}
+        for e in es:
+            und.setdefault(e.from_id, []).append(e.to_id)
+            und.setdefault(e.to_id, []).append(e.from_id)
+            out.setdefault(e.from_id, []).append(e.to_id)
+        return und, out
+
+    und, out_adj = adjacency(edges)
+    co = cx.index._corpus
+    sample = nodes[:2000:50]
+    queries = []
+    for j, node in enumerate(sample):
+        nbr = und.get(node.id, [edges[j].from_id])[0]     # has an edge
+        anchors = {0: [], 1: [nbr], 2: [nbr, node.id]}[j % 3]
+        queries.append((embedding_input(node), anchors,
+                        [node.kind] if j % 5 == 4 else None))
+
+    def oracle(text, anchors, kinds, adj):
+        from cortex_tpu_torch.vector import VectorFilter
+        emb = cx.embedder.embed(text)
+        qv = (emb / np.linalg.norm(emb)).astype(np.float32)
+        flt = VectorFilter(kinds=kinds) if kinds else None
+        hits = cx.index.search(emb, 30, flt)
+        exact = [(nid, float(co._emb_h[co._row_of[nid]] @ qv))
+                 for nid, _ in hits]
+        return fuse_oracle(
+            exact, anchors,
+            lambda a: host_bfs(adj, [a], 3) if a in adj else None,
+            3, 0.7, 10, cx.storage)
+
+    lat = []
+
+    def run_all(adj, what):
+        got = []
+        for j, (text, anchors, kinds) in enumerate(queries):
+            t0 = time.perf_counter()
+            res = cx.search_hybrid(text, anchors, 10, kind_filter=kinds)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            same_hybrid(oracle(text, anchors, kinds, adj), res,
+                        f"{what}, query {j}")
+            got.append(res)
+        return got
+
+    before = run_all(und, "host tier")
+    host_ms = statistics.median(lat)
+    # traverse / neighborhood / find_paths against a host BFS
+    for node in sample[:20]:
+        want = host_bfs(und, [node.id], 2)
+        check(cx.neighborhood(node.id, 2).depths == want,
+              "neighborhood depths differ from a host BFS")
+        sub = cx.traverse(TraversalRequest(start=[node.id], max_depth=3,
+                                           direction=OUTGOING))
+        check(sub.depths == host_bfs(out_adj, [node.id], 3),
+              "traverse depths differ from a host BFS")
+        far = max(want, key=lambda k: (want[k], k))
+        directed = host_bfs(out_adj, [node.id], len(ids))
+        paths = cx.find_paths(PathRequest(from_id=node.id, to_id=far))
+        if far in directed:
+            p = paths.paths[0]
+            check(len(p.edges) == directed[far],
+                  "find_paths is not a shortest path")
+            check(all(b in out_adj.get(a, ()) for a, b in
+                      zip(p.nodes, p.nodes[1:])), "find_paths left the edges")
+        else:
+            check(not paths.paths, "find_paths found an unreachable node")
+    check(cx.traverse(TraversalRequest(start=[sample[0].id], max_depth=3,
+                                       direction=BOTH)).depths
+          == host_bfs(und, [sample[0].id], 3), "traverse (both) differs")
+    # the device tiers: G2 through per_anchor, G1 (then G2) in depths_from
+    m = cx.mirror
+    m.HOST_FRONTIER_BUDGET = 0
+    lat.clear()
+    check([results_key(r) for r in run_all(und, "relaxation tier")]
+          == [results_key(r) for r in before],
+          "the relaxation tier differs from the host tier")
+    relax_ms = statistics.median(lat)
+    relax = _wrappers()["bfs_relax"]
+    for node in [n for n in sample if len(und.get(n.id, ())) >= 2][:10]:
+        want = host_bfs(und, [node.id], 3)
+        check(m.depths_from([node.id], 3) == want,
+              "depths_from (G1) differs from a host BFS")
+        m.DEVICE_FRONTIER_CAP = 1
+        launched = relax.launches
+        check(m.depths_from([node.id], 3) == want,
+              "depths_from (G1 overflow, then G2) differs")
+        check(relax.launches == launched + 1, "G1 did not overflow into G2")
+        m.DEVICE_FRONTIER_CAP = type(m).DEVICE_FRONTIER_CAP
+    m.HOST_FRONTIER_BUDGET = type(m).HOST_FRONTIER_BUDGET
+    with uncounted():                 # G1 and G2 at the main path's shapes
+        import torch
+        from cortex_tpu_torch.ops.graph_bfs import INF_DEPTH
+        m.ensure()
+        rows = [m._row_of[n.id] for n in sample if n.id in m._row_of]
+        for r in rows[:10]:
+            anchor = torch.tensor([r], dtype=torch.int32, device=dev)
+            for cap in (1, m.DEVICE_FRONTIER_CAP):
+                gc.walk(m._nbrs, anchor, 3, cap)
+        dist0 = torch.full((2, m._nbrs.shape[0]), INF_DEPTH,
+                           dtype=torch.int32, device=dev)
+        dist0[0, rows[0]] = dist0[1, rows[1]] = 0
+        for hops in (1, 3):
+            gc.relax(m._nbrs, dist0, hops)
+            gc.relax(m._nbrs, dist0[:1].contiguous(), hops)
+    # delete_edge: an anchor's edge goes, the oracle without it agrees
+    anchor = queries[1][1][0]
+    gone = next(e for e in edges if anchor in (e.from_id, e.to_id))
+    check(cx.delete_edge(gone.id), "delete_edge failed")
+    edges = [e for e in edges if e.id != gone.id]
+    und, out_adj = adjacency(edges)
+    after_delete = run_all(und, "after delete_edge")
+    cx.close()
+    t0 = time.monotonic()
+    cx = Cortex.open(path, CortexConfig(), device=dev)
+    co = cx.index._corpus
+    for j, (old, new) in enumerate(zip(after_delete,
+                                       run_all(und, "after reopen"))):
+        same_hybrid(as_oracle(old), new, f"across the reopen, query {j}")
+    t_reopen = time.monotonic() - t0
+    cx.close()
+    say("8-cortex-graph", nodes=len(ids), edges=len(edges) + 1,
+        create_edge_s=t_edges, search_hybrid_ms_p50={
+            "host_tier": host_ms, "relaxation_tier": relax_ms},
+        queries=len(queries), changed_by_delete=sum(
+            results_key(a) != results_key(b)
+            for a, b in zip(before, after_delete)),
+        reopen_and_search_s=t_reopen, graph_cases=gc.cases,
+        graph_max_abs_err=gc.max_abs_err, card=card)
 
 
 # ------------------------------------------------------------ --profile
@@ -1267,12 +2085,19 @@ def main(argv) -> int:
     check_synthetic(kc, dev, gen, 144, 192, 384, BATCH, 18)  # phase 4's
     check_flat_synthetic(fc, dev, gen, 3001, 37, 5)          # small, odd
     check_flat_synthetic(fc, dev, gen, 32768, 384, BATCH)    # phase 6's
+    gc = GraphKernelCheck()
+    check_graph_small(gc, dev, gen)
     say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err,
         flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
-        k2_max_abs_err=fc.k2_err)
+        k2_max_abs_err=fc.k2_err, graph_cases=gc.cases,
+        graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err)
+    graph_perf = check_graph_big(gc, dev, gen, card)
+    torch.cuda.empty_cache()
     index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
                                                      gen, kc)
-    perf = {"probed_scores": ivf_perf}
+    perf = {"probed_scores": ivf_perf,
+            "frontier_bfs": graph_perf["frontier_bfs"],
+            "bfs_relax": graph_perf["bfs_relax"]}
 
     reset_launches()                          # the IVF main path
     phase_search(index, q_np, q_lat, gen, dev, card)
@@ -1284,25 +2109,30 @@ def main(argv) -> int:
 
     index, flat_perf = phase_flat_build(dev, rows, fc)
     perf.update(flat_perf)
-    del rows
+    rows = (None, *rows[1:3], None, rows[4])   # phase 7: ids, kinds, member
     reset_launches()                          # the flat main path
     phase_flat_search(index, q_np, q_lat, gen, dev, card)
-    del index
+    reset_launches(["frontier_bfs", "bfs_relax"])     # the graph main path
+    phase_hybrid(dev, index, rows, gc, card)
+    del index, rows
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         phase_cortex_flat(dev, workdir)
+        phase_cortex_graph(dev, workdir, gc, card)
     counts = launch_counts()
-    launches.update(quant_candidates=counts["quant_candidates"],
-                    quant_rerank=counts["quant_rerank"])
+    launches.update({name: counts[name] for name in (
+        "quant_candidates", "quant_rerank", "frontier_bfs", "bfs_relax")})
     for name, n in launches.items():
         check(n > 0, f"the main path never launched {name}")
 
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
-            "quant_rerank": fc.k2_err}
+            "quant_rerank": fc.k2_err, **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
                    "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
                                         f"b1_cand{FLAT_CANDS[0]}"),
-                   "quant_rerank": (f"b{BATCH}", "b1")}
+                   "quant_rerank": (f"b{BATCH}", "b1"),
+                   "frontier_bfs": ("a1_h3", None),
+                   "bfs_relax": ("a1_r3", None)}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
                                           "share_of_bound")}
@@ -1311,15 +2141,21 @@ def main(argv) -> int:
     check_no_reference_import()
     kernels = []
     for name, (src, repl) in KERNELS.items():
-        b64, b1 = (perf[name][k] for k in main_shapes[name])
-        kernels.append({
+        head, second = main_shapes[name]
+        t = perf[name][head]
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": b64["ms"], "plain_ms": b64["plain_ms"],
-            "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
-            "library_ms": None, "batch1": b1,
-            **{k: v for k, v in perf[name].items()
-               if k not in main_shapes[name]}})
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": head}
+        if second is not None:
+            entry["batch1"] = perf[name][second]
+        entry.update({k: v for k, v in perf[name].items()
+                      if k not in main_shapes[name]})
+        if name == "frontier_bfs":
+            entry["compaction_topk_ms"] = graph_perf["compaction_topk_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

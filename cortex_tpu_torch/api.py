@@ -1,11 +1,15 @@
 """Embedded Cortex of the port: store -> search over the flat index
-(the default) or the IVF index.
+(the default) or the IVF index, edges, the graph engine and hybrid
+search.
 
-Counterpart of cortex_tpu/api.py::Cortex, limited to the slice this
+Counterpart of cortex_tpu/api.py::Cortex, limited to the slices this
 package ports: open / in_memory, store / store_batch / update_node /
 delete_node, get_node / list_nodes, search with the score-decay re-rank
-and access recording, and close. Storage (SQLite or memory), node types
-and hooks are the port's copies of the reference's modules.
+and access recording, create_edge / delete_edge, search_hybrid (vector
+similarity x graph proximity), traverse / neighborhood / find_paths, and
+close. Storage (SQLite or memory), node types, hooks and the graph
+engine are the port's copies of the reference's modules; the device
+graph mirror (graph/csr.py) runs its hop depths on `device`.
 
 At open the index is rebuilt from the stored embeddings (index
 snapshots are not ported). The device is an argument: "cuda" (the
@@ -22,12 +26,15 @@ import numpy as np
 
 from .config import GATE_ITEM, CortexConfig, check_ported
 from .errors import ConfigError
+from .graph import (BOTH, DeviceGraphMirror, GraphEngine, PathRequest,
+                    Subgraph, TraversalRequest)
 from .hooks import HookRegistry, MutationHook
 from .linker.decay import DecayEngine
 from .storage import MemoryStorage, NodeFilter, SqliteStorage, Storage
-from .types import Node
+from .types import Edge, Node
 from .utils.device import resolve_device
 from .vector.embedding import default_embedder
+from .vector.hybrid import HybridQuery, HybridResult, HybridSearch
 from .vector.index import TorchFlatIndex, VectorFilter
 from .vector.ivf import TorchIvfIndex
 from .vector.scoring import apply_score_decay_batch
@@ -50,7 +57,11 @@ class Cortex:
                                          self.config.embedding.dimension)
         self.index = self._make_index()
         self._rebuild_index()
+        self.graph = GraphEngine(storage)
+        self.mirror = DeviceGraphMirror(self.graph.cache, device=self.device)
         self.hooks = HookRegistry()
+        self.hybrid = HybridSearch(storage, self.embedder, self.index,
+                                   self.mirror)
         self.decay_engine = DecayEngine(storage, self.config.decay)
 
     # ------------------------------------------------------------------ boot
@@ -100,6 +111,9 @@ class Cortex:
         self.storage.close()
 
     # ------------------------------------------------------------ mutation
+    def _on_write(self) -> None:
+        self.graph.invalidate()
+
     def store(self, node: Node, *, gate: bool = False,
               actor: str = "library") -> str:
         """Embed + persist + index + fire hooks."""
@@ -156,6 +170,7 @@ class Cortex:
                               np.asarray(node.embedding, np.float32),
                               kind=node.kind,
                               source_agent=node.source.agent)
+        self._on_write()
         self.hooks.notify_node("updated", node)
 
     def delete_node(self, node_id: str, *, hard: bool = False,
@@ -170,7 +185,22 @@ class Cortex:
             if ok:
                 self.index.remove(node_id)
         if ok:
+            self._on_write()
             self.hooks.notify_node("deleted", node)
+        return ok
+
+    def create_edge(self, edge: Edge, *, actor: str = "library") -> str:
+        self.storage.put_edge(edge, actor=actor)
+        self._on_write()
+        self.hooks.notify_edge("created", edge)
+        return edge.id
+
+    def delete_edge(self, edge_id: str, *, actor: str = "library") -> bool:
+        edge = self.storage.get_edge(edge_id)
+        ok = self.storage.delete_edge(edge_id, actor=actor)
+        if ok and edge is not None:
+            self._on_write()
+            self.hooks.notify_edge("deleted", edge)
         return ok
 
     def add_hook(self, hook: MutationHook) -> None:
@@ -244,3 +274,24 @@ class Cortex:
                     if got is not None:
                         n.access_count, n.last_accessed_at = got
         return out
+
+    def search_hybrid(self, query: str, anchors: Sequence[str] = (),
+                      limit: int = 10, *,
+                      vector_weight: float = 0.7,
+                      kind_filter: Optional[List[str]] = None,
+                      max_anchor_depth: int = 3) -> List[HybridResult]:
+        return self.hybrid.search(HybridQuery(
+            query_text=query, anchors=list(anchors),
+            vector_weight=vector_weight, limit=limit,
+            kind_filter=kind_filter, max_anchor_depth=max_anchor_depth))
+
+    def traverse(self, req: TraversalRequest) -> Subgraph:
+        return self.graph.traverse(req)
+
+    def neighborhood(self, node_id: str, depth: int = 1,
+                     direction=BOTH) -> Subgraph:
+        return self.graph.traverse(TraversalRequest(
+            start=[node_id], max_depth=depth, direction=direction))
+
+    def find_paths(self, req: PathRequest):
+        return self.graph.find_paths(req)

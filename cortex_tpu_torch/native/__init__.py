@@ -1,18 +1,21 @@
-"""The port's native host re-rank (C++ through ctypes), built at first use.
+"""The port's native host kernels (C++ through ctypes), built at first use.
 
-Counterpart of cortex_tpu/native (`build.load`, `graph.rerank_topk_native`),
-limited to the one entry point the port calls: the threaded exact fp32
-re-rank of device candidates against the host mirror
-(`host_rerank.cpp`). The library is compiled with the reference's
-flags (`g++ -O3 -march=native -shared -fPIC`, so both packages' re-ranks
-round alike on one machine) into cortex_tpu_torch/_build/host/<hash>/,
-keyed by a hash of the source and the flags, so an edited source
-rebuilds and nothing is written beside the source.
+Counterpart of cortex_tpu/native (`build.load` and the wrappers of
+`graph.py`), limited to the three entry points the port calls: the
+threaded exact fp32 re-rank of device candidates against the host
+mirror (`rerank_topk_native`, `host_rerank.cpp`), and the graph
+engine's multi-source BFS with parents (`bfs_depths`) and connected
+components (`components_native`, both `host_graph.cpp`). The two
+sources are compiled with the reference's flags (`g++ -O3 -march=native
+-shared -fPIC`, so both packages' re-ranks round alike on one machine)
+into one library in cortex_tpu_torch/_build/host/<hash>/, keyed by a
+hash of the sources and the flags, so an edited source rebuilds and
+nothing is written beside the sources.
 
 As in the reference, the native tier is an accelerator, never a
-dependency: `rerank_topk_native` returns None when g++ or the library
-is unavailable (or CORTEX_NATIVE=0), and the caller keeps its numpy
-path with the same tie order.
+dependency: every wrapper returns None when g++ or the library is
+unavailable (or CORTEX_NATIVE=0), and the caller keeps its Python or
+numpy path with the same results and tie order.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import numpy as np
 
 log = logging.getLogger(__name__)
 
-_SRC = Path(__file__).resolve().parent / "host_rerank.cpp"
+_SRCS = tuple(Path(__file__).resolve().parent / name
+              for name in ("host_rerank.cpp", "host_graph.cpp"))
 _BUILD = Path(__file__).resolve().parent.parent / "_build" / "host"
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 _LOCK = threading.Lock()
@@ -39,10 +43,13 @@ _TRIED = False
 
 
 def lib_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(_SRC.read_bytes())
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
-    return _BUILD / h.hexdigest()[:16] / "libhost_rerank.so"
+    return _BUILD / h.hexdigest()[:16] / "libcortex_host.so"
 
 
 def _compile(out: Path) -> bool:
@@ -51,10 +58,12 @@ def _compile(out: Path) -> bool:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
+        subprocess.run(["g++", *_FLAGS, "-o", str(tmp),
+                        *(str(src) for src in _SRCS)],
                        check=True, capture_output=True, timeout=120)
     except (subprocess.SubprocessError, FileNotFoundError) as e:
-        log.info("native host re-rank unavailable (%s); using numpy", e)
+        log.info("native host kernels unavailable (%s); using Python "
+                 "paths", e)
         return False
     os.replace(tmp, out)
     return True
@@ -77,7 +86,7 @@ def load() -> Optional[ctypes.CDLL]:
         try:
             lib = ctypes.CDLL(str(out))
         except OSError as e:
-            log.info("failed to load the native host re-rank: %s", e)
+            log.info("failed to load the native host kernels: %s", e)
             return None
         i32p = ctypes.POINTER(ctypes.c_int32)
         f32p = ctypes.POINTER(ctypes.c_float)
@@ -86,6 +95,12 @@ def load() -> Optional[ctypes.CDLL]:
             f32p, ctypes.c_int64, ctypes.c_int32, f32p, ctypes.c_int32,
             i32p, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int32, f32p, i32p]
+        lib.gc_bfs.restype = ctypes.c_int64
+        lib.gc_bfs.argtypes = [i32p, i32p, ctypes.c_int32, i32p,
+                               ctypes.c_int32, ctypes.c_int32,
+                               ctypes.c_int64, i32p, i32p]
+        lib.gc_components.restype = ctypes.c_int32
+        lib.gc_components.argtypes = [i32p, i32p, ctypes.c_int32, i32p]
         _LIB = lib
         return _LIB
 
@@ -119,3 +134,42 @@ def rerank_topk_native(corpus: np.ndarray, queries: np.ndarray,
         cand, valid.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), k,
         scores.ctypes.data_as(f32p), rows.ctypes.data_as(i32p))
     return scores, rows
+
+
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def bfs_depths(indptr: np.ndarray, indices: np.ndarray,
+               sources: np.ndarray, *, max_depth: int = -1,
+               max_visited: int = 0, want_parents: bool = False
+               ) -> Optional[Tuple[np.ndarray, bool, Optional[np.ndarray]]]:
+    """Multi-source BFS over CSR. Returns (depths [-1=unreached],
+    truncated, parents|None) or None without the native lib."""
+    lib = load()
+    if lib is None:
+        return None
+    n = indptr.shape[0] - 1
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    sources = np.ascontiguousarray(sources, np.int32)
+    depths = np.empty(n, np.int32)
+    parents = np.empty(n, np.int32) if want_parents else None
+    rc = lib.gc_bfs(_i32(indptr), _i32(indices), n, _i32(sources),
+                    len(sources), max_depth, max_visited, _i32(depths),
+                    _i32(parents) if parents is not None else None)
+    return depths, rc < 0, parents
+
+
+def components_native(indptr: np.ndarray, indices: np.ndarray
+                      ) -> Optional[np.ndarray]:
+    """Connected-component labels over an undirected CSR, or None."""
+    lib = load()
+    if lib is None:
+        return None
+    n = indptr.shape[0] - 1
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    comp = np.empty(n, np.int32)
+    lib.gc_components(_i32(indptr), _i32(indices), n, _i32(comp))
+    return comp

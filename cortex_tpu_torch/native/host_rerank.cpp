@@ -9,9 +9,10 @@
 // GIL. valid[b*cand]: nonzero = candidate is live. Slots beyond the valid
 // count get score -1e30 and row 0.
 //
-// Build: g++ -O3 -march=native -shared -fPIC (native/__init__.py, the
-// reference's flags), plain C ABI loaded with ctypes. It lives outside
-// csrc/, so the CUDA build never sees it.
+// Build: with host_graph.cpp into one library, g++ -O3 -march=native
+// -shared -fPIC (native/__init__.py, the reference's flags), plain C ABI
+// loaded with ctypes. It lives outside csrc/, so the CUDA build never
+// sees it.
 
 #include <algorithm>
 #include <cstdint>

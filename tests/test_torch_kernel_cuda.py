@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card:
-the IVF probed-block scan, and the flat index's int8 candidate scan
-(K1) and exact re-rank (K2). Marked `cuda`: skipped without a GPU.
+the IVF probed-block scan, the flat index's int8 candidate scan (K1)
+and exact re-rank (K2), and the graph mirror's frontier walk (G1) and
+min-plus relaxation (G2). Marked `cuda`: skipped without a GPU.
 This file imports no jax (the card's machine has none); run it there
 with
 
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from cortex_tpu_torch.ops import ivf_gather
+from cortex_tpu_torch.ops import graph_bfs, ivf_gather
 from cortex_tpu_torch.ops import similarity as sim
 from cortex_tpu_torch.vector.shard import build_bias
 
@@ -436,3 +437,178 @@ def test_quant_rerank_argument_checks_raise(dev, bad):
         ci = torch.zeros(3, 16385, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError):
         sim.quant_rerank(emb, q, cv, ci, k)
+
+
+# ------------------------------------------- G1 and G2: graph hop depths
+#
+# frontier_bfs (G1) against frontier_bfs_plain: the overflow flag always
+# equal, and dist equal whenever it is false (after an overflow only the
+# order of the truncated frontier differs, and every caller discards
+# that dist). bfs_relax (G2) against bfs_relax_plain: equal int32 depths.
+
+
+def _graph_table(dev, n, d, seed, pad=0.6, hubs=0.01):
+    """[n, d] int32 table on the card: random rows, -1 anywhere, hub rows
+    with every column set."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    nb = torch.randint(0, n, (n, d), dtype=torch.int32, device=dev,
+                       generator=g)
+    nb[torch.rand((n, d), device=dev, generator=g) < pad] = -1
+    hub = torch.rand(n, device=dev, generator=g) < hubs
+    nb[hub] = torch.randint(0, n, (int(hub.sum()), d), dtype=torch.int32,
+                            device=dev, generator=g)
+    return nb
+
+
+def _anchors(dev, n, a, seed):
+    """a anchors: duplicates and -1 pads among them (a >= 3)."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, n, a).astype(np.int32)
+    if a >= 3:
+        out[1] = out[0]
+        out[-1] = -1
+    return torch.from_numpy(out).to(dev)
+
+
+def _check_walk(nb, anchors, hops, cap):
+    before = graph_bfs.frontier_bfs.launches
+    dist, over = graph_bfs.frontier_bfs(nb, anchors, hops, cap)
+    torch.cuda.synchronize()
+    assert graph_bfs.frontier_bfs.launches == before + 1
+    pdist, pover = graph_bfs.frontier_bfs_plain(nb, anchors, hops, cap)
+    assert bool(over) == bool(pover)
+    if not bool(over):
+        assert torch.equal(dist, pdist)
+    return bool(over)
+
+
+@pytest.mark.parametrize("n,d,a", [(1, 8, 1), (5, 8, 3), (1000, 16, 8),
+                                   (100_000, 64, 8), (100_000, 8, 64),
+                                   (10_000_000, 64, 8)])
+def test_frontier_bfs_equals_plain(dev, n, d, a):
+    nb = _graph_table(dev, n, d, seed=n + d)
+    anchors = _anchors(dev, n, a, seed=a)
+    seen = set()
+    for cap in (1, 16, 256, 8192):
+        if cap < a:
+            continue
+        for hops in (0, 1, 3, 8):
+            seen.add(_check_walk(nb, anchors, hops, cap))
+    if n >= 1000:
+        assert seen == {False, True}
+
+
+def test_frontier_bfs_isolated_and_padded_anchors(dev):
+    nb = torch.full((1000, 64), -1, dtype=torch.int32, device=dev)
+    nb[:10, :3] = torch.arange(10, 40, device=dev,
+                               dtype=torch.int32).reshape(10, 3)
+    for a in ([500], [-1, -1, -1], [], [3, 3, 500, -1]):
+        anchors = torch.tensor(a, dtype=torch.int32, device=dev)
+        for hops in (0, 2, 8):
+            assert not _check_walk(nb, anchors, hops, 8)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 7, 64, 1000, 8192])
+def test_frontier_bfs_caps(dev, cap):
+    nb = _graph_table(dev, 50_000, 16, seed=cap, pad=0.5, hubs=0.0)
+    _check_walk(nb, _anchors(dev, 50_000, 1, seed=cap), 6, cap)
+
+
+def test_frontier_bfs_compact_equals_plain_set(dev):
+    nb = _graph_table(dev, 1_000_000, 64, seed=3, pad=0.85, hubs=0.0)
+    anchors = torch.tensor([17], dtype=torch.int32, device=dev)
+    rows, depth, over = graph_bfs.frontier_bfs_compact(nb, anchors, 3, 8192,
+                                                       16384)
+    dist, pover = graph_bfs.frontier_bfs_plain(nb, anchors, 3, 8192)
+    assert not bool(over) and not bool(pover)
+    keep = depth <= 3
+    reached = torch.nonzero(dist <= 3).flatten()
+    assert int(keep.sum()) == reached.numel() < 16384
+    got = sorted(zip(rows[keep].tolist(), depth[keep].tolist()))
+    assert got == sorted(zip(reached.tolist(), dist[reached].tolist()))
+
+
+def _check_relax(nb, dist0, hops):
+    before = graph_bfs.bfs_relax.launches
+    got = graph_bfs.bfs_relax(nb, dist0, hops)
+    torch.cuda.synchronize()
+    assert graph_bfs.bfs_relax.launches == before + 1
+    assert torch.equal(got, graph_bfs.bfs_relax_plain(nb, dist0, hops))
+
+
+def _sources(dev, a, n, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dist0 = torch.full((a, n), graph_bfs.INF_DEPTH, dtype=torch.int32,
+                       device=dev)
+    rows = torch.randint(0, n, (a, 3), device=dev, generator=g)
+    dist0.scatter_(1, rows, 0)
+    return dist0
+
+
+@pytest.mark.parametrize("n,d,a", [(1, 8, 1), (7, 3, 2), (1000, 16, 5),
+                                   (1000, 8, 64), (100_000, 64, 8),
+                                   (10_000_000, 64, 1),
+                                   (10_000_000, 64, 8)])
+def test_bfs_relax_equals_plain(dev, n, d, a):
+    nb = _graph_table(dev, n, d, seed=n * 7 + d, pad=0.8)
+    dist0 = _sources(dev, a, n, seed=a)
+    for hops in ((-1, 0, 1, 2, 3, 8, 9) if n < 10_000_000 else (3, 8)):
+        _check_relax(nb, dist0, hops)
+
+
+def test_bfs_relax_unaligned_rows(dev):
+    """A table whose rows are not 16-byte aligned takes the scalar loads."""
+    flat = torch.empty(1000 * 16 + 1, dtype=torch.int32, device=dev)
+    nb = flat[1:].view(1000, 16)
+    nb.copy_(_graph_table(dev, 1000, 16, seed=5))
+    _check_relax(nb, _sources(dev, 3, 1000, seed=5), 4)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "hops",
+                                 "anchor", "cap", "cpu_op"])
+def test_frontier_bfs_argument_checks_raise(dev, bad):
+    nb = _graph_table(dev, 100, 8, seed=1)
+    anchors = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    hops, cap = 3, 16
+    if bad == "dtype":
+        nb = nb.long()
+    elif bad == "noncontig":
+        nb = nb.t().contiguous().t()
+    elif bad == "device":
+        anchors = anchors.cpu()
+    elif bad == "hops":
+        hops = 9
+    elif bad == "anchor":
+        anchors[1] = 100
+    elif bad == "cap":
+        cap = 1
+    if bad == "cpu_op":
+        with pytest.raises((RuntimeError, NotImplementedError)):
+            graph_bfs.load_ops().frontier_bfs(nb.cpu(), anchors.cpu(), 3,
+                                              16)
+        return
+    with pytest.raises((RuntimeError, ValueError)):
+        graph_bfs.frontier_bfs(nb, anchors, hops, cap)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
+                                 "cpu_op"])
+def test_bfs_relax_argument_checks_raise(dev, bad):
+    nb = _graph_table(dev, 100, 8, seed=1)
+    dist0 = _sources(dev, 2, 100, seed=1)
+    if bad == "dtype":
+        dist0 = dist0.long()
+    elif bad == "noncontig":
+        dist0 = dist0.t().contiguous().t()
+    elif bad == "device":
+        dist0 = dist0.cpu()
+    elif bad == "shape":
+        dist0 = dist0[:, :50].contiguous()
+    if bad == "cpu_op":
+        with pytest.raises((RuntimeError, NotImplementedError)):
+            graph_bfs.load_ops().bfs_relax(nb.cpu(), dist0.cpu(), 3)
+        return
+    with pytest.raises((RuntimeError, ValueError)):
+        graph_bfs.bfs_relax(nb, dist0, 3)

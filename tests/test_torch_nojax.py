@@ -2,10 +2,12 @@
 
 One subprocess blocks jax and the JAX package (sys.modules['jax'] =
 sys.modules['jaxlib'] = sys.modules['cortex_tpu'] = None, so any import
-of them raises), imports the port, runs tiny
+of them raises), imports every module of the port, runs tiny
 store -> search passes on the CPU (the IVF index, the flat index and the
-default config), and reports what it saw as JSON; the tests below check
-that report.
+default config) and an edges -> hybrid search pass through every tier of
+the graph mirror, and reports what it saw as JSON; the tests below check
+that report. A second subprocess shows that chip_smoke.py's own check
+fails once a module of the JAX package is loaded.
 """
 
 import json
@@ -19,7 +21,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import json, sys, tempfile
+    import importlib, json, pkgutil, sys, tempfile
     sys.modules["jax"] = None
     sys.modules["jaxlib"] = None
     sys.modules["cortex_tpu"] = None
@@ -55,6 +57,35 @@ SCRIPT = textwrap.dedent("""
                     "index": cx.index.index_info()["kind"]}
 
     out = {}
+    out["modules"] = sorted(
+        m.name for m in pkgutil.walk_packages(cortex_tpu_torch.__path__,
+                                              "cortex_tpu_torch.")
+        if importlib.import_module(m.name) is not None)
+
+    def hybrid_tiers():
+        from cortex_tpu_torch.types import Edge, EdgeProvenance
+        cx = Cortex.in_memory(CortexConfig(), device="cpu")
+        nodes = [Node.new("fact", f"linked note {i} about topic{i % 3}",
+                          f"body word{i}", Source(agent="a"), 0.5)
+                 for i in range(30)]
+        cx.store_batch(nodes)
+        for i in range(29):
+            cx.create_edge(Edge.new(nodes[i].id, nodes[i + 1].id,
+                                    "related_to", 0.7,
+                                    EdgeProvenance.manual("a")))
+        seen = {}
+        for tier, kw in {"host": {}, "relax": {"HOST_FRONTIER_BUDGET": 0},
+                         "packed": {"PACKED_EDGE_THRESHOLD": 0,
+                                    "HOST_FRONTIER_BUDGET": 0}}.items():
+            for k, v in kw.items():
+                setattr(cx.mirror, k, v)
+            got = cx.search_hybrid("linked note 4 about topic1",
+                                   [nodes[0].id], 5)
+            seen[tier] = sorted((r.node.id == nodes[0].id, r.graph_score)
+                                for r in got)
+        return seen
+
+    out["hybrid"] = hybrid_tiers()
     cx, ivf = store_search(cfg())
     out.update(ivf)
     # the flat index: asked for, the default config (index = "flat" with
@@ -121,6 +152,39 @@ def report():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_imports_without_jax(report):
+    mods = set(report["modules"])
+    for name in ("graph.csr", "graph.engine", "graph.packed",
+                 "graph.traversal", "graph.paths", "graph.host_csr",
+                 "ops.graph_bfs", "vector.hybrid", "native", "api"):
+        assert f"cortex_tpu_torch.{name}" in mods
+
+
+def test_hybrid_tiers_run_without_jax(report):
+    # every tier of the mirror gives the same proximity (a chain of 30)
+    tiers = report["hybrid"]
+    assert tiers["host"] == tiers["relax"] == tiers["packed"]
+    assert [True, 1.0] in tiers["host"]
+
+
+def test_chip_smoke_fails_once_the_jax_package_is_loaded():
+    code = textwrap.dedent("""
+        import sys, types
+        import chip_smoke
+        chip_smoke.check_no_reference_import()          # nothing loaded
+        sys.modules["cortex_tpu.graph.csr"] = types.ModuleType("x")
+        try:
+            chip_smoke.check_no_reference_import()
+        except AssertionError as e:
+            print("refused:", e)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "refused: the JAX package was imported" in proc.stdout
+    assert "cortex_tpu.graph.csr" in proc.stdout
 
 
 def test_store_search_runs_without_jax(report):
