@@ -32,18 +32,23 @@ Phases, each printing its results on its own line:
      bound (bound / time); probed_scores' bytes count the distinct lists
      the queries probe (printed with the mean queries per probed list),
      and it too is timed beside torch._int_mm's product alone over the
-     same rows. The graph mirror's kernels, frontier_bfs (G1) and
-     bfs_relax (G2): small odd tables with duplicate, -1 and isolated
-     anchors, caps that overflow and caps that do not, 0 to 8 hops, and
-     a 10,000,000 x 64 table (~10 neighbours a row, 0.1 % hubs full to
-     the width, the 100M-edge tier's shape) with 1 and 8 anchors: G1's
-     overflow flag always equal to the plain version's and its depths
-     equal whenever the flag is false, G2's depths equal; then each
+     same rows. The graph mirror's kernels, frontier_bfs and
+     frontier_bfs_compact (G1, one walk kernel) and bfs_relax (G2):
+     small odd tables with duplicate, -1 and isolated anchors, caps that
+     overflow and caps that do not, widths that fill, 0 to 8 hops, and a
+     10,000,000 x 64 table (~10 neighbours a row, 0.1 % hubs full to the
+     width, the 100M-edge tier's shape) with 1 and 8 anchors: the
+     walks' overflow flags always equal to the plain versions', G1's
+     depths and the compact walk's reached count and (row, depth) pairs
+     equal whenever the flag is false, its scratch left all INF_DEPTH;
+     G2's depths equal, also at partial tiles of 8 anchors; then each
      kernel's and plain version's times at that table beside their
-     bounds in bytes (G1: dist written once, the frontier slots and
-     rows it reads, a dist entry a pair, the next frontier; G2: the
-     table and dist in and out, a round), and the compaction's
-     torch.topk at out_cap 16,384;
+     bounds in bytes (G1: the frontier slots and rows it reads, a dist
+     entry a pair, the next frontier, then dist written once or the
+     compact walk's reached pairs; G2: the table and dist in and out, a
+     round, not counting its gathers). The walks are timed through the
+     wrapper from host anchors, as the mirror calls them (ms), and
+     through the op alone (op_ms);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -72,9 +77,11 @@ Phases, each printing its results on its own line:
      subset), limit 17 (a 51-hit vector leg), 2-hop anchors; no anchors,
      anchors, a kind filter and an edge-less anchor, each against a
      numpy oracle (exact fp32 scores of the vector leg's hits fused with
-     multi_bfs depths); every anchor through G1 (HOST_FRONTIER_BUDGET =
-     0) with the host tier's results, and G1 against its plain version
-     on the snapshot's table at each query's anchors; batch-1 latency
+     multi_bfs depths); every anchor through the compact walk
+     (HOST_FRONTIER_BUDGET = 0) with the host tier's results, and both
+     walks against their plain versions on the snapshot's table at each
+     query's anchors (the compact one on the mirror's scratch); batch-1
+     latency
      (p50, p99) of both tiers, split into vector leg, proximity leg and
      fusion;
   8. Cortex with edges on phase 6's store: 10,000 seeded create_edge
@@ -88,8 +95,9 @@ Phases, each printing its results on its own line:
 Three main paths: phases 3-4 (IVF), 5-6 (flat) and 7-8 (graph, on the
 flat index). Every launch count is set to 0 just before each and read
 just after it: probed_scores from the first, quant_candidates and
-quant_rerank from the second and third, frontier_bfs and bfs_relax
-from the third; launches made in phase 2, or to compare a kernel with
+quant_rerank from the second and third, frontier_bfs,
+frontier_bfs_compact and bfs_relax from the third; launches made in
+phase 2, or to compare a kernel with
 its plain version in phases 7-8, do not count. The line before the last lists the
 kernels as JSON, the line before that the card's name and power limit;
 the last line is the device JSON. At the end the script fails if any
@@ -107,7 +115,11 @@ profile_out/ beside this script. Last, on the flat index's planes, it
 times K1's kernel whole and cut short after each of its parts, and K2
 with its largest warp sort of 64, 256 and 1,024 entries, each from
 csrc/flat_scan.cu built alone with a compile-time switch
-(CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX).
+(CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX). Then it traces
+PROFILE_ROUNDS hybrid searches of phase 7's device tier (host ms per
+leg, device ms per kernel, idle share), and times G2 from
+csrc/graph_bfs.cu built alone, whole and cut after its table read
+(CORTEX_RELAX_PARTS).
 """
 
 from __future__ import annotations
@@ -148,6 +160,8 @@ KERNELS = {               # name -> (source, what it replaces)
                      "cortex_tpu/ops/similarity.py:239"),
     "frontier_bfs": ("cortex_tpu_torch/csrc/graph_bfs.cu",
                      "cortex_tpu/graph/csr.py:70"),
+    "frontier_bfs_compact": ("cortex_tpu_torch/csrc/graph_bfs.cu",
+                             "cortex_tpu/graph/csr.py:120"),
     "bfs_relax": ("cortex_tpu_torch/csrc/graph_bfs.cu",
                   "cortex_tpu/graph/csr.py:47"),
 }
@@ -168,6 +182,7 @@ def _wrappers():
             "quant_candidates": similarity.quant_candidates,
             "quant_rerank": similarity.quant_rerank,
             "frontier_bfs": graph_bfs.frontier_bfs,
+            "frontier_bfs_compact": graph_bfs.frontier_bfs_compact,
             "bfs_relax": graph_bfs.bfs_relax}
 
 
@@ -1069,11 +1084,16 @@ class GraphKernelCheck:
     """G1 and G2 against their plain versions: G1's overflow flag always
     equal and its depths equal whenever the flag is false (after an
     overflow only the order of the truncated frontier differs, and every
-    caller discards that result); G2's depths equal. max_abs_err is the
-    largest depth difference compared (must stay 0)."""
+    caller discards that result); the compact walk's flag always equal
+    and, without an overflow, its reached count equal and every kept
+    (row, depth) pair a true one (all of them when they fit its width),
+    each row listed once, and its scratch all INF_DEPTH again
+    afterwards; G2's depths equal. max_abs_err is the largest depth
+    difference compared (must stay 0)."""
 
     def __init__(self):
-        self.max_abs_err = {"frontier_bfs": 0, "bfs_relax": 0}
+        self.max_abs_err = {"frontier_bfs": 0, "frontier_bfs_compact": 0,
+                            "bfs_relax": 0}
         self.cases = 0
         self.overflows = 0
 
@@ -1094,6 +1114,34 @@ class GraphKernelCheck:
         self.cases += 1
         self.overflows += bool(over)
         return bool(over)
+
+    def compact(self, nb, anchors, hops, cap, out_cap, scratch):
+        import torch
+        from cortex_tpu_torch.ops import graph_bfs as g
+        packed = g.frontier_bfs_compact(nb, anchors, hops, cap, out_cap,
+                                        scratch)
+        dist, pover = g.frontier_bfs_plain(nb, anchors, hops, cap)
+        torch.cuda.synchronize()
+        rows, dep, count, over = g.unpack_compact(packed.cpu())
+        check(over == bool(pover), f"compact walk overflow flag {over} != "
+              f"plain {bool(pover)} (hops {hops}, cap {cap})")
+        check(rows.unique().numel() == rows.numel() == min(count, out_cap),
+              "the compact walk listed a row twice")
+        check(bool((scratch == g.INF_DEPTH).all()),
+              "the compact walk left its scratch changed")
+        if not over:
+            dist = dist.cpu()
+            reached = int((dist <= hops).sum())
+            check(count == reached, f"compact walk reached {count} rows, "
+                  f"plain {reached}")
+            err = int((dist[rows.long()].long() - dep.long()).abs().max()) \
+                if rows.numel() else 0
+            check(err == 0, f"compact walk depths differ from plain by {err}")
+            self.max_abs_err["frontier_bfs_compact"] = max(
+                self.max_abs_err["frontier_bfs_compact"], err)
+        self.cases += 1
+        self.overflows += over
+        return over
 
     def relax(self, nb, dist0, hops):
         import torch
@@ -1154,17 +1202,27 @@ def check_graph_small(gc, dev, gen):
                           (1000, 16, 3.0, 8), (4099, 64, 9.0, 64)):
         nb = graph_table(dev, gen, n, d, mean, 0.01)
         anchors = graph_anchors(dev, gen, n, a)
+        scratch = torch.full((n,), g.INF_DEPTH, dtype=torch.int32,
+                             device=dev)
         for cap in sorted({a, 16, 300, GRAPH_CAP} - set(range(a))):
             for hops in (0, 1, 2, 3, 8):
                 gc.walk(nb, anchors, hops, cap)
+                for out_cap in (64, GRAPH_OUT_CAP):
+                    gc.compact(nb, anchors, hops, cap, out_cap, scratch)
         dist0 = sources(dev, anchors, n)
         for hops in (0, 1, 3, 8, 9):
             gc.relax(nb, dist0, hops)
+        if a > 1:                     # whole tiles of 8 anchors and a part
+            gc.relax(nb, sources(dev, graph_anchors(dev, gen, n, a + 3), n),
+                     3)
     iso = torch.full((64, 8), -1, dtype=torch.int32, device=dev)
     iso[0, :2] = torch.tensor([1, 2], dtype=torch.int32)
     for a in ([40], [40, 40, -1], [0, 63]):
         anchors = torch.tensor(a, dtype=torch.int32, device=dev)
         gc.walk(iso, anchors, 3, 8)
+        gc.compact(iso, anchors, 3, 8, 16,
+                   torch.full((64,), g.INF_DEPTH, dtype=torch.int32,
+                              device=dev))
         gc.relax(iso, sources(dev, anchors, 64), 3)
     try:
         g.frontier_bfs(iso, torch.tensor([64], dtype=torch.int32,
@@ -1177,17 +1235,19 @@ def check_graph_small(gc, dev, gen):
           "cover both sides of the frontier cap")
 
 
-def walk_bytes(nb, anchors, hops, cap):
-    """The bytes G1 must move for these inputs: dist [N] written once,
-    the anchors read and seeded, and per hop the frontier slots read,
-    the live rows gathered, one dist entry read per pair, and the next
-    frontier written (replays the walk's counts on the device)."""
+def walk_bytes(nb, anchors, hops, cap, *, compact=False):
+    """The bytes G1 must move for these inputs: the anchors read and
+    seeded, and per hop the frontier slots read, the live rows gathered,
+    one dist entry read per pair, and the next frontier written (replays
+    the walk's counts on the device); then frontier_bfs's dist [N]
+    written once, or the compact walk's output: its reached (row, depth)
+    pairs, the count and the flag."""
     import torch
     from cortex_tpu_torch.ops.graph_bfs import INF_DEPTH
     n, d = nb.shape
     dist = torch.full((n,), INF_DEPTH, dtype=torch.int32, device=nb.device)
     dist[anchors[anchors >= 0].long()] = 0
-    total = 4 * n + 8 * anchors.numel()
+    total = 8 * anchors.numel()
     front = anchors
     for h in range(hops):
         front = front[:cap]
@@ -1199,14 +1259,17 @@ def walk_bytes(nb, anchors, hops, cap):
         total += 4 * (front.numel() + d * live.numel() + pairs.numel()
                       + min(cap, new.numel()))
         front = new
-    return total
+    if compact:
+        return total + 8 + 8 * int((dist < INF_DEPTH).sum())
+    return total + 4 * n
 
 
 def check_graph_big(gc, dev, gen, card):
-    """Phase 2 at the 100M-edge tier's table (GRAPH_ROWS x 64): G1 with 1
-    and 8 anchors at 3 and 8 hops, G2 with 1 and 8 anchors at 3 and 8
+    """Phase 2 at the 100M-edge tier's table (GRAPH_ROWS x 64): G1 (both
+    forms; the compact walk at out_cap 16,384 on one scratch) with 1 and
+    8 anchors at 3 and 8 hops, G2 with 1 and 8 anchors at 3 and 8
     rounds, each against its plain version; then device times beside
-    the bounds, and the compaction's torch.topk at out_cap 16,384."""
+    the bounds."""
     import torch
     from cortex_tpu_torch.ops import graph_bfs as g
     t0 = time.monotonic()
@@ -1217,23 +1280,46 @@ def check_graph_big(gc, dev, gen, card):
     live = int((nb >= 0).sum())
     anchors = {a: torch.randint(0, GRAPH_ROWS, (a,), dtype=torch.int32,
                                 device=dev, generator=gen) for a in (1, 8)}
+    scratch = torch.full((GRAPH_ROWS,), g.INF_DEPTH, dtype=torch.int32,
+                         device=dev)
+    ops = g.load_ops()
     flags = {}
     for a, anc in anchors.items():
         for hops in (3, 8):
             flags[f"a{a}_h{hops}"] = gc.walk(nb, anc, hops, GRAPH_CAP)
+            check(gc.compact(nb, anc, hops, GRAPH_CAP, GRAPH_OUT_CAP, scratch)
+                  == flags[f"a{a}_h{hops}"], "the two walks' flags differ")
         for hops in (3, 8):
             gc.relax(nb, sources(dev, anc, GRAPH_ROWS), hops)
-    out = {"frontier_bfs": {}, "bfs_relax": {}}
+    out = {"frontier_bfs": {}, "frontier_bfs_compact": {}, "bfs_relax": {}}
     n, d = nb.shape
     for a, anc in anchors.items():
         hops = 3
-        out["frontier_bfs"][f"a{a}_h{hops}"] = timing(
-            time_ms(lambda: g.frontier_bfs(nb, anc, hops, GRAPH_CAP), 20),
+        # ms: the wrapper from host anchors, as the mirror calls it (its
+        # range check then needs no host sync); op_ms: the op alone
+        key = f"a{a}_h{hops}"
+        host = anc.cpu()
+        out["frontier_bfs"][key] = timing(
+            time_ms(lambda: g.frontier_bfs(nb, host, hops, GRAPH_CAP), 20),
             time_ms(lambda: g.frontier_bfs_plain(nb, anc, hops, GRAPH_CAP),
                     3),
             bound_ms(walk_bytes(nb, anc, hops, GRAPH_CAP), 0,
                      F32_OPS_PER_S),
-            overflow=flags[f"a{a}_h{hops}"])
+            overflow=flags[key],
+            op_ms=time_ms(
+                lambda: ops.frontier_bfs(nb, anc, hops, GRAPH_CAP), 20))
+        args = (nb, anc, hops, GRAPH_CAP, GRAPH_OUT_CAP)
+        out["frontier_bfs_compact"][key] = timing(
+            time_ms(lambda: g.frontier_bfs_compact(
+                nb, host, *args[2:], scratch), 20),
+            time_ms(lambda: g.frontier_bfs_compact_plain(*args), 3),
+            bound_ms(walk_bytes(nb, anc, hops, GRAPH_CAP, compact=True), 0,
+                     F32_OPS_PER_S),
+            overflow=flags[key],
+            op_ms=time_ms(lambda: ops.frontier_bfs_compact(*args, scratch),
+                          20),
+            reached=g.unpack_compact(
+                g.frontier_bfs_compact(*args, scratch).cpu())[2])
         dist0 = sources(dev, anc, GRAPH_ROWS)
         for rounds in (3, 8):
             out["bfs_relax"][f"a{a}_r{rounds}"] = timing(
@@ -1241,14 +1327,11 @@ def check_graph_big(gc, dev, gen, card):
                 time_ms(lambda: g.bfs_relax_plain(nb, dist0, rounds), 1),
                 bound_ms(rounds * (4 * n * d + 8 * a * n), 0,
                          F32_OPS_PER_S))
-    dist, _ = g.frontier_bfs(nb, anchors[1], 3, GRAPH_CAP)
-    topk_ms = time_ms(lambda: torch.topk(torch.clamp_max(dist, 4),
-                                         GRAPH_OUT_CAP, largest=False), 20)
+    check(bool((scratch == g.INF_DEPTH).all()),
+          "the timed compact walks left their scratch changed")
     say("2-graph-kernels-10M", rows=n, width=d, neighbours=live,
         gen_s=t_gen, cases=gc.cases, overflows=gc.overflows,
-        walk_overflow=flags, max_abs_err=gc.max_abs_err,
-        compaction_topk_ms=topk_ms, card=card, **out)
-    out["compaction_topk_ms"] = topk_ms
+        walk_overflow=flags, max_abs_err=gc.max_abs_err, card=card, **out)
     return out
 
 
@@ -1492,19 +1575,16 @@ class LegClock:
         del self.hybrid.mirror.per_anchor
 
 
-def phase_hybrid(dev, index, rows, gc, card):
-    """Phase 7: HybridSearch at BASELINE config #4 on phase 5's flat index
-    (1M x 768): 1M light nodes in a MemoryStorage, ~5M seeded edges in
-    the packed snapshot (packed_snapshot, checked against the real
-    build on a subset), limit 17 (a 51-hit vector leg), 2-hop anchors.
-    Every case against fuse_oracle over the index's hits with exact
-    fp32 scores and multi_bfs depths; the host tier, then every anchor
-    through G1 (HOST_FRONTIER_BUDGET = 0) with the same results; then
-    the batch-1 latency of both tiers, split by leg."""
-    import torch
+def hybrid_setup(dev, index, rows):
+    """Phase 7's set-up at BASELINE config #4 on `index` (phase 5's flat
+    index over phase 3's rows): 1M light nodes in a MemoryStorage, ~5M
+    seeded edges in the packed snapshot (packed_snapshot, checked
+    against the real build on a subset), a DeviceGraphMirror serving it,
+    HybridSearch, and HYB_QUERIES queries (limit 17, 2-hop anchors: no
+    anchors, two, one with a kind filter, and an edge-less one)."""
+    from types import SimpleNamespace
     from cortex_tpu_torch.graph.cache import AdjacencyCache
     from cortex_tpu_torch.graph.csr import DeviceGraphMirror
-    from cortex_tpu_torch.graph.packed import UNREACHED
     from cortex_tpu_torch.storage import MemoryStorage
     from cortex_tpu_torch.types import Node, Source
     from cortex_tpu_torch.vector.hybrid import HybridQuery, HybridSearch
@@ -1553,7 +1633,26 @@ def phase_hybrid(dev, index, rows, gc, card):
             query_text=f"q{j}", anchors=anchors, limit=HYB_LIMIT,
             max_anchor_depth=HYB_HOPS,
             kind_filter=["k1", "k3"] if kind == 2 else None))
-    hybrid = HybridSearch(storage, QueryTable(vecs), index, mirror)
+    return SimpleNamespace(
+        storage=storage, pk=pk, mirror=mirror, vecs=vecs, cases=cases,
+        hybrid=HybridSearch(storage, QueryTable(vecs), index, mirror),
+        ids=ids, edges=int(len(src)), t_nodes=t_nodes, t_edges=t_edges,
+        subset_edges=subset_edges)
+
+
+def phase_hybrid(dev, index, rows, gc, card):
+    """Phase 7: HybridSearch at BASELINE config #4 on phase 5's flat index
+    (1M x 768; hybrid_setup). Every case against fuse_oracle over the
+    index's hits with exact fp32 scores and multi_bfs depths; the host
+    tier, then every anchor through the compact walk
+    (HOST_FRONTIER_BUDGET = 0) with the same results; then the batch-1
+    latency of both tiers, split by leg."""
+    import torch
+    from cortex_tpu_torch.graph.packed import UNREACHED
+    hy = hybrid_setup(dev, index, rows)
+    storage, pk, mirror, vecs, cases, hybrid, ids = (
+        hy.storage, hy.pk, hy.mirror, hy.vecs, hy.cases, hy.hybrid, hy.ids)
+    co = index._corpus
     bfs_cache = {}
 
     def depth_of(a):
@@ -1588,9 +1687,9 @@ def phase_hybrid(dev, index, rows, gc, card):
     scored = sum(r.graph_score > 0 for res in host for r in res)
     check(scored > 0, "no result took a graph score")
     mirror.HOST_FRONTIER_BUDGET = 0
-    walks = _wrappers()["frontier_bfs"].launches
+    walks = _wrappers()["frontier_bfs_compact"].launches
     device = [hybrid.search(q) for q in cases]
-    walks = _wrappers()["frontier_bfs"].launches - walks
+    walks = _wrappers()["frontier_bfs_compact"].launches - walks
     for j, (a, b) in enumerate(zip(host, device)):
         check(results_key(a) == results_key(b),
               f"query {j}: the device tier differs from the host tier")
@@ -1599,14 +1698,17 @@ def phase_hybrid(dev, index, rows, gc, card):
     check(mirror.packed_overflows == 0, "a device walk fell back")
     with uncounted():                 # G1 at the main path's shapes
         nbrs = mirror._packed_device_nbrs(pk)
+        scratch = mirror._packed_device_scratch(pk, nbrs)
         for q in cases:
             for a in q.anchors:
                 if a in pk.row_of:
-                    gc.walk(nbrs, torch.tensor([pk.row_of[a]],
+                    args = (nbrs, torch.tensor([pk.row_of[a]],
                                                dtype=torch.int32,
                                                device=dev),
                             min(q.max_anchor_depth, mirror.HOP_CAP),
                             mirror.DEVICE_FRONTIER_CAP)
+                    gc.walk(*args)
+                    gc.compact(*args, mirror.PACKED_OUT_CAP, scratch)
     lat_q = [cases[j % len(cases)] for j in range(HYB_LAT)
              if cases[j % len(cases)].anchors]
     clock = LegClock(hybrid)
@@ -1617,15 +1719,89 @@ def phase_hybrid(dev, index, rows, gc, card):
         clock.run(lat_q[:20])                         # warm
         lat[tier] = clock.run(lat_q)
     clock.close()
-    say("7-hybrid", nodes=len(ids), edges=int(len(src)),
+    say("7-hybrid", nodes=len(ids), edges=hy.edges,
         snapshot_rows=pk.n, snapshot_pairs=int(len(pk.indices)),
-        max_degree=int(np.diff(pk.indptr).max()), subset_edges=subset_edges,
-        nodes_s=t_nodes, edges_and_snapshot_s=t_edges,
+        max_degree=int(np.diff(pk.indptr).max()),
+        subset_edges=hy.subset_edges, nodes_s=hy.t_nodes,
+        edges_and_snapshot_s=hy.t_edges,
         queries=len(cases), results_with_graph_score=int(scored),
         device_walks=walks, graph_cases=gc.cases, limit=HYB_LIMIT,
         hops=HYB_HOPS,
         batch1_latency=lat, latency_queries=len(lat_q), card=card)
-    del mirror, hybrid
+    del mirror, hybrid, hy
+    torch.cuda.empty_cache()
+
+
+def profile_hybrid(dev, index, rows, card):
+    """--profile for config #4's device tier (hybrid_setup on the flat
+    index, HOST_FRONTIER_BUDGET = 0): PROFILE_ROUNDS searches with
+    anchors traced with torch.profiler. Spans: H0 search_hybrid (the
+    whole search), H1 the vector leg (enqueue, and the fetch that waits
+    for the device), H2 the proximity leg (mirror.per_anchor: the
+    compact walk, its fetch and the depth map); fusion and hydration are
+    H0 less H1 and H2. Device ms per kernel and the device's idle share
+    of the traced wall, as profile_layers reads them."""
+    from pathlib import Path
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import torch
+    hy = hybrid_setup(dev, index, rows)
+    mirror, hybrid = hy.mirror, hy.hybrid
+    mirror.HOST_FRONTIER_BUDGET = 0
+    enqueue, per_anchor = index.search_batch_async, mirror.per_anchor
+
+    def spanned_enqueue(*a, **kw):
+        with record_function("H1.vector_enqueue"):
+            fetch = enqueue(*a, **kw)
+
+        def spanned_fetch():
+            with record_function("H1.vector_fetch"):
+                return fetch()
+        return spanned_fetch
+
+    def spanned_per_anchor(*a, **kw):
+        with record_function("H2.per_anchor"):
+            return per_anchor(*a, **kw)
+
+    index.search_batch_async = spanned_enqueue
+    mirror.per_anchor = spanned_per_anchor
+    qs = [q for q in hy.cases if q.anchors][:PROFILE_ROUNDS]
+    for q in qs:
+        hybrid.search(q)
+    torch.cuda.synchronize()
+    walks = _wrappers()["frontier_bfs_compact"].launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in qs:
+            with record_function("H0.search_hybrid"):
+                hybrid.search(q)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(qs)
+    walks = _wrappers()["frontier_bfs_compact"].launches - walks
+    del index.search_batch_async, mirror.per_anchor
+    host, devt = {}, {}
+    for e in prof.key_averages():
+        # spans (these, and profile_layers' on the index's corpus) have a
+        # device-side range over the kernels they launched: left out
+        if e.key.startswith(("H0.", "H1.", "H2.", "L0.", "L1.", "L2.",
+                             "L4.")):
+            if e.device_type != DeviceType.CUDA and e.key[0] == "H":
+                host[e.key] = e.cpu_time_total / 1e3 / len(qs)
+        elif e.device_type == DeviceType.CUDA:
+            devt[e.key[:80]] = e.self_device_time_total / 1e3 / len(qs)
+    host["fusion_and_hydration"] = host.get("H0.search_hybrid", 0.0) - sum(
+        v for k, v in host.items() if k.startswith(("H1.", "H2.")))
+    busy = sum(devt.values())
+    say("profile-hybrid-device-tier", rounds=len(qs), traced_wall_ms=wall,
+        device_busy_ms=busy, device_idle_share=1 - busy / wall,
+        host_ms=host,
+        device_ms=dict(sorted(devt.items(), key=lambda kv: -kv[1])[:8]),
+        walk_launches=walks, card=card)
+    out_dir = Path(__file__).resolve().parent / "profile_out"
+    out_dir.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "trace_hybrid_device.json"))
+    del mirror, hybrid, hy
     torch.cuda.empty_cache()
 
 
@@ -1883,15 +2059,15 @@ def profile_index(name, index, q_np, q_lat, card):
     profile_layers(name, index, q_np, q_lat)
 
 
-def build_flat_scan(macro, values):
-    """csrc/flat_scan.cu alone as plain-C libraries, one for each value
-    of the compile-time switch `macro`, one nvcc each, side by side.
+def build_variants(macro, values, source="flat_scan.cu"):
+    """csrc/<source> alone as plain-C libraries, one for each value of
+    the compile-time switch `macro`, one nvcc each, side by side.
     Returns ({value: ctypes.CDLL}, {value: nvcc wall seconds})."""
     import ctypes
     import subprocess
     from cortex_tpu_torch.ops import build
-    src = build._CSRC / "flat_scan.cu"
-    out = build._BUILD / "flat_scan_variants"
+    src = build._CSRC / source
+    out = build._BUILD / f"{src.stem}_variants"
     out.mkdir(parents=True, exist_ok=True)
     logs = {n: out / f"{macro}_{n}.log" for n in values}
     t0 = time.perf_counter()
@@ -1900,7 +2076,7 @@ def build_flat_scan(macro, values):
         with open(logs[n], "w") as log:
             procs[n] = subprocess.Popen(
                 [build._nvcc(), *build._NVCC_FLAGS, "-shared",
-                 f"-D{macro}={n}", str(src), "-o",
+                 f"-I{build._CSRC}", f"-D{macro}={n}", str(src), "-o",
                  str(out / f"{macro}_{n}.so")],
                 stdout=log, stderr=subprocess.STDOUT)
     secs = {}
@@ -1934,7 +2110,7 @@ def profile_k1_parts(index, q_np, card):
             "qt", "n_groups", "n_part", "m", "capb", "bufs_global", "smem",
             "aligned")]
 
-    libs, _ = build_flat_scan("CORTEX_K1_PARTS", (0, 1, 2))
+    libs, _ = build_variants("CORTEX_K1_PARTS", (0, 1, 2))
     co = index._corpus
     emb_i8, rinv = co._dev_q
     cap, d = emb_i8.shape
@@ -1994,7 +2170,7 @@ def profile_k2_sorts(index, q_np, card):
     import torch
     from cortex_tpu_torch.ops import similarity as sim
     sorts = (64, 256, 1024)
-    libs, secs = build_flat_scan("CORTEX_K2_WARP_SORT_MAX", sorts)
+    libs, secs = build_variants("CORTEX_K2_WARP_SORT_MAX", sorts)
     co = index._corpus
     emb = co._dev[0]
     emb_i8, rinv = co._dev_q
@@ -2029,6 +2205,47 @@ def profile_k2_sorts(index, q_np, card):
                       f"K2 sorts: builds differ at cand {cand}, batch {b}")
             out[f"b{b}_cand{cand}"] = row
     say("profile-flat-k2-sorts", card=card, nvcc_s=secs, **out)
+
+
+def profile_relax_variants(dev, gen, card):
+    """G2 alone (csrc/graph_bfs.cu) at phase 2's 10M x 64 table, 1 and 8
+    anchors, 3 rounds: whole (CORTEX_RELAX_PARTS = 0, whose results must
+    equal the ops') and cut after the table read (1: no gathers, the
+    table's entries stand in for the depths)."""
+    import ctypes
+    import torch
+    from cortex_tpu_torch.ops import graph_bfs as g
+    parts, _ = build_variants("CORTEX_RELAX_PARTS", (0, 1), "graph_bfs.cu")
+    libs = {"whole": parts[0], "table_read_only": parts[1]}
+    nb = graph_table(dev, gen, GRAPH_ROWS, GRAPH_DEG, GRAPH_MEAN_DEG,
+                     GRAPH_HUBS)
+    n, d = nb.shape
+    rounds = 3
+    ptr = ctypes.c_void_p
+    stream = ptr(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for a in (1, 8):
+        anc = torch.randint(0, n, (a,), dtype=torch.int32, device=dev,
+                            generator=gen)
+        dist0 = sources(dev, anc, n)
+        want = g.bfs_relax(nb, dist0, rounds)
+        res = torch.empty_like(dist0)
+        work = torch.empty(2 * n * (1 if a == 1 else 8 * -(-a // 8)),
+                           dtype=torch.int32, device=dev)
+        row = {}
+        for name, lib in libs.items():
+            def run(lib=lib):
+                check(lib.cortex_bfs_relax_launch(
+                    ptr(nb.data_ptr()), n, d, 1, ptr(dist0.data_ptr()), a,
+                    rounds, ptr(res.data_ptr()), ptr(work.data_ptr()),
+                    stream) == 0, "relax variants: launch failed")
+            row[f"{name}_ms"] = time_ms(run, 5)
+            if name == "whole":
+                run()
+                check(torch.equal(res, want),
+                      f"relax variant {name} differs from the ops' G2")
+        out[f"a{a}_r{rounds}"] = row
+    say("profile-graph-relax-variants", card=card, **out)
 
 
 # ------------------------------------------------------------ main
@@ -2078,6 +2295,10 @@ def main(argv) -> int:
         profile_index("flat", index, q_np, q_lat, card)
         profile_k1_parts(index, q_np, card)
         profile_k2_sorts(index, q_np, card)
+        profile_hybrid(dev, index, (None, *rows[1:3], None, rows[4]), card)
+        del index, rows
+        torch.cuda.empty_cache()
+        profile_relax_variants(dev, gen, card)
         check_no_reference_import()
         print(card, flush=True)
         return 0
@@ -2095,9 +2316,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
                                                      gen, kc)
-    perf = {"probed_scores": ivf_perf,
-            "frontier_bfs": graph_perf["frontier_bfs"],
-            "bfs_relax": graph_perf["bfs_relax"]}
+    perf = {"probed_scores": ivf_perf, **graph_perf}
 
     reset_launches()                          # the IVF main path
     phase_search(index, q_np, q_lat, gen, dev, card)
@@ -2112,7 +2331,8 @@ def main(argv) -> int:
     rows = (None, *rows[1:3], None, rows[4])   # phase 7: ids, kinds, member
     reset_launches()                          # the flat main path
     phase_flat_search(index, q_np, q_lat, gen, dev, card)
-    reset_launches(["frontier_bfs", "bfs_relax"])     # the graph main path
+    reset_launches(["frontier_bfs", "frontier_bfs_compact",
+                    "bfs_relax"])                 # the graph main path
     phase_hybrid(dev, index, rows, gc, card)
     del index, rows
     torch.cuda.empty_cache()
@@ -2121,7 +2341,8 @@ def main(argv) -> int:
         phase_cortex_graph(dev, workdir, gc, card)
     counts = launch_counts()
     launches.update({name: counts[name] for name in (
-        "quant_candidates", "quant_rerank", "frontier_bfs", "bfs_relax")})
+        "quant_candidates", "quant_rerank", "frontier_bfs",
+        "frontier_bfs_compact", "bfs_relax")})
     for name, n in launches.items():
         check(n > 0, f"the main path never launched {name}")
 
@@ -2132,6 +2353,7 @@ def main(argv) -> int:
                                         f"b1_cand{FLAT_CANDS[0]}"),
                    "quant_rerank": (f"b{BATCH}", "b1"),
                    "frontier_bfs": ("a1_h3", None),
+                   "frontier_bfs_compact": ("a1_h3", None),
                    "bfs_relax": ("a1_r3", None)}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
@@ -2153,8 +2375,6 @@ def main(argv) -> int:
             entry["batch1"] = perf[name][second]
         entry.update({k: v for k, v in perf[name].items()
                       if k not in main_shapes[name]})
-        if name == "frontier_bfs":
-            entry["compaction_topk_ms"] = graph_perf["compaction_topk_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,7 +11,8 @@ and depths come from four tiers, chosen per call by what the frontier
 needs: a host frontier BFS over the AdjacencyCache (small frontiers);
 above PACKED_EDGE_THRESHOLD edges the packed CSR snapshot
 (graph/packed.py) with its vectorized host BFS; the device frontier walk
-(G1, ops/graph_bfs.frontier_bfs) over the resident table; and the full
+(G1, ops/graph_bfs.frontier_bfs, or frontier_bfs_compact on the packed
+snapshot's table) over the resident table; and the full
 min-plus relaxation (G2, ops/graph_bfs.bfs_relax)
 
     dist <- min(dist, min_over_deg(dist[nbrs]) + 1)
@@ -35,7 +36,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.graph_bfs import bfs_relax, frontier_bfs, frontier_bfs_compact
+from ..ops.graph_bfs import (bfs_relax, frontier_bfs, frontier_bfs_compact,
+                             unpack_compact)
 from ..utils.device import resolve_device
 from .cache import AdjacencyCache
 from .packed import UNREACHED, PackedAdjacency
@@ -86,9 +88,9 @@ class DeviceGraphMirror:
         self._id_of: List[str] = []
         self._nbrs: Optional[torch.Tensor] = None
         self.truncated_nodes = 0   # hubs that lost neighbors to the cap
-        # packed tier state (scale mode); the device neighbor table
-        # caches on each PackedAdjacency snapshot, not here (see
-        # _packed_device_nbrs)
+        # packed tier state (scale mode); the device neighbor table and
+        # the walk's depth scratch cache on each PackedAdjacency snapshot,
+        # not here (see _packed_device_nbrs)
         self._packed: Optional[PackedAdjacency] = None
         self._packed_version = -1
         self._packed_lock = threading.Lock()
@@ -270,6 +272,19 @@ class DeviceGraphMirror:
         self.truncated_nodes = getattr(pk, "_nbrs_trunc", 0)
         return dev
 
+    def _packed_device_scratch(self, pk: PackedAdjacency,
+                               nbrs: torch.Tensor) -> torch.Tensor:
+        """The compact walk's [N] depth scratch for this snapshot's table,
+        filled with INF_DEPTH once, when made; every walk leaves it so
+        (ops/graph_bfs.frontier_bfs_compact). Cached beside the table,
+        for the same reason."""
+        scratch = getattr(pk, "_dist_scratch_dev", None)
+        if scratch is None:
+            scratch = torch.full((nbrs.shape[0],), int(INF_DEPTH),
+                                 dtype=torch.int32, device=self._device)
+            pk._dist_scratch_dev = scratch
+        return scratch
+
     def _packed_per_anchor(self, anchor_ids: Sequence[str],
                            max_hops: int) -> tuple:
         """per_anchor over the packed tiers — returns (anchors_used,
@@ -307,19 +322,18 @@ class DeviceGraphMirror:
                 rows = np.nonzero(dist != UNREACHED)[0]
                 put(j, rows, dist[rows].astype(np.int32))
                 continue
-            # device frontier walk (the 100M-edge tier)
+            # device frontier walk (the 100M-edge tier): one launch from
+            # a host anchor (no sync to enqueue), and one fetch of the
+            # reached pairs with their count and flag
             nbrs = self._packed_device_nbrs(pk)
-            anchors = torch.tensor([pk.row_of[a]], dtype=torch.int32,
-                                   device=self._device)
-            rows_d, depth_d, overflow = frontier_bfs_compact(
-                nbrs, anchors, min(max_hops, self.HOP_CAP),
-                self.DEVICE_FRONTIER_CAP, self.PACKED_OUT_CAP)
-            rows_h = rows_d.cpu().numpy()
-            depth_h = depth_d.cpu().numpy()
-            keep = depth_h <= max_hops
-            if bool(overflow) or \
-                    int(keep.sum()) >= min(self.PACKED_OUT_CAP,
-                                           rows_h.shape[0]):
+            packed = frontier_bfs_compact(
+                nbrs, torch.tensor([pk.row_of[a]], dtype=torch.int32),
+                min(max_hops, self.HOP_CAP),
+                self.DEVICE_FRONTIER_CAP, self.PACKED_OUT_CAP,
+                self._packed_device_scratch(pk, nbrs)).cpu().numpy()
+            rows_h, depth_h, count, overflow = unpack_compact(packed)
+            if overflow or count >= min(self.PACKED_OUT_CAP,
+                                        nbrs.shape[0]):
                 # frontier-cap overflow OR the compaction width
                 # filled: the device result is a SUBSET. Correctness
                 # falls back to the exact packed host BFS without a
@@ -331,7 +345,7 @@ class DeviceGraphMirror:
                 rows = np.nonzero(dist != UNREACHED)[0]
                 put(j, rows, dist[rows].astype(np.int32))
                 continue
-            put(j, rows_h[keep], depth_h[keep])
+            put(j, rows_h, depth_h)
         return known, out
 
     def _in_graph(self, node_id: str) -> bool:
@@ -477,13 +491,10 @@ class DeviceGraphMirror:
         rows = [self._row_of[a] for a in anchor_ids if a in self._row_of]
         if not rows:
             return {}
-        dist = self._device_dist(rows, max_hops)
-        out: Dict[str, int] = {}
-        for i in range(self.n):
-            d = int(dist[i])
-            if d <= max_hops:
-                out[self._id_of[i]] = d
-        return out
+        dist = self._device_dist(rows, max_hops)[:self.n]
+        hit = np.nonzero(dist <= max_hops)[0]
+        return {self._id_of[i]: d
+                for i, d in zip(hit.tolist(), dist[hit].tolist())}
 
     #: frontier slots for the device walk; hybrid anchor sets expand
     #: deg^hops ~ thousands — well under this. Overflow (or more
@@ -501,9 +512,7 @@ class DeviceGraphMirror:
         dist = None
         if len(rows) <= self.DEVICE_FRONTIER_CAP:
             dist, overflow = frontier_bfs(
-                self._nbrs,
-                torch.as_tensor(np.asarray(rows, np.int32),
-                                device=self._device),
+                self._nbrs, torch.as_tensor(np.asarray(rows, np.int32)),
                 min(max_hops, self.HOP_CAP), self.DEVICE_FRONTIER_CAP)
             overflow = bool(overflow)
         if overflow:

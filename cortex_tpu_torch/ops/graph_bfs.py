@@ -6,8 +6,10 @@ Counterpart of the XLA programs of cortex_tpu/graph/csr.py:
   * `frontier_bfs` (G1) replaces `_frontier_bfs_device` (line 70): a
     walk of at most 8 hops from a few anchors that touches only the
     frontier, with an overflow flag when a hop finds more than `cap` new
-    (slot, column) pairs. `frontier_bfs_compact` adds the reference's
-    compaction (`_frontier_bfs_device_compact`, line 120) as torch ops.
+    (slot, column) pairs. `frontier_bfs_compact` (G1, the same kernel)
+    replaces `_frontier_bfs_device_compact` (line 120): the walk's
+    reached (row, depth) pairs, their count and the flag, in one launch
+    with no pass over all N rows (it keeps a caller's scratch).
   * `bfs_relax` (G2) replaces `_bfs_hops` (line 47), vmapped over
     anchors (line 509): min(hops, 8) rounds of min-plus over [A, N].
 
@@ -18,14 +20,15 @@ Each wrapper checks its arguments, then dispatches on the tensors'
 device with exactly two branches: CUDA tensors launch the hand-written
 kernel (csrc/graph_bfs.cu, built at first use by ops/build.py) and count
 the launch; CPU tensors run the plain torch version beside it
-(`frontier_bfs_plain`, `bfs_relax_plain`), which the CPU tests hold to
+(`frontier_bfs_plain`, `frontier_bfs_compact_plain`, `bfs_relax_plain`),
+which the CPU tests hold to
 the reference and chip_smoke.py holds each kernel against on the card.
 A CUDA launch never falls back.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,10 @@ MAX_HOPS = 8
 #: table rows the plain relaxation gathers at a time: an unchunked
 #: gather of [A, N, D] is 20 GB at 10M x 64 and 8 anchors
 RELAX_CHUNK_ROWS = 1 << 16
+#: most depths (anchors x N) one relaxation call holds: larger anchor sets
+#: run in chunks of whole anchors (independent in G2, so the result is
+#: the same), which bounds the kernel's two anchor-minor buffers to 8 GB
+RELAX_MAX_ENTRIES = 1 << 30
 
 
 def _check_table(op: str, nbrs: torch.Tensor) -> None:
@@ -51,27 +58,39 @@ def _check_table(op: str, nbrs: torch.Tensor) -> None:
 # ------------------------------------------------------- G1: the walk
 
 
+def _check_walk(op: str, nbrs: torch.Tensor, anchors: torch.Tensor,
+                hops: int, cap: int) -> torch.Tensor:
+    """Checks a walk's arguments; returns the anchors on the table's
+    device. Anchors on the host are range-checked there and copied
+    without waiting for the stream; anchors on the card cost a host sync
+    for the range check, so callers on a latency path pass host anchors."""
+    _check_table(op, nbrs)
+    if anchors.dtype != torch.int32 or anchors.dim() != 1:
+        raise ValueError(f"{op}: anchors must be [A] int32, got "
+                         f"{anchors.dtype} {tuple(anchors.shape)}")
+    if anchors.device not in (nbrs.device, torch.device("cpu")):
+        raise ValueError(f"{op}: anchors on {anchors.device} for a table "
+                         f"on {nbrs.device}")
+    if not 0 <= hops <= MAX_HOPS:
+        raise ValueError(f"{op}: hops={hops} out of range [0, {MAX_HOPS}]")
+    if cap < 1 or anchors.shape[0] > cap:
+        raise ValueError(f"{op}: {anchors.shape[0]} anchors and cap={cap}: "
+                         f"need 1 <= cap and A <= cap")
+    if anchors.numel() and int(anchors.max()) >= nbrs.shape[0]:
+        raise ValueError(f"{op}: anchor {int(anchors.max())} lies outside "
+                         f"the table's {nbrs.shape[0]} rows")
+    return anchors.to(nbrs.device, non_blocking=True)
+
+
 def frontier_bfs(nbrs: torch.Tensor, anchors: torch.Tensor, hops: int,
                  cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G1: hop depths from `anchors` [A] int32 (< 0 = none; A <= cap)
-    within `hops` (0..8) hops over nbrs, walking a frontier of at most
-    `cap` (slot) entries. Returns (dist [N] int32, overflow bool tensor):
-    overflow is set when some hop found more than `cap` new pairs, and
-    then dist holds a subset of the depths. An anchor outside the table
-    raises."""
-    _check_table("frontier_bfs", nbrs)
-    if anchors.dtype != torch.int32 or anchors.dim() != 1:
-        raise ValueError(f"frontier_bfs: anchors must be [A] int32, got "
-                         f"{anchors.dtype} {tuple(anchors.shape)}")
-    if not 0 <= hops <= MAX_HOPS:
-        raise ValueError(f"frontier_bfs: hops={hops} out of range "
-                         f"[0, {MAX_HOPS}]")
-    if cap < 1 or anchors.shape[0] > cap:
-        raise ValueError(f"frontier_bfs: {anchors.shape[0]} anchors and "
-                         f"cap={cap}: need 1 <= cap and A <= cap")
-    if anchors.numel() and int(anchors.max()) >= nbrs.shape[0]:
-        raise ValueError(f"frontier_bfs: anchor {int(anchors.max())} lies "
-                         f"outside the table's {nbrs.shape[0]} rows")
+    """G1: hop depths from `anchors` [A] int32 (< 0 = none; A <= cap; on
+    the host or on the table's device) within `hops` (0..8) hops over
+    nbrs, walking a frontier of at most `cap` (slot) entries. Returns
+    (dist [N] int32, overflow bool tensor): overflow is set when some
+    hop found more than `cap` new pairs, and then dist holds a subset of
+    the depths. An anchor outside the table raises."""
+    anchors = _check_walk("frontier_bfs", nbrs, anchors, hops, cap)
     dev = nbrs.device
     if dev.type == "cuda":
         out = load_ops().frontier_bfs(nbrs, anchors, int(hops), int(cap))
@@ -115,19 +134,80 @@ def frontier_bfs_plain(nbrs: torch.Tensor, anchors: torch.Tensor, hops: int,
 
 
 def frontier_bfs_compact(nbrs: torch.Tensor, anchors: torch.Tensor,
-                         hops: int, cap: int, out_cap: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
-    """G1, then the reached set compacted on the device: depths capped at
-    hops + 1 and the min(out_cap, N) smallest kept (torch.topk). Returns
-    (rows [out_cap] int32, depth [out_cap] int32 — hops + 1 marks padding
-    or unreached, overflow); ties among equal depths come in no fixed
-    order."""
-    dist, overflow = frontier_bfs(nbrs, anchors, hops, cap)
-    capped = torch.clamp_max(dist, hops + 1)
-    depth, rows = torch.topk(capped, min(out_cap, capped.shape[0]),
-                             largest=False)
-    return rows.to(torch.int32), depth, overflow
+                         hops: int, cap: int, out_cap: int,
+                         scratch: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """G1's walk returning only what it reached: one int32 tensor
+    [2 + 2 * out_cap] holding the number of distinct rows reached (the
+    anchors included), the overflow flag (as `frontier_bfs`'s), then the
+    first out_cap reached rows and their depths (see `unpack_compact`).
+    Each row is listed once, in no fixed order. `scratch` is an [N]
+    int32 tensor on the table's device holding INF_DEPTH everywhere: the
+    kernel uses it for the walk's depths and leaves it as it found it,
+    so a caller keeps one per table and walks never pay for an [N] pass.
+    Without one, the kernel gets a freshly filled scratch. Calls that
+    share a scratch must be enqueued on one stream. With host anchors
+    the call enqueues without a host sync. On the CPU the plain version
+    runs and needs no scratch."""
+    anchors = _check_walk("frontier_bfs_compact", nbrs, anchors, hops, cap)
+    if out_cap < 1:
+        raise ValueError(f"frontier_bfs_compact: out_cap={out_cap} < 1")
+    n, dev = nbrs.shape[0], nbrs.device
+    if scratch is not None and (
+            scratch.dtype != torch.int32 or tuple(scratch.shape) != (n,)
+            or scratch.device != dev):
+        raise ValueError(f"frontier_bfs_compact: scratch must be [{n}] "
+                         f"int32 on {dev}, got {scratch.dtype} "
+                         f"{tuple(scratch.shape)} on {scratch.device}")
+    if dev.type == "cuda":
+        if scratch is None:
+            scratch = torch.full((n,), INF_DEPTH, dtype=torch.int32,
+                                 device=dev)
+        out = load_ops().frontier_bfs_compact(nbrs, anchors, int(hops),
+                                              int(cap), int(out_cap),
+                                              scratch)
+        frontier_bfs_compact.launches += 1
+        return out
+    if dev.type == "cpu":
+        return frontier_bfs_compact_plain(nbrs, anchors, hops, cap, out_cap)
+    raise RuntimeError(f"frontier_bfs_compact has no kernel for device "
+                       f"{dev}")
+
+
+#: kernel launches since the last reset
+frontier_bfs_compact.launches = 0
+
+
+def frontier_bfs_compact_plain(nbrs: torch.Tensor, anchors: torch.Tensor,
+                               hops: int, cap: int,
+                               out_cap: int) -> torch.Tensor:
+    """`frontier_bfs_compact` in plain torch, through `frontier_bfs_plain`:
+    the reached rows by depth, then row (the reference's top_k order),
+    the first out_cap of them kept; unused entries hold -1."""
+    dist, overflow = frontier_bfs_plain(nbrs, anchors, hops, cap)
+    reached = torch.nonzero(dist <= hops).flatten()
+    rows = reached[torch.argsort(dist[reached], stable=True)]
+    kept = min(rows.numel(), out_cap)
+    out = torch.full((2 + 2 * out_cap,), -1, dtype=torch.int32,
+                     device=nbrs.device)
+    out[0] = rows.numel()
+    out[1] = int(bool(overflow))
+    out[2:2 + kept] = rows[:kept].to(torch.int32)
+    out[2 + out_cap:2 + out_cap + kept] = dist[rows[:kept]]
+    return out
+
+
+def unpack_compact(packed) -> Tuple[Any, Any, int, bool]:
+    """(rows, depths, count, overflow) of a `frontier_bfs_compact` result
+    (a tensor or a numpy array, usually fetched to the host once): rows
+    and depths are the min(count, out_cap) pairs kept; count is the
+    number of distinct rows reached, which exceeds what was kept when
+    the output filled."""
+    out_cap = (packed.shape[0] - 2) // 2
+    count = int(packed[0])
+    kept = min(count, out_cap)
+    return (packed[2:2 + kept], packed[2 + out_cap:2 + out_cap + kept],
+            count, bool(packed[1]))
 
 
 # ------------------------------------------------- G2: the relaxation
@@ -138,7 +218,8 @@ def bfs_relax(nbrs: torch.Tensor, dist0: torch.Tensor,
     """G2: min(hops, 8) rounds (none when hops <= 0) of
     dist <- min(dist, min_c dist[nbrs[:, c]] + 1) over dist0 [A, N]
     int32, each round reading the previous round's depths. Returns a new
-    [A, N] int32 tensor."""
+    [A, N] int32 tensor. More than RELAX_MAX_ENTRIES depths run as
+    chunks of anchors, a call (and a launch) each."""
     _check_table("bfs_relax", nbrs)
     if (dist0.dtype != torch.int32 or dist0.dim() != 2
             or dist0.shape[1] != nbrs.shape[0] or dist0.shape[0] < 1):
@@ -146,13 +227,25 @@ def bfs_relax(nbrs: torch.Tensor, dist0: torch.Tensor,
                          f"{nbrs.shape[0]}] int32, got {dist0.dtype} "
                          f"{tuple(dist0.shape)}")
     dev = nbrs.device
-    if dev.type == "cuda":
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"bfs_relax has no kernel for device {dev}")
+    step = max(1, RELAX_MAX_ENTRIES // nbrs.shape[0])
+    a = dist0.shape[0]
+    if a <= step:
+        return _relax(nbrs, dist0, hops)
+    out = torch.empty_like(dist0)
+    for a0 in range(0, a, step):
+        out[a0:a0 + step] = _relax(nbrs, dist0[a0:a0 + step], hops)
+    return out
+
+
+def _relax(nbrs: torch.Tensor, dist0: torch.Tensor,
+           hops: int) -> torch.Tensor:
+    if nbrs.device.type == "cuda":
         out = load_ops().bfs_relax(nbrs, dist0, int(hops))
         bfs_relax.launches += 1
         return out
-    if dev.type == "cpu":
-        return bfs_relax_plain(nbrs, dist0, hops)
-    raise RuntimeError(f"bfs_relax has no kernel for device {dev}")
+    return bfs_relax_plain(nbrs, dist0, hops)
 
 
 #: kernel launches since the last reset

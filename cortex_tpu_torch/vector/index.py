@@ -54,12 +54,19 @@ class VectorIndex:
         raise NotImplementedError
 
     def search(self, vector: np.ndarray, k: int,
-               flt: Optional[VectorFilter] = None) -> List[SearchHit]:
-        return self.search_batch(np.asarray(vector)[None, :], k, flt)[0]
+               flt: Optional[VectorFilter] = None, *,
+               refine: bool = True) -> List[SearchHit]:
+        return self.search_batch(np.asarray(vector)[None, :], k, flt,
+                                 refine=refine)[0]
 
     def search_batch(self, vectors: np.ndarray, k: int,
-                     flt: Optional[VectorFilter] = None
-                     ) -> List[List[SearchHit]]:
+                     flt: Optional[VectorFilter] = None, *,
+                     refine: bool = True) -> List[List[SearchHit]]:
+        """refine=False skips recall-widening candidate expansion
+        (graph-refined indexes); the linker's and dedup's bulk scans pass
+        it. The flat index ignores it, and so does the IVF index until
+        it has the kNN-graph refinement (ROADMAP queue A, "IVF
+        remainder")."""
         raise NotImplementedError
 
     def search_threshold(self, vector: np.ndarray, threshold: float,
@@ -115,15 +122,18 @@ class TorchFlatIndex(VectorIndex):
         return self._corpus.remove(node_id)
 
     def search_batch(self, vectors: np.ndarray, k: int,
-                     flt: Optional[VectorFilter] = None
-                     ) -> List[List[SearchHit]]:
-        return self.search_batch_async(vectors, k, flt)()
+                     flt: Optional[VectorFilter] = None, *,
+                     refine: bool = True) -> List[List[SearchHit]]:
+        return self.search_batch_async(vectors, k, flt, refine=refine)()
 
     def search_batch_async(self, vectors: np.ndarray, k: int,
-                           flt: Optional[VectorFilter] = None):
+                           flt: Optional[VectorFilter] = None, *,
+                           refine: bool = True):
         """Dispatch without fetching; returns a zero-arg callable that
         blocks for the hits, so callers can overlap device work with
         host work."""
+        # refine is ignored here and in TorchIvfIndex, which has no kNN-graph
+        # refinement yet (ROADMAP queue A, "IVF remainder")
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2:
             raise IndexError_("search_batch expects [B, d]")
@@ -135,7 +145,8 @@ class TorchFlatIndex(VectorIndex):
 
     def search_stream(self, vectors: np.ndarray, k: int,
                       flt: Optional[VectorFilter] = None,
-                      batch: int = 512) -> List[List[SearchHit]]:
+                      batch: int = 512, *,
+                      refine: bool = True) -> List[List[SearchHit]]:
         """Bulk search over a query stream with one device-to-host
         fetch; the same results as search_batch."""
         vectors = np.asarray(vectors, np.float32)

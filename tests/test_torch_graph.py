@@ -293,21 +293,43 @@ def test_mirror_tier_matches_reference(tier, seed):
     assert port.truncated_nodes == ref.truncated_nodes
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_packed_walk_width_boundary_matches_reference(seed):
+    """The packed device walk with PACKED_OUT_CAP just under, at and just
+    over an anchor's reached count: the same per_anchor output as the
+    reference's, and the same fall-backs counted in packed_overflows
+    (the walk's exact count takes the place of the compaction's)."""
+    p = build_pair(seed=seed, hub=3)
+    anchors = [p.ids[0], p.ids[2]]
+    host = mirrors(p, {"PACKED_EDGE_THRESHOLD": 0})[1]
+    reach = max(len(host.per_anchor([a], 2)[1]) for a in anchors)
+    assert reach > 2
+    for out_cap, falls in ((reach - 1, 1), (reach, 1), (reach + 1, 0)):
+        ref, port = mirrors(p, {**TIERS["packed_walk"],
+                                "PACKED_OUT_CAP": out_cap})
+        for a in anchors:
+            assert_per_anchor_equal(ref.per_anchor([a], 2),
+                                    port.per_anchor([a], 2))
+        assert port.packed_overflows == ref.packed_overflows >= falls
+
+
 @pytest.mark.parametrize("tier,kernels", [
     ("host", set()), ("object_relax", {"frontier_bfs", "bfs_relax"}),
     ("walk_overflow", {"frontier_bfs", "bfs_relax"}),
-    ("packed_host", set()), ("packed_walk", {"frontier_bfs"})])
+    ("packed_host", set()),
+    ("packed_walk", {"frontier_bfs_compact", "frontier_bfs"})])
 def test_each_tier_reaches_its_kernels(tier, kernels, monkeypatch):
     """Which kernel wrappers each tier calls (on the CPU they run the
-    plain versions)."""
+    plain versions): per_anchor's packed walk is the compact walk, and
+    depths_from walks the object-cache table."""
     seen = set()
-    for name in ("frontier_bfs", "bfs_relax"):
+    for name in ("frontier_bfs", "frontier_bfs_compact", "bfs_relax"):
         real = getattr(graph_bfs, name)
 
         def spy(*a, _real=real, _name=name, **kw):
             seen.add(_name)
             return _real(*a, **kw)
-        # csr.py's own names, and graph_bfs's (frontier_bfs_compact)
+        # csr.py's own names, and graph_bfs's
         monkeypatch.setattr("cortex_tpu_torch.graph.csr." + name, spy)
         monkeypatch.setattr(graph_bfs, name, spy)
     p = build_pair(seed=4)

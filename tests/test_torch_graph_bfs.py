@@ -4,11 +4,14 @@ programs (cortex_tpu/graph/csr.py), on the same seeded tables.
   * frontier_bfs_plain (G1) against _frontier_bfs_device: the overflow
     flag always equal, dist equal (the plain version repeats the
     reference's frontier order, so even after an overflow);
-    frontier_bfs_compact against _frontier_bfs_device_compact: the same
-    set of (row, depth) within `hops` while neither overflowed nor
-    filled out_cap (tie order among equal depths is not fixed).
+    frontier_bfs_compact (its plain version) against
+    _frontier_bfs_device_compact: the same set of (row, depth) within
+    `hops`, the same reached count and overflow flag, and the same
+    decision of the caller's fall-back to the host BFS (overflow, or the
+    width filled); row order is not compared.
   * bfs_relax_plain (G2) against _bfs_hops vmapped over anchors
-    (csr.py:509) and at A = 1: exactly equal int32 depths.
+    (csr.py:509) and at A = 1: exactly equal int32 depths, also when
+    bfs_relax cuts the anchors into chunks.
 
 Tables hold -1 anywhere in a row, hub rows full to the width, and rows
 that point at themselves; anchors come duplicated, padded with -1 and
@@ -117,6 +120,32 @@ def test_isolated_and_empty_anchors():
             np.testing.assert_array_equal(got, want)
 
 
+def compact_ref(nb, anchors, hops, cap, out_cap):
+    """The reference's compact walk as ({(row, depth)} within hops,
+    reached count among the kept, overflow, the caller's fall-back)."""
+    rows, dep, over = (np.asarray(x) for x in
+                       ref._frontier_bfs_device_compact(
+                           jnp.asarray(nb), jnp.asarray(anchors), hops, cap,
+                           out_cap))
+    keep = dep <= hops
+    pairs = set(zip(rows[keep].tolist(), dep[keep].tolist()))
+    count = int(keep.sum())
+    # csr.py:320-322: overflow, or the compaction's width filled
+    return pairs, count, bool(over), bool(over) or count >= min(
+        out_cap, rows.shape[0])
+
+
+def compact_port(nb, anchors, hops, cap, out_cap):
+    packed = g.frontier_bfs_compact(torch.from_numpy(nb),
+                                    torch.from_numpy(anchors), hops, cap,
+                                    out_cap)
+    assert packed.dtype == torch.int32 and packed.shape == (2 + 2 * out_cap,)
+    rows, dep, count, over = g.unpack_compact(packed.numpy())
+    pairs = set(zip(rows.tolist(), dep.tolist()))
+    assert len(pairs) == len(rows) == min(count, out_cap)   # deduplicated
+    return pairs, count, over, over or count >= min(out_cap, nb.shape[0])
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_compact_walk_equals_reference_as_a_set(seed):
     rng = np.random.default_rng(seed)
@@ -124,17 +153,59 @@ def test_compact_walk_equals_reference_as_a_set(seed):
     nb = table(rng, n, 8, hub_share=0.0)
     anc = np.array([int(rng.integers(0, n))], np.int32)
     for out_cap in (4, 64, 4096):
-        rr, rdep, ro = ref._frontier_bfs_device_compact(
-            jnp.asarray(nb), jnp.asarray(anc), hops, 8192, out_cap)
-        pr, pdep, po = g.frontier_bfs_compact(
-            torch.from_numpy(nb), torch.from_numpy(anc), hops, 8192, out_cap)
-        rr, rdep, pr, pdep = (np.asarray(x) for x in (rr, rdep, pr, pdep))
-        assert bool(ro) == bool(po) and pr.dtype == np.int32
-        np.testing.assert_array_equal(np.sort(pdep), np.sort(rdep))
-        keep_r, keep_p = rdep <= hops, pdep <= hops
-        if keep_r.sum() < min(out_cap, n):   # the width did not fill
-            assert (set(zip(pr[keep_p].tolist(), pdep[keep_p].tolist()))
-                    == set(zip(rr[keep_r].tolist(), rdep[keep_r].tolist())))
+        want = compact_ref(nb, anc, hops, 8192, out_cap)
+        got = compact_port(nb, anc, hops, 8192, out_cap)
+        assert got[2:] == want[2:]                  # overflow, fall-back
+        if not want[3]:                             # the width did not fill
+            assert got[:2] == want[:2]
+        else:                                       # every kept pair is true
+            dist = walk_ref(nb, anc, hops, 8192)[0]
+            hit = np.nonzero(dist <= hops)[0]
+            assert got[0] <= set(zip(hit.tolist(), dist[hit].tolist()))
+
+
+@pytest.mark.parametrize("case", WALK_CASES,
+                         ids=lambda c: "n{}d{}a{}{}".format(*c))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compact_walk_plain_equals_reference(case, seed):
+    """The plain compact walk against _frontier_bfs_device_compact with a
+    width that holds every row: the same (row, depth) set within hops,
+    the same count and the same overflow flag, at every cap and hops."""
+    n, d, a, kind = case
+    rng = np.random.default_rng(seed * 100 + n + 7)
+    nb = table(rng, n, d)
+    anc = anchors_for(rng, n, a, kind)
+    for cap in sorted({a, max(a, 3), max(a, n * d)}):
+        for hops in (0, 3, 8):
+            want = compact_ref(nb, anc, hops, cap, n + 1)
+            got = compact_port(nb, anc, hops, cap, n + 1)
+            assert got[:3] == want[:3], (cap, hops)
+
+
+def star(k, n=50):
+    """[n, 8] table (k <= 8): row 0 linked to rows 1..k both ways, the
+    rest isolated; from row 0, one hop reaches k + 1 rows."""
+    nb = np.full((n, 8), -1, np.int32)
+    nb[0, :k] = np.arange(1, k + 1)
+    nb[1:k + 1, 0] = 0
+    return nb
+
+
+@pytest.mark.parametrize("out_cap,falls_back", [(9, False), (8, True),
+                                                (5, True)])
+def test_compact_walk_width_edges(out_cap, falls_back):
+    """A walk that reaches fewer rows than the width, exactly the width
+    and more: the count stays exact, the kept pairs are true ones, and
+    the caller's fall-back rule decides as the reference's does."""
+    nb, anc = star(7), np.array([0], np.int32)        # reaches 8 rows
+    want = compact_ref(nb, anc, 1, 64, out_cap)
+    got = compact_port(nb, anc, 1, 64, out_cap)
+    assert got[1] == 8 and got[2] is False
+    assert got[3] == want[3] == falls_back
+    truth = {(0, 0)} | {(i, 1) for i in range(1, 8)}
+    assert got[0] <= truth and len(got[0]) == min(8, out_cap)
+    if not falls_back:
+        assert got[0] == want[0] == truth
 
 
 def relax_ref(nb, dist0, hops):
@@ -175,6 +246,21 @@ def test_relaxation_chunks_rows(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("limit", [1, 2, 300, 1 << 30])
+def test_relaxation_chunks_anchors(monkeypatch, limit):
+    """More than RELAX_MAX_ENTRIES depths run as chunks of whole anchors:
+    any chunking gives the unchunked (and the reference's) depths."""
+    rng = np.random.default_rng(11)
+    nb = table(rng, 100, 8)
+    dist0 = np.full((7, 100), INF, np.int32)
+    for j in range(7):
+        dist0[j, rng.integers(0, 100, 1 + j % 2)] = 0
+    want = relax_ref(nb, dist0, 3)
+    monkeypatch.setattr(g, "RELAX_MAX_ENTRIES", limit)
+    got = g.bfs_relax(torch.from_numpy(nb), torch.from_numpy(dist0), 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_relaxation_is_jacobi():
     """Each round reads the previous round's depths: on a chain, hops
     rounds reach exactly hops rows (in place would reach further)."""
@@ -195,6 +281,8 @@ def test_relaxation_is_jacobi():
     lambda nb, a: g.frontier_bfs(nb, a.long(), 2, 8),         # dtype
     lambda nb, a: g.frontier_bfs(nb.long(), a, 2, 8),
     lambda nb, a: g.frontier_bfs(nb, a + 10, 2, 8),           # outside
+    lambda nb, a: g.frontier_bfs(nb, a.to("meta"), 2, 8),     # device
+    lambda nb, a: g.frontier_bfs_compact(nb, a.to("meta"), 2, 8, 16),
     lambda nb, a: g.bfs_relax(nb, a[None, :].long(), 2),
     lambda nb, a: g.bfs_relax(nb, torch.zeros((1, 3), dtype=torch.int32),
                               2),                             # wrong N

@@ -445,6 +445,7 @@ def test_quant_rerank_argument_checks_raise(dev, bad):
 # equal, and dist equal whenever it is false (after an overflow only the
 # order of the truncated frontier differs, and every caller discards
 # that dist). bfs_relax (G2) against bfs_relax_plain: equal int32 depths.
+# The fused compact walk's criterion heads its own part below.
 
 
 def _graph_table(dev, n, d, seed, pad=0.6, hubs=0.01):
@@ -518,15 +519,205 @@ def test_frontier_bfs_caps(dev, cap):
 def test_frontier_bfs_compact_equals_plain_set(dev):
     nb = _graph_table(dev, 1_000_000, 64, seed=3, pad=0.85, hubs=0.0)
     anchors = torch.tensor([17], dtype=torch.int32, device=dev)
-    rows, depth, over = graph_bfs.frontier_bfs_compact(nb, anchors, 3, 8192,
-                                                       16384)
+    packed = graph_bfs.frontier_bfs_compact(nb, anchors, 3, 8192, 16384)
+    rows, depth, count, over = graph_bfs.unpack_compact(packed.cpu())
     dist, pover = graph_bfs.frontier_bfs_plain(nb, anchors, 3, 8192)
-    assert not bool(over) and not bool(pover)
-    keep = depth <= 3
+    assert not over and not bool(pover)
     reached = torch.nonzero(dist <= 3).flatten()
-    assert int(keep.sum()) == reached.numel() < 16384
-    got = sorted(zip(rows[keep].tolist(), depth[keep].tolist()))
+    assert count == rows.numel() == reached.numel() < 16384
+    got = sorted(zip(rows.tolist(), depth.tolist()))
     assert got == sorted(zip(reached.tolist(), dist[reached].tolist()))
+
+
+# frontier_bfs_compact (the fused walk) against frontier_bfs_compact_plain:
+# the overflow flag always equal; without an overflow the reached count
+# equal, and the (row, depth) pairs equal as a set when they all fit the
+# width (each kept pair a true one when they do not); rows listed once;
+# the scratch all INF_DEPTH again after every call.
+
+
+def _inf(dev, n):
+    return torch.full((n,), graph_bfs.INF_DEPTH, dtype=torch.int32,
+                      device=dev)
+
+
+def _same_compact(packed, nb, anchors, hops, cap, out_cap):
+    rows, dep, count, over = graph_bfs.unpack_compact(packed.cpu())
+    want = graph_bfs.frontier_bfs_compact_plain(nb, anchors, hops, cap,
+                                                out_cap).cpu()
+    prows, pdep, pcount, pover = graph_bfs.unpack_compact(want)
+    assert over == pover
+    pairs = set(zip(rows.tolist(), dep.tolist()))
+    assert len(pairs) == rows.numel() == min(count, out_cap)
+    if not over:
+        assert count == pcount
+        if count <= out_cap:
+            assert pairs == set(zip(prows.tolist(), pdep.tolist()))
+        else:
+            dist, _ = graph_bfs.frontier_bfs_plain(nb, anchors, hops, cap)
+            dist = dist.cpu()
+            assert all(int(dist[r]) == d for r, d in pairs)
+    return over
+
+
+def _check_compact(nb, anchors, hops, cap, out_cap, scratch=None):
+    before = graph_bfs.frontier_bfs_compact.launches
+    packed = graph_bfs.frontier_bfs_compact(nb, anchors, hops, cap, out_cap,
+                                            scratch)
+    torch.cuda.synchronize()
+    assert graph_bfs.frontier_bfs_compact.launches == before + 1
+    assert packed.shape == (2 + 2 * out_cap,)
+    over = _same_compact(packed, nb, anchors, hops, cap, out_cap)
+    if scratch is not None:
+        assert torch.equal(scratch, _inf(nb.device, nb.shape[0]))
+    return over
+
+
+@pytest.mark.parametrize("n,d,a", [(1, 8, 1), (5, 3, 3), (1000, 16, 8),
+                                   (100_000, 64, 8), (100_000, 8, 64),
+                                   (1_000_000, 64, 1), (1_000_000, 5, 4)])
+def test_frontier_bfs_compact_equals_plain(dev, n, d, a):
+    nb = _graph_table(dev, n, d, seed=n + d + 1)
+    anchors = _anchors(dev, n, a, seed=a + 1)
+    scratch = _inf(dev, n)
+    seen = set()
+    for cap in (1, 16, 256, 8192):
+        if cap < a:
+            continue
+        for hops in (0, 1, 3, 8):
+            for out_cap in (1, 64, 16384):
+                seen.add(_check_compact(nb, anchors, hops, cap, out_cap,
+                                        scratch))
+    if n >= 1000:
+        assert seen == {False, True}
+
+
+def test_frontier_bfs_compact_isolated_and_padded_anchors(dev):
+    nb = torch.full((1000, 64), -1, dtype=torch.int32, device=dev)
+    nb[:10, :3] = torch.arange(10, 40, device=dev,
+                               dtype=torch.int32).reshape(10, 3)
+    scratch = _inf(dev, 1000)
+    for a in ([500], [-1, -1, -1], [], [3, 3, 500, -1]):
+        anchors = torch.tensor(a, dtype=torch.int32, device=dev)
+        for hops in (0, 2, 8):
+            assert not _check_compact(nb, anchors, hops, 8, 16, scratch)
+    # without a scratch the wrapper fills a fresh one
+    assert not _check_compact(nb, torch.tensor([3], dtype=torch.int32,
+                                               device=dev), 2, 8, 16)
+
+
+def test_frontier_bfs_compact_back_to_back_on_one_scratch(dev):
+    """50 walks from different anchors enqueued without a sync on one
+    scratch: a row a walk failed to reset would show in a later walk."""
+    n = 200_000
+    nb = _graph_table(dev, n, 64, seed=9, pad=0.9, hubs=0.0)
+    scratch = _inf(dev, n)
+    rng = np.random.default_rng(9)
+    calls = []
+    for i in range(50):
+        anchors = torch.from_numpy(rng.integers(
+            0, n, 1 + i % 3).astype(np.int32)).to(dev)
+        cap, out_cap = (8192, 16384) if i % 5 else (64, 256)
+        calls.append((graph_bfs.frontier_bfs_compact(
+            nb, anchors, 3, cap, out_cap, scratch), anchors, cap, out_cap))
+    torch.cuda.synchronize()
+    for packed, anchors, cap, out_cap in calls:
+        _same_compact(packed, nb, anchors, 3, cap, out_cap)
+    assert torch.equal(scratch, _inf(dev, n))
+
+
+def test_walks_take_host_anchors(dev):
+    """Anchors on the host (as the mirror passes them) give the results
+    of the same anchors on the card; 50 compact walks enqueued from host
+    anchors that go out of scope at once leave the scratch clean."""
+    n = 200_000
+    nb = _graph_table(dev, n, 64, seed=11, pad=0.9, hubs=0.0)
+    scratch = _inf(dev, n)
+    rng = np.random.default_rng(11)
+    calls = []
+    for i in range(50):
+        rows = rng.integers(0, n, 1 + i % 3).astype(np.int32)
+        before = graph_bfs.frontier_bfs_compact.launches
+        calls.append((graph_bfs.frontier_bfs_compact(
+            nb, torch.from_numpy(rows), 3, 8192, 16384, scratch), rows))
+        assert graph_bfs.frontier_bfs_compact.launches == before + 1
+    torch.cuda.synchronize()
+    for packed, rows in calls:
+        _same_compact(packed, nb, torch.from_numpy(rows).to(dev), 3, 8192,
+                      16384)
+    assert torch.equal(scratch, _inf(dev, n))
+    anchors = torch.from_numpy(rng.integers(0, n, 4).astype(np.int32))
+    got = graph_bfs.frontier_bfs(nb, anchors, 3, 8192)
+    want = graph_bfs.frontier_bfs(nb, anchors.to(dev), 3, 8192)
+    assert torch.equal(got[0], want[0]) and bool(got[1]) == bool(want[1])
+    with pytest.raises(ValueError):
+        graph_bfs.frontier_bfs_compact(
+            nb, torch.tensor([n], dtype=torch.int32), 3, 8192, 16, scratch)
+
+
+def test_frontier_bfs_compact_two_threads_one_scratch(dev):
+    import threading
+    n = 200_000
+    nb = _graph_table(dev, n, 64, seed=10, pad=0.9, hubs=0.0)
+    scratch = _inf(dev, n)
+    results, errors = {}, []
+
+    def walk(t):
+        try:
+            rng = np.random.default_rng(t)
+            for i in range(20):
+                anchors = torch.from_numpy(rng.integers(
+                    0, n, 2).astype(np.int32)).to(dev)
+                results[(t, i)] = (graph_bfs.frontier_bfs_compact(
+                    nb, anchors, 3, 8192, 16384, scratch), anchors)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=walk, args=(t,)) for t in (1, 2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors and len(results) == 40
+    for packed, anchors in results.values():
+        _same_compact(packed, nb, anchors, 3, 8192, 16384)
+    assert torch.equal(scratch, _inf(dev, n))
+
+
+def test_frontier_bfs_compact_overflow_then_normal(dev):
+    """A walk that overflows (and fills its width, so it refills the
+    whole scratch), then a normal one on the same scratch."""
+    n = 100_000
+    nb = _graph_table(dev, n, 64, seed=12, pad=0.5, hubs=0.0)
+    scratch = _inf(dev, n)
+    anchors = torch.tensor([5], dtype=torch.int32, device=dev)
+    assert _check_compact(nb, anchors, 4, 2, 8, scratch)
+    sparse = _graph_table(dev, n, 64, seed=13, pad=0.95, hubs=0.0)
+    assert not _check_compact(sparse, anchors, 3, 8192, 16384, scratch)
+
+
+@pytest.mark.parametrize("bad", ["scratch_dtype", "scratch_shape",
+                                 "scratch_device", "out_cap", "cpu_op"])
+def test_frontier_bfs_compact_argument_checks_raise(dev, bad):
+    nb = _graph_table(dev, 100, 8, seed=1)
+    anchors = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    scratch, out_cap = _inf(dev, 100), 16
+    if bad == "scratch_dtype":
+        scratch = scratch.long()
+    elif bad == "scratch_shape":
+        scratch = scratch[:50]
+    elif bad == "scratch_device":
+        scratch = scratch.cpu()
+    elif bad == "out_cap":
+        out_cap = 0
+    if bad == "cpu_op":
+        with pytest.raises((RuntimeError, NotImplementedError)):
+            graph_bfs.load_ops().frontier_bfs_compact(
+                nb.cpu(), anchors.cpu(), 3, 16, 16, scratch.cpu())
+        return
+    with pytest.raises((RuntimeError, ValueError)):
+        graph_bfs.frontier_bfs_compact(nb, anchors, 3, 16, out_cap, scratch)
 
 
 def _check_relax(nb, dist0, hops):
@@ -558,6 +749,48 @@ def test_bfs_relax_equals_plain(dev, n, d, a):
         _check_relax(nb, dist0, hops)
 
 
+@pytest.mark.parametrize("a", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("layout", ["aligned64", "unaligned16", "odd5"])
+def test_bfs_relax_anchor_tiles(dev, a, layout):
+    """Anchor counts around the 8-wide anchor-minor tiles, on rows that
+    take int4 loads, rows that are not 16-byte aligned and an odd width."""
+    n, d = 50_000, {"aligned64": 64, "unaligned16": 16, "odd5": 5}[layout]
+    nb = _graph_table(dev, n, d, seed=a + d, pad=0.7)
+    if layout == "unaligned16":
+        flat = torch.empty(n * d + 1, dtype=torch.int32, device=dev)
+        flat[1:].copy_(nb.reshape(-1))
+        nb = flat[1:].view(n, d)
+    dist0 = _sources(dev, a, n, seed=a)
+    for hops in (1, 3, 8):
+        _check_relax(nb, dist0, hops)
+
+
+def test_bfs_relax_past_2_31_depths(dev):
+    """513 anchors over 4,194,304 rows (A x N > 2^31): runs in chunks of
+    anchors (a launch each); anchors 0, 256 and 512 equal the plain
+    relaxation run on those anchors alone."""
+    n, a = 4_194_304, 513
+    assert a * n > 2 ** 31
+    nb = _graph_table(dev, n, 16, seed=21, pad=0.8, hubs=0.0)
+    dist0 = torch.full((a, n), graph_bfs.INF_DEPTH, dtype=torch.int32,
+                       device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    src = torch.randint(0, n, (a,), device=dev, generator=g)
+    dist0[torch.arange(a, device=dev), src] = 0
+    before = graph_bfs.bfs_relax.launches
+    got = graph_bfs.bfs_relax(nb, dist0, 3)
+    torch.cuda.synchronize()
+    step = graph_bfs.RELAX_MAX_ENTRIES // n
+    assert graph_bfs.bfs_relax.launches == before + -(-a // step)
+    cols = [0, 256, 512]
+    del dist0
+    alone = torch.full((3, n), graph_bfs.INF_DEPTH, dtype=torch.int32,
+                       device=dev)
+    alone[torch.arange(3, device=dev), src[cols]] = 0
+    assert torch.equal(got[cols], graph_bfs.bfs_relax_plain(nb, alone, 3))
+
+
 def test_bfs_relax_unaligned_rows(dev):
     """A table whose rows are not 16-byte aligned takes the scalar loads."""
     flat = torch.empty(1000 * 16 + 1, dtype=torch.int32, device=dev)
@@ -576,8 +809,8 @@ def test_frontier_bfs_argument_checks_raise(dev, bad):
         nb = nb.long()
     elif bad == "noncontig":
         nb = nb.t().contiguous().t()
-    elif bad == "device":
-        anchors = anchors.cpu()
+    elif bad == "device":             # neither the host nor the table's
+        anchors = anchors.to("meta")
     elif bad == "hops":
         hops = 9
     elif bad == "anchor":
