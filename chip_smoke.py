@@ -48,7 +48,14 @@ Phases, each printing its results on its own line:
      compact walk's reached pairs; G2: the table and dist in and out, a
      round, not counting its gathers). The walks are timed through the
      wrapper from host anchors, as the mirror calls them (ms), and
-     through the op alone (op_ms);
+     through the op alone (op_ms). K1 and K2 also at the linker's shape
+     (b128, cand 256, k 128) and dedup's (b256, cand 128, k 64) on the
+     1M x 768 planes. The decay sweep (D1) at 1, 31 and 65,537 edges and
+     at 10,000,000 (config #5's scale, made on the card; days <= 0,
+     exempt rows, importance * shield = 1, rows exactly on each
+     threshold): new_w and its masks bit-equal to the plain version;
+     its and the plain version's times at 10M and at the engine's 1M
+     chunk beside the bound in bytes (20 B an edge);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -90,17 +97,39 @@ Phases, each printing its results on its own line:
      through per_anchor (HOST_FRONTIER_BUDGET = 0) and G1 then G2
      through depths_from (the frontier cap forced to overflow) with the
      host tier's results, G1 and G2 against their plain versions on
-     the mirror's table, delete_edge, and the same after a reopen.
+     the mirror's table, delete_edge, and the same after a reopen;
+  9. the auto-linker at the north star's scale, run between phases 7
+     and 6 on phase 5's flat index and phase 7's 1M light nodes: an
+     AutoLinker built as Cortex builds it, the cursor advanced past the
+     1M nodes, then 10,000 new nodes (noisy copies of phase-3 rows at
+     cosine 0.70-0.99, an hour apart, agents from a pool of 1,000) in 20
+     batches of 500 through put_nodes_batch, one run_cycle after each;
+     the cursor ends at the last node with nothing past it, every node
+     is in the index without a regrow, every similarity edge weighs its
+     rows' exact cosine, and the first cycle's candidate lists equal
+     K1's and K2's plain versions' (near-ties aside) at recall@100 >=
+     0.99 against the exact oracle; cycle wall, ms in each linker.*
+     span, auto-link pairs/s and edges/s;
+ 10. the decay sweep at config #5: DecayEngine._sweep_arrays over 10M
+     edges from host arrays in 1M chunks (H2D, D1, D2H) against
+     decay_sweep_host on the same arrays; apply_decay on a SQLite store
+     of 1M edges (config #5's 10M cut for time), in process and through
+     the worker process on a byte copy, each against a numpy oracle
+     (weights, deletions, audit rows, counts); then on phase 8's store
+     Cortex.bulk_import of 1,000 nodes (advance_linker_cursor, never
+     linked) and 1,000 through store_batch with run_linker_cycle until
+     the backlog is 0, and the cursor across a reopen.
 
-Three main paths: phases 3-4 (IVF), 5-6 (flat) and 7-8 (graph, on the
-flat index). Every launch count is set to 0 just before each and read
-just after it: probed_scores from the first, quant_candidates and
-quant_rerank from the second and third, frontier_bfs,
-frontier_bfs_compact and bfs_relax from the third; launches made in
-phase 2, or to compare a kernel with
-its plain version in phases 7-8, do not count. The line before the last lists the
-kernels as JSON, the line before that the card's name and power limit;
-the last line is the device JSON. At the end the script fails if any
+Four main paths: phases 3-4 (IVF), 5-6 (flat), 7-8 (graph, on the
+flat index) and 9-10 (the linker). Every launch count is set to 0 just
+before each and read just after it: probed_scores from the first,
+quant_candidates and quant_rerank from the second, third and fourth,
+frontier_bfs, frontier_bfs_compact and bfs_relax from the third,
+decay_sweep from the fourth; launches made in phase 2, or to compare a
+kernel with its plain version in phases 7-9, do not count. The line
+before the last lists the kernels as JSON (launches per path beside
+their sum), the line before that the card's name and power limit; the
+last line is the device JSON. At the end the script fails if any
 module of the JAX package (cortex_tpu or cortex_tpu.*) was imported:
 the port and this script import none. Any failed check raises, so the
 script exits non-zero; so it does without CUDA or without the
@@ -126,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import statistics
 import sys
@@ -151,6 +181,21 @@ GRAPH_CAP, GRAPH_OUT_CAP = 8192, 16384   # DEVICE_FRONTIER_CAP, PACKED_OUT_CAP
 HYB_EDGES, HYB_LIMIT, HYB_HOPS = 5_000_000, 17, 2    # BASELINE config #4
 HYB_QUERIES, HYB_LAT = 48, 300
 CX_EDGES = 10_000
+LINKER_SHAPES = ((128, 256, 128), (256, 128, 64))  # (B, cand, k): linker, dedup
+DECAY_EDGES, DECAY_CHUNK = 10_000_000, 1_000_000    # config #5; CHUNK
+DECAY_STORE_EDGES, DECAY_STORE_NODES = 1_000_000, 100_000
+DECAY = dict(daily_rate=0.01, shield=0.8, delete_threshold=0.05,
+             prune_threshold=0.1)                   # DecayConfig()
+DECAY_BYTES_PER_EDGE = 20   # 13 in (3 f32 + a bool), 7 out (f32 + 3 bools)
+DECAY_OPS_PER_EDGE = 12     # f32 mul, sub, max, neg, exp, compares, selects
+# D1 against decay_sweep_host: each exp within 2 ulps of the exact value
+# (expf's documented bound; numpy's float32 exp measured so on the CPU
+# tests' inputs), then the product rounded once: 5 * 2^-23 apart
+# relative, which is up to 10 ulps of a product low in its binade
+HOST_ULPS = 10
+STREAM_NODES, STREAM_BATCH, STREAM_AGENTS = 10_000, 500, 1000
+STREAM_EDGE_BUDGET = 50_000
+CX_IMPORT, CX_STREAM = 1000, 1000
 KERNELS = {               # name -> (source, what it replaces)
     "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
                       "cortex_tpu/ops/ivf_gather.py:114"),
@@ -164,6 +209,8 @@ KERNELS = {               # name -> (source, what it replaces)
                              "cortex_tpu/graph/csr.py:120"),
     "bfs_relax": ("cortex_tpu_torch/csrc/graph_bfs.cu",
                   "cortex_tpu/graph/csr.py:47"),
+    "decay_sweep": ("cortex_tpu_torch/csrc/decay_sweep.cu",
+                    "cortex_tpu/ops/decay.py:28"),
 }
 
 
@@ -177,13 +224,14 @@ def say(phase, **fields):
 
 
 def _wrappers():
-    from cortex_tpu_torch.ops import graph_bfs, ivf_gather, similarity
+    from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather, similarity
     return {"probed_scores": ivf_gather.probed_scores,
             "quant_candidates": similarity.quant_candidates,
             "quant_rerank": similarity.quant_rerank,
             "frontier_bfs": graph_bfs.frontier_bfs,
             "frontier_bfs_compact": graph_bfs.frontier_bfs_compact,
-            "bfs_relax": graph_bfs.bfs_relax}
+            "bfs_relax": graph_bfs.bfs_relax,
+            "decay_sweep": decay.decay_sweep}
 
 
 def reset_launches(names=None):
@@ -938,9 +986,43 @@ def check_flat_real(fc, index, q_np):
             time_ms(lambda: sim.quant_rerank(emb, qb, cv, ci, 16), 50),
             time_ms(lambda: sim.quant_rerank_plain(emb, qb, cv, ci, 16), 20),
             bound_ms(nbytes, 2 * valid * d, F32_OPS_PER_S))
-    say("2-flat-kernels-1M", cands=list(FLAT_CANDS), cases=fc.cases,
+    for b, cand, k in LINKER_SHAPES:          # the linker's and dedup's
+        qb = linker_queries(co, b, seed=b)
+        qib, qsb = sim.quantize_queries(qb)
+        for bias in biases[:2]:
+            cv, ci = fc.k1(emb_i8, rinv, qib, qsb, bias, cand)
+            fc.k2(emb, qb, cv, ci, k)
+        nbytes = cap * d + 8 * cap + b * d + 4 * b + 8 * b * cand
+        out["quant_candidates"][f"b{b}_cand{cand}"] = timing(
+            time_ms(lambda: sim.quant_candidates(emb_i8, rinv, qib, qsb, b0,
+                                                 cand), 10),
+            time_ms(lambda: sim.quant_candidates_plain(
+                emb_i8, rinv, qib, qsb, b0, cand), 5),
+            bound_ms(nbytes, 2 * b * cap * d, INT8_OPS_PER_S))
+        cv, ci = sim.quant_candidates(emb_i8, rinv, qib, qsb, b0, cand)
+        valid = int((cv > -1e29).sum())
+        nbytes = 4 * valid * d + 4 * b * d + 8 * cv.numel() + 8 * b * k
+        out["quant_rerank"][f"b{b}_cand{cand}_k{k}"] = timing(
+            time_ms(lambda: sim.quant_rerank(emb, qb, cv, ci, k), 50),
+            time_ms(lambda: sim.quant_rerank_plain(emb, qb, cv, ci, k), 20),
+            bound_ms(nbytes, 2 * valid * d, F32_OPS_PER_S))
+    say("2-flat-kernels-1M", cands=list(FLAT_CANDS),
+        linker_shapes=[list(t) for t in LINKER_SHAPES], cases=fc.cases,
         k1_max_abs_err=fc.k1_err, k2_max_abs_err=fc.k2_err, **out)
     return out
+
+
+def linker_queries(co, b, seed):
+    """b unit queries on the card, each a noisy copy (cosine ~0.85) of
+    a random row of the flat index's host mirror."""
+    import torch
+    rng = np.random.default_rng(seed)
+    live = np.flatnonzero(co._live_h)
+    x = co._emb_h[rng.choice(live, b, replace=False)]
+    q = x + 0.62 * rng.standard_normal(x.shape).astype(np.float32) / \
+        x.shape[1] ** 0.5
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return torch.from_numpy(q.astype(np.float32)).to(co._device)
 
 
 def phase_flat_search(index, q_np, q_lat, gen, dev, card):
@@ -1593,8 +1675,14 @@ def hybrid_setup(dev, index, rows):
     t0 = time.monotonic()
     storage = MemoryStorage()
     agent = Source(agent="seed")
-    storage.put_nodes_batch(Node(id=i, kind=k, title=i, body="",
-                                 source=agent) for i, k in zip(ids, kinds))
+    # a millisecond apart, as a store written over ~17 minutes: phase 9's
+    # linker pages by (created_at, id), and a page boundary inside one
+    # shared timestamp would list every node that holds it
+    t_first = time.time() - 3 * 86400.0
+    storage.put_nodes_batch(
+        Node(id=i, kind=k, title=i, body="", source=agent,
+             created_at=t_first + j * 1e-3, updated_at=t_first + j * 1e-3)
+        for j, (i, k) in enumerate(zip(ids, kinds)))
     t_nodes = time.monotonic() - t0
     t0 = time.monotonic()
     # ~8.5 % of the drawn edges go to the degree cap and to duplicates
@@ -1646,7 +1734,8 @@ def phase_hybrid(dev, index, rows, gc, card):
     index's hits with exact fp32 scores and multi_bfs depths; the host
     tier, then every anchor through the compact walk
     (HOST_FRONTIER_BUDGET = 0) with the same results; then the batch-1
-    latency of both tiers, split by leg."""
+    latency of both tiers, split by leg. Returns the MemoryStorage of
+    1M light nodes (phase 9 links into it)."""
     import torch
     from cortex_tpu_torch.graph.packed import UNREACHED
     hy = hybrid_setup(dev, index, rows)
@@ -1730,6 +1819,7 @@ def phase_hybrid(dev, index, rows, gc, card):
         batch1_latency=lat, latency_queries=len(lat_q), card=card)
     del mirror, hybrid, hy
     torch.cuda.empty_cache()
+    return storage
 
 
 def profile_hybrid(dev, index, rows, card):
@@ -1987,6 +2077,623 @@ def phase_cortex_graph(dev, workdir, gc, card):
             for a, b in zip(before, after_delete)),
         reopen_and_search_s=t_reopen, graph_cases=gc.cases,
         graph_max_abs_err=gc.max_abs_err, card=card)
+
+
+# ------------------------------------------------- phase 2, the decay sweep
+
+
+def f32_ulps(a, b):
+    """|a - b| in float32 ulps, elementwise, for non-negative float32
+    arrays (numpy)."""
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(ia - ib)
+
+
+class DecayCheck:
+    """D1 against decay_sweep_plain on the same card: new_w and the three
+    masks bit-equal (the kernel spells the plain version's operations
+    with __fmul_rn / __fsub_rn and calls expf, as torch's exp does on
+    the card). max_abs_err must stay 0.0."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+        self.cases = 0
+
+    def compare(self, args):
+        import torch
+        from cortex_tpu_torch.ops import decay
+        got = decay.decay_sweep(*args, **DECAY)
+        want = decay.decay_sweep_plain(*args, *(
+            float(np.float32(v)) for v in DECAY.values()))
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max()) if args[0].numel() \
+            else 0.0
+        check(torch.equal(got[0], want[0]),
+              f"D1 new_w differs from plain by up to {err}")
+        for name, g, w in zip(("delete", "prune", "changed"), got[1:],
+                              want[1:]):
+            check(g.dtype == torch.bool and torch.equal(g, w),
+                  f"D1 {name} mask differs from plain")
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.cases += 1
+        return got
+
+
+def decay_inputs(dev, gen, n):
+    """Seeded edges on the card: days in [-5, 400) (a few exactly 0),
+    10 % exempt, importance * shield = 1 on every 13th row (importance
+    1.25 at shield 0.8: no decay), and rows exactly on each threshold
+    (days 1e-6: exp rounds to 1)."""
+    import torch
+    w = torch.rand(n, device=dev, generator=gen)
+    days = torch.rand(n, device=dev, generator=gen) * 405.0 - 5.0
+    imp = torch.rand(n, device=dev, generator=gen)
+    exempt = torch.rand(n, device=dev, generator=gen) < 0.1
+    days[::97] = 0.0
+    imp[3::13] = 1.25
+    for j, thr in enumerate((DECAY["delete_threshold"],
+                             DECAY["prune_threshold"])):
+        w[j::11] = thr
+        days[j::11] = 1e-6
+    return w, days, imp, exempt
+
+
+def check_decay(dc, dev, gen, card):
+    """Phase 2 for D1: small odd sizes, then DECAY_EDGES (config #5's
+    10M) made on the card, and the kernel's and plain version's times
+    there and at the engine's DECAY_CHUNK (1M) beside the bound in bytes
+    (DECAY_BYTES_PER_EDGE an edge over 3.35 TB/s)."""
+    import torch
+    for n in (1, 31, 65_537):
+        dc.compare(decay_inputs(dev, gen, n))
+    args = decay_inputs(dev, gen, DECAY_EDGES)
+    got = dc.compare(args)
+    flags = {k: int(t.sum()) for k, t in zip(("delete", "prune", "changed"),
+                                             got[1:])}
+    check(all(flags.values()), f"the 10M sweep raised no flag: {flags}")
+    from cortex_tpu_torch.ops import decay
+    plain_args = (*args, *(float(np.float32(v)) for v in DECAY.values()))
+    perf = {}
+    for name, n in (("e10M", DECAY_EDGES), ("e1M", DECAY_CHUNK)):
+        a = [t[:n] for t in args]
+        pa = (*a, *plain_args[4:])
+        perf[name] = timing(
+            time_ms(lambda: decay.decay_sweep(*a, **DECAY), 20),
+            time_ms(lambda: decay.decay_sweep_plain(*pa), 5),
+            bound_ms(DECAY_BYTES_PER_EDGE * n, DECAY_OPS_PER_EDGE * n,
+                     F32_OPS_PER_S))
+    say("2-decay", cases=dc.cases, max_abs_err=dc.max_abs_err,
+        edges=DECAY_EDGES, flags=flags, card=card, **perf)
+    del args, got
+    torch.cuda.empty_cache()
+    return perf
+
+
+# ------------------------------------------------------------ phase 9
+
+
+@contextlib.contextmanager
+def dedup_actions():
+    """Record every dedup action (DedupScanner.execute_action) in the
+    scope: (node_a, node_b, action, keep, retire)."""
+    from cortex_tpu_torch.linker import dedup
+    seen = []
+    real = dedup.DedupScanner.execute_action
+
+    def spy(self, pair):
+        seen.append((pair.node_a, pair.node_b, pair.action, pair.keep,
+                     pair.retire))
+        return real(self, pair)
+
+    dedup.DedupScanner.execute_action = spy
+    try:
+        yield seen
+    finally:
+        dedup.DedupScanner.execute_action = real
+
+
+@contextlib.contextmanager
+def plain_flat_kernels():
+    """K1 and K2 replaced by their plain versions where the flat index
+    calls them (ops.similarity's module globals, which
+    cosine_topk_quant_exact reads)."""
+    from cortex_tpu_torch.ops import similarity as sim
+    real = sim.quant_candidates, sim.quant_rerank
+    sim.quant_candidates = sim.quant_candidates_plain
+    sim.quant_rerank = sim.quant_rerank_plain
+    try:
+        yield
+    finally:
+        sim.quant_candidates, sim.quant_rerank = real
+
+
+def same_candidates(got, want, what):
+    """Two candidate lists of one query: scores rank by rank within
+    SCORE_ATOL, ids equal but where `want`'s scores tie to NEAR_TIE
+    (at the last rank: where the two scores do)."""
+    check(len(got) == len(want), f"{what}: {len(got)} != {len(want)} hits")
+    ws = [v for _, v in want]
+    np.testing.assert_allclose([v for _, v in got], ws, atol=SCORE_ATOL)
+    for j, ((g, gv), (w, _)) in enumerate(zip(got, want)):
+        if g != w:
+            near = [abs(ws[j] - ws[t]) for t in (j - 1, j + 1)
+                    if 0 <= t < len(ws)]
+            if j == len(ws) - 1:
+                near.append(abs(gv - ws[j]))
+            check(min(near) <= NEAR_TIE,
+                  f"{what}: rank {j} holds {g}, not {w}, beyond a near-tie")
+
+
+def streamed_nodes(x_h, co, top, seed):
+    """STREAM_NODES seeded nodes, each a noisy copy of a random live
+    phase-3 row at cosine U(0.70, 0.99) to it, an hour apart (past the
+    temporal rule's 30 minutes) after `top`, with agents from a pool of
+    STREAM_AGENTS. Returns (nodes, unit rows [n, d] f32)."""
+    from cortex_tpu_torch.types import Node, Source
+    rng = np.random.default_rng(seed)
+    live = np.array([f"r{i}" in co._row_of for i in range(len(x_h))])
+    src = rng.choice(np.flatnonzero(live), STREAM_NODES)
+    x = x_h[src]
+    a = rng.uniform(0.70, 0.99, STREAM_NODES).astype(np.float32)[:, None]
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    g -= (g * x).sum(1, keepdims=True) * x          # orthogonal to x
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    y = a * x + np.sqrt(1.0 - a * a) * g
+    y = (y / np.linalg.norm(y, axis=1, keepdims=True)).astype(np.float32)
+    kinds = ("fact", "event", "decision", "goal", "observation")
+    agents = rng.integers(0, STREAM_AGENTS, STREAM_NODES)
+    nodes = [Node(id=f"s{j:05d}", kind=kinds[j % 5],
+                  title=f"streamed entry {j}", body="",
+                  source=Source(agent=f"ag{agents[j]}"),
+                  embedding=y[j].tolist(),
+                  created_at=top + 3600.0 * (j + 1),
+                  updated_at=top + 3600.0 * (j + 1))
+             for j in range(STREAM_NODES)]
+    return nodes, y
+
+
+def check_similarity_weights(storage, vec_of, retired_to, threshold):
+    """Every auto_similarity edge weighs the exact fp32 cosine of its
+    endpoints' rows (to SCORE_ATOL) and at least the threshold; an edge
+    that a dedup merge moved onto the kept node weighs the cosine of
+    the retired one. Returns (edges checked, moved)."""
+    edges = [e for e in storage.all_edges()
+             if e.provenance.kind == "auto_similarity"]
+    check(edges, "the linker made no similarity edge")
+    a = np.stack([vec_of(e.from_id) for e in edges])
+    b = np.stack([vec_of(e.to_id) for e in edges])
+    cos = (a * b).sum(1, dtype=np.float32)
+    w = np.array([e.weight for e in edges], np.float32)
+    moved = 0
+    for j in np.flatnonzero(np.abs(cos - w) > SCORE_ATOL).tolist():
+        e = edges[j]
+        alt = [float(vec_of(e.from_id) @ vec_of(r))
+               for r in retired_to.get(e.to_id, ())] + \
+              [float(vec_of(r) @ vec_of(e.to_id))
+               for r in retired_to.get(e.from_id, ())]
+        check(any(abs(c - w[j]) <= SCORE_ATOL for c in alt),
+              f"edge {e.from_id} -> {e.to_id} weighs {w[j]}, its rows' "
+              f"cosine is {cos[j]}")
+        moved += 1
+    check(bool((w >= threshold - SCORE_ATOL).all()),
+          "a similarity edge weighs less than the rule's threshold")
+    return len(edges), moved
+
+
+def phase_linker(dev, index, storage, x_h, card):
+    """Phase 9, the linker at the north star's scale: an AutoLinker built
+    as Cortex builds it (the index, an embedder of the index's width,
+    the default [auto_linker] config, the persist lock, the
+    index-failure callback, the decay sweep on the card) over phase 5's
+    flat index (1M x 768) and phase 7's MemoryStorage of 1M light nodes.
+    The cursor is advanced past the 1M nodes, then STREAM_NODES new
+    nodes arrive in batches of STREAM_BATCH through put_nodes_batch,
+    with one run_cycle after each (config #5's ingest with a background
+    scan). max_edges_per_cycle is raised to STREAM_EDGE_BUDGET: about
+    half of the copies clear the 0.75 rule against the ~50 members of
+    their cluster (mates sit at cosine ~0.89), ~25 edges a node, and the
+    default 2,000 would stop each cycle after ~80 of its 500 nodes. The
+    first cycle's candidate lists are held against K1's and K2's plain
+    versions (uncounted) and against the exact oracle."""
+    import threading
+    import torch
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.linker import AutoLinker
+    from cortex_tpu_torch.utils import reset_stats, stats
+    from cortex_tpu_torch.vector.embedding import HashingEmbedder
+    co = index._corpus
+    cfg = CortexConfig().auto_linker
+    cfg.max_edges_per_cycle = STREAM_EDGE_BUDGET
+    failed = []
+    linker = AutoLinker(storage, index, HashingEmbedder(x_h.shape[1]), cfg,
+                        persist_lock=threading.Lock(),
+                        on_index_pair_failure=lambda: failed.append(1))
+    linker.decay_engine.device = dev
+    top = max((n.created_at, n.id) for n in storage._nodes.values())
+    linker.advance_cursor(*top)
+    nodes, y = streamed_nodes(x_h, co, top[0], seed=41)
+    row_of_stream = {n.id: j for j, n in enumerate(nodes)}
+    cap, planes = co._cap, [t.data_ptr() for t in (*co._dev, *co._dev_q)]
+
+    first = {}
+    real_stream = index.search_stream
+
+    def spy(vectors, k, flt=None, batch=512, *, refine=True):
+        got = real_stream(vectors, k, flt, batch, refine=refine)
+        if not first:
+            t0 = time.perf_counter()
+            with uncounted(), plain_flat_kernels():
+                first["plain"] = real_stream(vectors, k, flt, batch,
+                                             refine=refine)
+            co._search_path = "exact"
+            first["exact"] = real_stream(vectors, k, flt, batch,
+                                         refine=refine)
+            co._search_path = "auto"
+            first["got"], first["k"] = got, k
+            first["check_s"] = time.perf_counter() - t0
+        return got
+
+    index.search_stream = spy
+    before = launch_counts()
+    # about half the streamed nodes make 30 or more candidate edges, and
+    # the linker warns of "generic content" for each: keep stderr short
+    quiet = logging.getLogger("cortex_tpu_torch.linker.auto_linker")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    walls, per_cycle = [], []
+    reset_stats()
+    try:
+        with dedup_actions() as dedup:
+            for b in range(0, STREAM_NODES, STREAM_BATCH):
+                storage.put_nodes_batch(nodes[b:b + STREAM_BATCH])
+                t0 = time.perf_counter()
+                m = linker.run_cycle()
+                walls.append(time.perf_counter() - t0)
+                per_cycle.append(m.cycle_nodes_processed)
+    finally:
+        del index.search_stream
+        quiet.setLevel(level)
+    # the first cycle's comparisons ran inside its search span: not the
+    # linker's time
+    check("got" in first, "the first cycle did not search as a stream")
+    walls[0] -= first["check_s"]
+    spans = {k: {"count": v.count, "ms": v.total_s * 1e3}
+             for k, v in stats().items() if k.startswith("linker.")}
+    spans["linker.search"]["ms"] -= first["check_s"] * 1e3
+    after = launch_counts()
+    check(not failed, "an index insert failed after its storage write")
+    m = linker.metrics
+    last = nodes[-1]
+    check((linker.cursor, linker.cursor_id) == (last.created_at, last.id),
+          f"the cursor stopped at {linker.cursor_id}, not {last.id}")
+    # the backlog gauge counts created_at >= the cursor, so a full page
+    # leaves it 1 over (the cursor's own row, as the reference's
+    # _backlog_after says); the backlog proper is what lies past the
+    # cursor
+    left = storage.list_nodes_since(linker.cursor, linker.cursor_id, 1)
+    check(not left and m.backlog_size <= 1,
+          f"backlog {m.backlog_size} ({len(left)} past the cursor) after "
+          f"the stream")
+    check(m.nodes_processed == STREAM_NODES,
+          f"{m.nodes_processed} nodes processed of {STREAM_NODES}")
+    retired = {r for _, _, act, _, r in dedup if act in ("merge",)}
+    missing = [n.id for n in nodes
+               if n.id not in index and n.id not in retired]
+    check(not missing, f"{len(missing)} streamed nodes are not in the "
+          f"index, e.g. {missing[:3]}")
+    check(co._cap == cap and planes == [
+        t.data_ptr() for t in (*co._dev, *co._dev_q)],
+        "the streamed inserts regrew or re-uploaded the index")
+    retired_to = {}
+    for _, _, act, keep, gone in dedup:
+        if act == "merge":
+            retired_to.setdefault(keep, []).append(gone)
+
+    def vec_of(nid):
+        j = row_of_stream.get(nid)
+        return y[j] if j is not None else x_h[int(nid[1:])]
+
+    n_sim, moved = check_similarity_weights(
+        storage, vec_of, retired_to, cfg.similarity.auto_link_threshold)
+    got, plain, exact = first["got"], first["plain"], first["exact"]
+    for j, (g, p) in enumerate(zip(got, plain)):
+        same_candidates(g, p, f"cycle 0, query {j} against plain")
+    k = first["k"]
+    recall = float(np.mean([len({i for i, _ in g} & {i for i, _ in e}) / k
+                            for g, e in zip(got, exact)]))
+    check(recall >= 0.99, f"first cycle recall@{k} {recall} < 0.99")
+    wall = float(sum(walls))
+    search_s = spans["linker.search"]["ms"] / 1e3
+    pairs = m.nodes_processed * cfg.candidate_k
+    launched = {n: after[n] - before[n] for n in after}
+    say("9-linker", old_nodes=len(storage._nodes) - STREAM_NODES,
+        streamed=STREAM_NODES, batches=len(walls),
+        nodes_per_cycle=per_cycle, cycle_wall_s_p50=statistics.median(walls),
+        cycle_wall_s_max=max(walls), cycle_wall_s=walls, spans_ms=spans,
+        auto_link_pairs_per_s=pairs / wall,
+        auto_link_pairs_per_search_s=pairs / search_s,
+        edges_created=m.edges_created,
+        edges_created_per_s=m.edges_created / wall,
+        similarity_edges=n_sim, moved_by_merge=moved,
+        duplicates=len(dedup), first_cycle_recall_at_100=recall,
+        first_cycle_queries=len(got), edge_budget=STREAM_EDGE_BUDGET,
+        launches={n: launched[n] for n in ("quant_candidates",
+                                           "quant_rerank", "decay_sweep")},
+        index_rows=len(index), capacity=int(co._cap), card=card)
+    del first, got, plain, exact
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- phase 10
+
+
+def decay_by_chunks(fn, arrays):
+    return [fn(*(a[s:s + DECAY_CHUNK] for a in arrays))
+            for s in range(0, len(arrays[0]), DECAY_CHUNK)]
+
+
+def compare_to_host(got, want, old_w):
+    """D1 (through the engine) against decay_sweep_host on one chunk:
+    new_w within HOST_ULPS, masks equal but on rows whose new_w lies
+    within HOST_ULPS of a threshold (delete, prune) or of the old weight
+    (changed). Returns (max ulps, rows whose masks differ)."""
+    d = f32_ulps(got[0], want[0])
+    check(int(d.max()) <= HOST_ULPS, f"D1 new_w {int(d.max())} ulps from "
+          f"the host pass")
+    near_thr = np.zeros(len(old_w), bool)
+    for thr in (DECAY["delete_threshold"], DECAY["prune_threshold"]):
+        near_thr |= f32_ulps(got[0], np.float32(thr)) <= HOST_ULPS
+    near_old = f32_ulps(got[0], old_w) <= HOST_ULPS
+    differ = 0
+    for k, near in ((1, near_thr), (2, near_thr), (3, near_old)):
+        diff = got[k] != want[k]
+        check(not (diff & ~near).any(), "D1's masks differ from the host "
+              "pass away from a threshold")
+        differ += int(diff.sum())
+    return int(d.max()), differ
+
+
+def phase_decay_sweep(dev, card):
+    """Phase 10 (a): DecayEngine._sweep_arrays from host numpy arrays at
+    DECAY_EDGES (config #5's 10M) in the engine's DECAY_CHUNK chunks: the
+    device election, H2D, D1 and D2H, against decay_sweep_host on the
+    same arrays, twice each in turns (device, host, device, host)."""
+    from cortex_tpu_torch.linker.config import DecayConfig
+    from cortex_tpu_torch.linker.decay import DecayEngine
+    from cortex_tpu_torch.ops import decay
+    cfg = DecayConfig()
+    rng = np.random.default_rng(43)
+    n = DECAY_EDGES
+    arrays = (rng.random(n, dtype=np.float32),
+              (rng.random(n, dtype=np.float32) * 405.0 - 5.0
+               ).astype(np.float32),
+              rng.random(n, dtype=np.float32), rng.random(n) < 0.1)
+    eng = DecayEngine(None, cfg, device=dev)
+    check(decay.use_device_sweep(DECAY_CHUNK, dev),
+          "the engine elects the host pass for a 1M chunk on this card")
+    link = decay.device_transfer_bandwidth(dev)
+
+    def host(*a):
+        return decay.decay_sweep_host(
+            *a, cfg.daily_decay_rate, cfg.importance_shield,
+            cfg.delete_threshold, cfg.prune_threshold)
+
+    t_dev, t_host = [], []
+    launches = decay.decay_sweep.launches
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dev_out = decay_by_chunks(eng._sweep_arrays, arrays)
+        t_dev.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host_out = decay_by_chunks(host, arrays)
+        t_host.append(time.perf_counter() - t0)
+    check(decay.decay_sweep.launches - launches == 2 * n // DECAY_CHUNK,
+          "the engine's sweep did not launch D1 once a chunk")
+    worst, differ = 0, 0
+    for j, (g, w) in enumerate(zip(dev_out, host_out)):
+        u, dm = compare_to_host(g, w, arrays[0][j * DECAY_CHUNK:
+                                                (j + 1) * DECAY_CHUNK])
+        worst, differ = max(worst, u), differ + dm
+    say("10-sweep", edges=n, chunk=DECAY_CHUNK, device_s=t_dev,
+        host_s=t_host, device_edges_per_s=n / min(t_dev),
+        host_edges_per_s=n / min(t_host), link_bytes_per_s=link,
+        max_ulps_vs_host=worst, mask_rows_differing=differ, card=card)
+
+
+def decay_store(path, now, seed):
+    """A SQLite store of DECAY_STORE_NODES light nodes and
+    DECAY_STORE_EDGES distinct edges (bulk_put_nodes / bulk_put_edges):
+    seeded importance, weights U(0.02, 1), updated 0-400 days before
+    `now` (a few just after it), 20 % manual."""
+    from cortex_tpu_torch.storage import SqliteStorage
+    from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
+    rng = np.random.default_rng(seed)
+    nn, ne = DECAY_STORE_NODES, DECAY_STORE_EDGES
+    imp = rng.random(nn)
+    src = Source(agent="seed")
+    born = now - 500 * 86400.0
+    s = SqliteStorage(path)
+    s.bulk_put_nodes([Node(id=f"d{i}", kind="fact", title=f"d{i}", body="",
+                           source=src, importance=float(imp[i]),
+                           created_at=born, updated_at=born)
+                      for i in range(nn)])
+    j = np.arange(ne)
+    frm, to = j % nn, (j % nn + 1 + j // nn) % nn
+    w = rng.uniform(0.02, 1.0, ne).astype(np.float32)
+    at = now - rng.uniform(-1.0, 400.0, ne) * 86400.0
+    manual = rng.random(ne) < 0.2
+    man, imp_p = EdgeProvenance.manual("seed"), EdgeProvenance.imported("x")
+    s.bulk_put_edges([Edge(id=f"e{i}", from_id=f"d{frm[i]}",
+                           to_id=f"d{to[i]}", relation="related_to",
+                           weight=float(w[i]),
+                           provenance=man if manual[i] else imp_p,
+                           created_at=float(at[i]), updated_at=float(at[i]))
+                      for i in range(ne)])
+    s.close()
+
+
+def decay_oracle(path, now, cfg):
+    """decay_sweep_host on the store's own decay_scan, as the engine
+    feeds it: {id: expected weight}, the deleted ids, the pruned count,
+    the ids whose new_w lies within HOST_ULPS of the delete threshold,
+    and the scan's and the host pass's seconds."""
+    from cortex_tpu_torch.ops import decay
+    from cortex_tpu_torch.storage import SqliteStorage
+    s = SqliteStorage(path)
+    t0 = time.perf_counter()
+    chunks = list(s.decay_scan(chunk=DECAY_CHUNK))
+    t_scan = time.perf_counter() - t0
+    s.close()
+    want, deleted, pruned, near, t_sweep = {}, set(), 0, set(), 0.0
+    for ids, w, upd, imp, manual in chunks:
+        days = ((now - upd) / 86400.0).astype(np.float32)
+        t0 = time.perf_counter()
+        nw, dl, pr, ch = decay.decay_sweep_host(
+            w, days, imp, manual, cfg.daily_decay_rate,
+            cfg.importance_shield, cfg.delete_threshold,
+            cfg.prune_threshold)
+        t_sweep += time.perf_counter() - t0
+        um = ch & ~dl
+        want.update(zip(ids, np.where(um, nw, w).tolist()))
+        deleted.update(ids[i] for i in np.flatnonzero(dl))
+        pruned += int(np.count_nonzero(pr & um))
+        close = f32_ulps(nw, np.float32(cfg.delete_threshold)) <= HOST_ULPS
+        near.update(ids[i] for i in np.flatnonzero(close))
+    return want, deleted, pruned, near, t_scan, t_sweep
+
+
+def check_decayed_store(path, oracle, got_counts, what):
+    """The store after a sweep against the oracle: the same deletions
+    (but for rows within HOST_ULPS of the delete threshold), weights
+    within HOST_ULPS, one 'edge_deleted' audit row by 'decay' for each
+    deletion, and the returned counts."""
+    import sqlite3
+    want, deleted, pruned, near, _, _ = oracle
+    con = sqlite3.connect(path)
+    try:
+        stored = dict(con.execute("SELECT id, weight FROM edges"))
+        audit = {r[0] for r in con.execute(
+            "SELECT target_id FROM audit WHERE action = 'edge_deleted' "
+            "AND actor = 'decay'")}
+    finally:
+        con.close()
+    gone = want.keys() - stored.keys()
+    check(not (gone ^ deleted) - near,
+          f"{what}: deletions differ from the oracle away from the "
+          f"threshold")
+    check(audit == gone, f"{what}: audit rows do not match the deletions")
+    ids = list(stored)
+    d = f32_ulps(np.array([stored[i] for i in ids], np.float32),
+                 np.array([want[i] for i in ids], np.float32))
+    check(int(d.max()) <= HOST_ULPS, f"{what}: a weight is {int(d.max())} "
+          f"ulps from the oracle")
+    check(got_counts[1] == len(gone), f"{what}: deleted count")
+    check(abs(got_counts[0] - pruned) <= len(near) and
+          abs(got_counts[1] - len(deleted)) <= len(near),
+          f"{what}: counts {got_counts} against the oracle's "
+          f"({pruned}, {len(deleted)})")
+    return int(d.max()), len(gone ^ deleted)
+
+
+def phase_decay_store(dev, workdir, card):
+    """Phase 10 (b): apply_decay end to end on a SQLite store of
+    DECAY_STORE_EDGES edges (config #5's 10M cut to 1M for time), in
+    process (D1 launched once: one 1M chunk) and through
+    apply_decay_isolated (the worker process, on the card) on a byte
+    copy made beforehand, each against the numpy oracle."""
+    import shutil
+    from cortex_tpu_torch.linker.config import DecayConfig
+    from cortex_tpu_torch.linker.decay import DecayEngine
+    from cortex_tpu_torch.ops import decay
+    from cortex_tpu_torch.storage import SqliteStorage
+    cfg = DecayConfig()
+    now = time.time()
+    inproc, worker = (os.path.join(workdir, f"decay_{w}.db")
+                      for w in ("inproc", "worker"))
+    t0 = time.perf_counter()
+    decay_store(inproc, now, seed=47)
+    t_load = time.perf_counter() - t0
+    shutil.copyfile(inproc, worker)
+    oracle = decay_oracle(inproc, now, cfg)
+    s = SqliteStorage(inproc)
+    launches = decay.decay_sweep.launches
+    t0 = time.perf_counter()
+    got_in = DecayEngine(s, cfg, device=dev).apply_decay(now)
+    t_in = time.perf_counter() - t0
+    s.close()
+    check(decay.decay_sweep.launches - launches == 1,
+          "apply_decay did not launch D1 for its 1M chunk")
+    s = SqliteStorage(worker)
+    t0 = time.perf_counter()
+    got_w = DecayEngine(s, cfg, device=dev).apply_decay_isolated(worker, now)
+    t_w = time.perf_counter() - t0
+    s.close()
+    ulps_in, edge_in = check_decayed_store(inproc, oracle, got_in,
+                                           "in-process")
+    ulps_w, edge_w = check_decayed_store(worker, oracle, got_w, "worker")
+    say("10-apply-decay", edges=DECAY_STORE_EDGES, nodes=DECAY_STORE_NODES,
+        load_s=t_load, oracle_scan_s=oracle[4], oracle_host_sweep_s=oracle[5],
+        in_process_s=t_in, worker_s=t_w, pruned=got_in[0],
+        deleted=got_in[1], worker_counts=list(got_w),
+        max_ulps=[ulps_in, ulps_w], deletions_at_threshold=[edge_in, edge_w],
+        card=card)
+
+
+def phase_cortex_linker(dev, workdir, card):
+    """Phase 10, then: Cortex.bulk_import and run_linker_cycle on phase
+    8's SQLite store (CortexConfig(), 20,000 nodes, CX_EDGES edges):
+    CX_IMPORT nodes through bulk_import(advance_linker_cursor=True),
+    which the linker must not take up, then CX_STREAM through
+    store_batch with cycles until the backlog is 0 (cycle 0 runs the
+    decay sweep through the worker and dedup); the cursor persists
+    across a close and reopen."""
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    path = os.path.join(workdir, "cortex_flat.db")
+    cx = Cortex.open(path, CortexConfig(), device=dev)
+    check(cx.linker.cycle_count == 0, "the store's linker already ran")
+    imported = seeded_nodes(CX_IMPORT, seed=5)
+    t0 = time.perf_counter()
+    got = cx.bulk_import(imported, advance_linker_cursor=True)
+    t_import = time.perf_counter() - t0
+    check(got == {"nodes": CX_IMPORT, "edges": 0}, f"bulk_import {got}")
+    top = max((n.created_at, n.id) for n in imported)
+    check((cx.linker.cursor, cx.linker.cursor_id) == top,
+          "bulk_import did not advance the linker's cursor")
+    streamed = seeded_nodes(CX_STREAM, seed=6)
+    cx.store_batch(streamed)
+    walls, processed = [], 0
+    with dedup_actions() as dedup:
+        while True:
+            t0 = time.perf_counter()
+            m = cx.run_linker_cycle()
+            walls.append(time.perf_counter() - t0)
+            processed += m.cycle_nodes_processed
+            if m.backlog_size == 0:
+                break
+            check(len(walls) < 200, "the backlog does not drain")
+    check(processed == CX_STREAM, f"{processed} nodes linked, not "
+          f"{CX_STREAM}: the imported ones must be skipped")
+    in_dedup = {x for p in dedup for x in p[:2]}
+    linked = [n.id for n in imported if cx.storage.edges_from(n.id)
+              and n.id not in in_dedup]
+    check(not linked, f"{len(linked)} imported nodes were linked")
+    state = (cx.linker.cursor, cx.linker.cursor_id, cx.linker.cycle_count)
+    edges = cx.storage.stats().edge_count
+    cx.close()
+    cx = Cortex.open(path, CortexConfig(), device=dev)
+    check((cx.linker.cursor, cx.linker.cursor_id,
+           cx.linker.cycle_count) == state,
+          "the linker's cursor did not persist across the reopen")
+    idle = cx.run_linker_cycle()
+    check(idle.cycle_nodes_processed == 0, "a reopened linker re-linked")
+    cx.close()
+    say("10-cortex-linker", imported=CX_IMPORT, import_s=t_import,
+        streamed=CX_STREAM, cycles=len(walls),
+        cycle_wall_s_p50=statistics.median(walls), cycle_wall_s=walls,
+        edges=edges, duplicates=len(dedup), cursor_persisted=True,
+        card=card)
 
 
 # ------------------------------------------------------------ --profile
@@ -2312,11 +3019,26 @@ def main(argv) -> int:
         flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
         k2_max_abs_err=fc.k2_err, graph_cases=gc.cases,
         graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err)
-    graph_perf = check_graph_big(gc, dev, gen, card)
+    dc = DecayCheck()
+    perf = {"decay_sweep": check_decay(dc, dev, gen, card)}
+    perf.update(check_graph_big(gc, dev, gen, card))
     torch.cuda.empty_cache()
     index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
                                                      gen, kc)
-    perf = {"probed_scores": ivf_perf, **graph_perf}
+    perf["probed_scores"] = ivf_perf
+
+    # four main paths, each read just after it: IVF (3-4), flat (5-6),
+    # graph (7-8) and linker (9-10); 9 runs between 7 and 6 because it
+    # needs phase 5's index and phase 7's storage
+    flat, graph = ("quant_candidates", "quant_rerank"), (
+        "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
+    linker = ("quant_candidates", "quant_rerank", "decay_sweep")
+    launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {}}
+
+    def take(path, names):
+        counts = launch_counts()
+        for n in names:
+            launches[path][n] = launches[path].get(n, 0) + counts[n]
 
     reset_launches()                          # the IVF main path
     phase_search(index, q_np, q_lat, gen, dev, card)
@@ -2324,37 +3046,50 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         phase_cortex(dev, workdir)
-    launches = {"probed_scores": launch_counts()["probed_scores"]}
+    take("ivf", ["probed_scores"])
 
     index, flat_perf = phase_flat_build(dev, rows, fc)
     perf.update(flat_perf)
+    x_h = rows[0]
     rows = (None, *rows[1:3], None, rows[4])   # phase 7: ids, kinds, member
     reset_launches()                          # the flat main path
     phase_flat_search(index, q_np, q_lat, gen, dev, card)
-    reset_launches(["frontier_bfs", "frontier_bfs_compact",
-                    "bfs_relax"])                 # the graph main path
-    phase_hybrid(dev, index, rows, gc, card)
-    del index, rows
+    take("flat", flat)
+    reset_launches(flat + graph)              # the graph main path
+    storage = phase_hybrid(dev, index, rows, gc, card)
+    take("graph", flat + graph)
+    reset_launches(linker)                    # the linker main path
+    phase_linker(dev, index, storage, x_h, card)
+    take("linker", linker)
+    del index, rows, storage, x_h
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
+        reset_launches(flat)
         phase_cortex_flat(dev, workdir)
+        take("flat", flat)
+        reset_launches(flat + graph)
         phase_cortex_graph(dev, workdir, gc, card)
-    counts = launch_counts()
-    launches.update({name: counts[name] for name in (
-        "quant_candidates", "quant_rerank", "frontier_bfs",
-        "frontier_bfs_compact", "bfs_relax")})
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
+        take("graph", flat + graph)
+        reset_launches(linker)
+        phase_decay_sweep(dev, card)
+        phase_decay_store(dev, workdir, card)
+        phase_cortex_linker(dev, workdir, card)
+        take("linker", linker)
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            check(n > 0, f"the {path} main path never launched {name}")
 
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
-            "quant_rerank": fc.k2_err, **gc.max_abs_err}
+            "quant_rerank": fc.k2_err, "decay_sweep": dc.max_abs_err,
+            **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
                    "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
                                         f"b1_cand{FLAT_CANDS[0]}"),
                    "quant_rerank": (f"b{BATCH}", "b1"),
                    "frontier_bfs": ("a1_h3", None),
                    "frontier_bfs_compact": ("a1_h3", None),
-                   "bfs_relax": ("a1_r3", None)}
+                   "bfs_relax": ("a1_r3", None),
+                   "decay_sweep": ("e10M", None)}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
                                           "share_of_bound")}
@@ -2365,9 +3100,11 @@ def main(argv) -> int:
     for name, (src, repl) in KERNELS.items():
         head, second = main_shapes[name]
         t = perf[name][head]
+        by_path = {p: c[name] for p, c in launches.items() if name in c}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": head}

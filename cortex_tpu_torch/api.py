@@ -1,15 +1,17 @@
 """Embedded Cortex of the port: store -> search over the flat index
 (the default) or the IVF index, edges, the graph engine and hybrid
-search.
+search, and the auto-linker with edge decay.
 
 Counterpart of cortex_tpu/api.py::Cortex, limited to the slices this
-package ports: open / in_memory, store / store_batch / update_node /
-delete_node, get_node / list_nodes, search with the score-decay re-rank
-and access recording, create_edge / delete_edge, search_hybrid (vector
-similarity x graph proximity), traverse / neighborhood / find_paths, and
-close. Storage (SQLite or memory), node types, hooks and the graph
-engine are the port's copies of the reference's modules; the device
-graph mirror (graph/csr.py) runs its hop depths on `device`.
+package ports: open / in_memory, store / store_batch / bulk_import /
+update_node / delete_node, get_node / list_nodes, search with the
+score-decay re-rank and access recording, create_edge / delete_edge,
+search_hybrid (vector similarity x graph proximity), traverse /
+neighborhood / find_paths, run_linker_cycle, and close. Storage (SQLite
+or memory), node types, hooks, the graph engine and the auto-linker
+are the port's copies of the reference's modules; the device graph
+mirror (graph/csr.py) runs its hop depths, and the linker's decay
+engine its sweep (D1), on `device`.
 
 At open the index is rebuilt from the stored embeddings (index
 snapshots are not ported). The device is an argument: "cuda" (the
@@ -18,6 +20,7 @@ default) raises when CUDA is absent; the CPU runs only when asked for.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -29,7 +32,7 @@ from .errors import ConfigError
 from .graph import (BOTH, DeviceGraphMirror, GraphEngine, PathRequest,
                     Subgraph, TraversalRequest)
 from .hooks import HookRegistry, MutationHook
-from .linker.decay import DecayEngine
+from .linker import AutoLinker
 from .storage import MemoryStorage, NodeFilter, SqliteStorage, Storage
 from .types import Edge, Node
 from .utils.device import resolve_device
@@ -62,7 +65,12 @@ class Cortex:
         self.hooks = HookRegistry()
         self.hybrid = HybridSearch(storage, self.embedder, self.index,
                                    self.mirror)
-        self.decay_engine = DecayEngine(storage, self.config.decay)
+        self.linker = AutoLinker(
+            storage, self.index, self.embedder, self.config.auto_linker,
+            persist_lock=self._persist_lock,
+            on_index_pair_failure=self._index_pair_failed)
+        # the decay sweep (D1) runs on this engine's device
+        self.linker.decay_engine.device = self.device
 
     # ------------------------------------------------------------------ boot
     @staticmethod
@@ -127,15 +135,31 @@ class Cortex:
         self.hooks.notify_node("updated" if is_update else "created", node)
         return node.id
 
+    def _index_pair_failed(self) -> None:
+        """The storage half of a store+index pair committed but the
+        index half raised: the in-memory index now diverges from
+        storage. The flags are the reference's; index snapshots (not
+        ported yet) will read them. Reopening rebuilds the index from
+        storage and recovers the row."""
+        self._index_diverged = True
+        self._index_base_synced = False
+        logging.getLogger("cortex.api").exception(
+            "index mutation failed after its storage write committed; "
+            "reopen to rebuild the index from storage")
+
     def _persist(self, node: Node, actor: str) -> bool:
         """Store + index (no hooks). Returns is_update."""
         with self._persist_lock:
             is_update = self.storage.get_node(node.id) is not None
             self.storage.put_node(node, actor=actor)
-            self.index.insert(node.id,
-                              np.asarray(node.embedding, np.float32),
-                              kind=node.kind,
-                              source_agent=node.source.agent)
+            try:
+                self.index.insert(node.id,
+                                  np.asarray(node.embedding, np.float32),
+                                  kind=node.kind,
+                                  source_agent=node.source.agent)
+            except BaseException:
+                self._index_pair_failed()
+                raise
         return is_update
 
     def store_batch(self, nodes: Sequence[Node], *,
@@ -150,15 +174,82 @@ class Cortex:
                 n.embedding = embs[j].tolist()
         with self._persist_lock:
             self.storage.put_nodes_batch(nodes, actor=actor)
-            self.index.insert_batch(
-                [n.id for n in nodes],
-                np.stack([np.asarray(n.embedding, np.float32)
-                          for n in nodes]),
-                kinds=[n.kind for n in nodes],
-                agents=[n.source.agent for n in nodes])
+            try:
+                self.index.insert_batch(
+                    [n.id for n in nodes],
+                    np.stack([np.asarray(n.embedding, np.float32)
+                              for n in nodes]),
+                    kinds=[n.kind for n in nodes],
+                    agents=[n.source.agent for n in nodes])
+            except BaseException:
+                self._index_pair_failed()
+                raise
         for n in nodes:
             self.hooks.notify_node("created", n)
         return [n.id for n in nodes]
+
+    def bulk_import(self, nodes: Sequence[Node], *,
+                    edges: Sequence = (),
+                    actor: str = "bulk-import",
+                    batch: int = 100_000,
+                    advance_linker_cursor: bool = True) -> dict:
+        """Bulk-load path: bypasses hooks; embeds missing vectors in
+        large batches; persists through the storage bulk path
+        (additive: existing ids are left untouched, in storage and in
+        the index); uploads embeddings via index.insert_batch; loads
+        edges raw WITHOUT endpoint validation (import files are
+        self-consistent).
+
+        advance_linker_cursor=True marks the imported rows as already
+        processed, so the auto-linker does not link the imported
+        backlog; pass False to let imported nodes flow through normal
+        link discovery.
+
+        Returns {"nodes": inserted, "edges": inserted}."""
+        nodes = list(nodes)
+        n_inserted = 0
+        for s in range(0, len(nodes), batch):
+            chunk = nodes[s:s + batch]
+            # additive contract applies to the INDEX too: storage skips
+            # existing ids, so upserting their vectors would leave the
+            # index describing content storage never accepted
+            present = self.storage.existing_node_ids(
+                [n.id for n in chunk])
+            fresh = [n for n in chunk if n.id not in present]
+            if not fresh:
+                continue
+            missing = [n for n in fresh if n.embedding is None]
+            for ms in range(0, len(missing), 4096):
+                mc = missing[ms:ms + 4096]
+                embs = self.embedder.embed_nodes(mc)
+                for j, n in enumerate(mc):
+                    n.embedding = embs[j].tolist()
+            with self._persist_lock:
+                n_inserted += self.storage.bulk_put_nodes(fresh,
+                                                          actor=actor)
+                try:
+                    self.index.insert_batch(
+                        [n.id for n in fresh],
+                        np.stack([np.asarray(n.embedding, np.float32)
+                                  for n in fresh]),
+                        kinds=[n.kind for n in fresh],
+                        agents=[n.source.agent for n in fresh])
+                except BaseException:
+                    self._index_pair_failed()
+                    raise
+        e_inserted = 0
+        edges = list(edges)
+        for s in range(0, len(edges), batch):
+            e_inserted += self.storage.bulk_put_edges(edges[s:s + batch],
+                                                      actor=actor)
+        if advance_linker_cursor and nodes:
+            top = max(nodes, key=lambda n: (n.created_at, n.id))
+            # the live linker's in-memory cursor, not only the stored
+            # metadata: its next cycle would otherwise scan from the
+            # stale in-memory cursor and then store it over this one
+            self.linker.advance_cursor(top.created_at, top.id)
+        self._on_write()
+        return {"nodes": n_inserted, "edges": e_inserted}
 
     def update_node(self, node: Node, *, actor: str = "library") -> None:
         """Re-embed on update."""
@@ -259,10 +350,10 @@ class Cortex:
         if record_access:
             bump = []
             for _, n in out:
-                if self.decay_engine.should_reinforce(n):
+                if self.linker.decay_engine.should_reinforce(n):
                     # reset the decay clock on the node's edges, at most
                     # once per access_reinforcement_days
-                    self.decay_engine.reinforce(n.id, node=n)
+                    self.linker.decay_engine.reinforce(n.id, node=n)
                 else:
                     bump.append(n)
             if bump:
@@ -295,3 +386,9 @@ class Cortex:
 
     def find_paths(self, req: PathRequest):
         return self.graph.find_paths(req)
+
+    # ------------------------------------------------------------ background
+    def run_linker_cycle(self):
+        m = self.linker.run_cycle()
+        self._on_write()
+        return m

@@ -4,7 +4,8 @@ defaults.
 
   [server]                 sqlite_synchronous
   [embedding]              every key of the reference EmbeddingConfig
-  [auto_linker.decay]      the DecayConfig that access reinforcement reads
+  [auto_linker]            AutoLinkerConfig, with [auto_linker.similarity],
+                           [auto_linker.decay] and [[auto_linker.rules]]
   [score_decay]            ScoreDecayConfig
 
 The defaults are the reference's, so a default config opens the flat
@@ -22,6 +23,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict
 
 from .errors import ConfigError
+from .linker.config import AutoLinkerConfig, ConfigRule, DecayConfig
+from .vector.config import SimilarityConfig
 from .vector.scoring import ScoreDecayConfig
 
 #: ROADMAP items that port what this slice refuses
@@ -62,22 +65,10 @@ class EmbeddingConfig:
 
 
 @dataclass
-class DecayConfig:
-    """cortex_tpu.linker.config.DecayConfig (edge decay)."""
-
-    daily_decay_rate: float = 0.01
-    prune_threshold: float = 0.1
-    delete_threshold: float = 0.05
-    importance_shield: float = 0.8
-    access_reinforcement_days: float = 7.0
-    exempt_manual: bool = True
-
-
-@dataclass
 class CortexConfig:
     server: ServerConfig = field(default_factory=ServerConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
-    decay: DecayConfig = field(default_factory=DecayConfig)
+    auto_linker: AutoLinkerConfig = field(default_factory=AutoLinkerConfig)
     score_decay: ScoreDecayConfig = field(default_factory=ScoreDecayConfig)
 
     @staticmethod
@@ -107,8 +98,30 @@ class CortexConfig:
             ivf_spill=float(e.get("ivf_spill", 1.0)),
             ivf_graph_degree=int(e.get("ivf_graph_degree", 32)),
             ivf_target_recall=float(e.get("ivf_target_recall", 0.0)))
-        dc = raw.get("auto_linker", {}).get("decay", {})
-        cfg.decay = DecayConfig(
+        al = raw.get("auto_linker", {})
+        linker = AutoLinkerConfig(
+            interval_secs=float(al.get("interval_secs", 60)),
+            decay_every_n_cycles=int(al.get("decay_every_n_cycles", 60)),
+            dedup_every_n_cycles=int(al.get("dedup_every_n_cycles", 360)),
+            max_nodes_per_cycle=int(al.get("max_nodes_per_cycle", 500)),
+            max_edges_per_cycle=int(al.get("max_edges_per_cycle", 2000)),
+            max_edges_per_node=int(al.get("max_edges_per_node", 50)),
+            candidate_k=int(al.get("candidate_k", 100)),
+            generic_content_threshold=int(
+                al.get("generic_content_threshold", 30)),
+            run_on_startup=bool(al.get("run_on_startup", True)),
+            embedding_model=cfg.embedding.model,
+            legacy_rules_enabled=al.get("legacy_rules_enabled"),
+        )
+        sim = al.get("similarity", {})
+        linker.similarity = SimilarityConfig(
+            auto_link_threshold=float(sim.get("auto_link_threshold", 0.75)),
+            dedup_threshold=float(sim.get("dedup_threshold", 0.92)),
+            contradiction_threshold=float(
+                sim.get("contradiction_threshold", 0.80)),
+            auto_link_k=int(sim.get("auto_link_k", 20)))
+        dc = al.get("decay", {})
+        linker.decay = DecayConfig(
             daily_decay_rate=float(dc.get("daily_decay_rate", 0.01)),
             prune_threshold=float(dc.get("prune_threshold", 0.1)),
             delete_threshold=float(dc.get("delete_threshold", 0.05)),
@@ -116,6 +129,8 @@ class CortexConfig:
             access_reinforcement_days=float(
                 dc.get("access_reinforcement_days", 7.0)),
             exempt_manual=bool(dc.get("exempt_manual", True)))
+        linker.rules = [ConfigRule.from_dict(r) for r in al.get("rules", [])]
+        cfg.auto_linker = linker
         sd = raw.get("score_decay", {})
         decay = ScoreDecayConfig(
             enabled=bool(sd.get("enabled", True)),
@@ -131,7 +146,12 @@ class CortexConfig:
         return cfg
 
     def validate(self) -> None:
-        """The reference's [embedding] checks (config.py:388-408)."""
+        """The reference's [auto_linker] and [embedding] checks
+        (config.py:384-408)."""
+        try:
+            self.auto_linker.validate()
+        except Exception as e:  # noqa: BLE001
+            raise ConfigError(f"[auto_linker] invalid: {e}") from e
         e = self.embedding
         if e.dimension <= 0:
             raise ConfigError("[embedding] dimension must be positive")

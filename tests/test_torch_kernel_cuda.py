@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card:
 the IVF probed-block scan, the flat index's int8 candidate scan (K1)
-and exact re-rank (K2), and the graph mirror's frontier walk (G1) and
-min-plus relaxation (G2). Marked `cuda`: skipped without a GPU.
+and exact re-rank (K2), the graph mirror's frontier walk (G1) and
+min-plus relaxation (G2), and the edge decay sweep (D1). Marked `cuda`:
+skipped without a GPU.
 This file imports no jax (the card's machine has none); run it there
 with
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from cortex_tpu_torch.ops import graph_bfs, ivf_gather
+from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather
 from cortex_tpu_torch.ops import similarity as sim
 from cortex_tpu_torch.vector.shard import build_bias
 
@@ -845,3 +846,103 @@ def test_bfs_relax_argument_checks_raise(dev, bad):
         return
     with pytest.raises((RuntimeError, ValueError)):
         graph_bfs.bfs_relax(nb, dist0, 3)
+
+
+# ------------------------------------------- the linker's K1 / K2 shapes
+#
+# The auto-linker's candidate search (k = candidate_k 100: k bucket 128,
+# cand 256, chunks of 128 queries) and dedup's (256 queries at k 64:
+# cand 128), at the 768-d width, against the plain versions.
+
+
+@pytest.mark.parametrize("b,cand,k", [(128, 256, 128), (256, 128, 64)],
+                         ids=["linker", "dedup"])
+@pytest.mark.parametrize("case", BIAS_CASES)
+def test_linker_shapes_equal_plain(dev, b, cand, k, case):
+    args = _flat_inputs(dev, 50000, 768, b, case, seed=b + cand)
+    _check_k1(args, cand)
+    cv, ci = sim.quant_candidates(*args, cand)
+    emb = torch.nn.functional.normalize(
+        torch.randn(args[0].shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(cand)), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((b, 768), device=dev,
+                    generator=torch.Generator(dev).manual_seed(b)), dim=1)
+    _check_k2((emb, q, cv, ci), k)
+
+
+# ------------------------------------------------------- D1: the sweep
+#
+# Criterion: new_w and the three masks bit-equal to decay_sweep_plain on
+# the same card. The kernel spells the plain version's operations with
+# __fmul_rn / __fsub_rn (no FMA contraction) and calls expf, as torch's
+# elementwise exp does on the card.
+
+DECAY_ARGS = dict(daily_rate=0.01, shield=0.8, delete_threshold=0.05,
+                  prune_threshold=0.1)
+
+
+def _decay_inputs(dev, n, seed):
+    """Seeded edges with days <= 0, exempt rows, importance * shield = 1
+    (importance 1.25 at shield 0.8), rows exactly on each threshold and
+    rows decayed to just around them."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    days = rng.uniform(-5.0, 400.0, n).astype(np.float32)
+    imp = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    exempt = rng.random(n) < 0.1
+    days[::97] = 0.0
+    imp[3::13] = 1.25
+    for j, thr in enumerate((0.05, 0.1)):
+        w[j::11] = np.float32(thr)
+        days[j::11] = 1e-6
+    w[5::17] = np.float32(0.05) * (1 + rng.uniform(-1e-5, 1e-5,
+                                                   len(w[5::17])))
+    days[5::17] = rng.uniform(0.0, 0.01, len(days[5::17]))
+    return [torch.from_numpy(a).to(dev) for a in (w, days, imp, exempt)]
+
+
+def _check_d1(args):
+    before = decay.decay_sweep.launches
+    got = decay.decay_sweep(*args, **DECAY_ARGS)
+    torch.cuda.synchronize()
+    assert decay.decay_sweep.launches == before + 1
+    want = decay.decay_sweep_plain(*args, *(
+        float(np.float32(v)) for v in DECAY_ARGS.values()))
+    assert [t.dtype for t in got] == [torch.float32] + [torch.bool] * 3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 31, 65537, 1000003])
+def test_decay_sweep_equals_plain(dev, n):
+    got = _check_d1(_decay_inputs(dev, n, seed=n))
+    if n > 1000:
+        assert got[1].any() and got[2].any() and got[3].any()
+
+
+def test_decay_sweep_unaligned(dev):
+    # offset views: the 16-byte loads give way to the scalar path
+    args = _decay_inputs(dev, 4099, seed=1)
+    _check_d1([t[1:] for t in args])
+    _check_d1([t[3:4000] for t in args])
+
+
+def test_decay_sweep_empty(dev):
+    got = decay.decay_sweep(*[t[:0] for t in _decay_inputs(dev, 8, 0)],
+                            **DECAY_ARGS)
+    assert all(t.numel() == 0 for t in got)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "length", "device"])
+def test_decay_sweep_argument_checks(dev, bad):
+    w, days, imp, exempt = _decay_inputs(dev, 64, 2)
+    if bad == "dtype":
+        exempt = exempt.to(torch.uint8)
+    elif bad == "length":
+        days = days[:-1]
+    else:
+        imp = imp.cpu()
+    with pytest.raises(ValueError):
+        decay.decay_sweep(w, days, imp, exempt, **DECAY_ARGS)

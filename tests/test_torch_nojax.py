@@ -4,10 +4,13 @@ One subprocess blocks jax and the JAX package (sys.modules['jax'] =
 sys.modules['jaxlib'] = sys.modules['cortex_tpu'] = None, so any import
 of them raises), imports every module of the port, runs tiny
 store -> search passes on the CPU (the IVF index, the flat index and the
-default config) and an edges -> hybrid search pass through every tier of
-the graph mirror, and reports what it saw as JSON; the tests below check
-that report. A second subprocess shows that chip_smoke.py's own check
-fails once a module of the JAX package is loaded.
+default config), an edges -> hybrid search pass through every tier of
+the graph mirror and linker cycles with decay and dedup on SQLite (the
+decay sweep through the out-of-process worker), and reports what it saw
+as JSON; the tests below check that report. Another runs the decay
+worker itself (python -m cortex_tpu_torch.linker.decay_worker) with the
+same blocks. A third shows that chip_smoke.py's own check fails once a
+module of the JAX package is loaded.
 """
 
 import json
@@ -86,6 +89,27 @@ SCRIPT = textwrap.dedent("""
         return seen
 
     out["hybrid"] = hybrid_tiers()
+
+    def linker_cycles(workdir):
+        cx = Cortex.open(f"{workdir}/linker.db", CortexConfig(),
+                         device="cpu")
+        nodes = [Node.new("fact", f"linked entry {i} on topic{i % 4}",
+                          f"body word{i % 6}", Source(agent=f"a{i}"),
+                          0.5) for i in range(60)]
+        cx.store_batch(nodes)
+        first = cx.run_linker_cycle()        # decay and dedup are due
+        imported = cx.bulk_import(
+            [Node.new("fact", f"imported entry {i}", "imported body",
+                      Source(agent="b"), 0.5) for i in range(5)])
+        second = cx.run_linker_cycle()
+        cx.close()
+        return {"processed": first.nodes_processed,
+                "edges": first.total_edges > 0,
+                "imported": imported["nodes"],
+                "second_processed": second.cycle_nodes_processed}
+
+    with tempfile.TemporaryDirectory() as workdir:
+        out["linker"] = linker_cycles(workdir)
     cx, ivf = store_search(cfg())
     out.update(ivf)
     # the flat index: asked for, the default config (index = "flat" with
@@ -158,8 +182,75 @@ def test_every_module_imports_without_jax(report):
     mods = set(report["modules"])
     for name in ("graph.csr", "graph.engine", "graph.packed",
                  "graph.traversal", "graph.paths", "graph.host_csr",
-                 "ops.graph_bfs", "vector.hybrid", "native", "api"):
+                 "ops.graph_bfs", "vector.hybrid", "native", "api",
+                 "linker.auto_linker", "linker.config", "linker.decay",
+                 "linker.decay_worker", "linker.dedup", "linker.metrics",
+                 "linker.rules", "ops.decay", "utils.tracing",
+                 "vector.config"):
         assert f"cortex_tpu_torch.{name}" in mods
+
+
+def test_linker_runs_without_jax(report):
+    # cycle 0 runs the decay sweep through the worker and links 40
+    # nodes: created within 30 minutes of each other, each pair takes a
+    # temporal-proximity edge, 50 a node, and the cycle's budget of
+    # 2,000 edges stops it after the 40th. The import then moves the
+    # cursor past every stored row.
+    assert report["linker"] == {"processed": 40, "edges": True,
+                                "imported": 5, "second_processed": 0}
+
+
+WORKER = textwrap.dedent("""
+    import json, runpy, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["cortex_tpu"] = None
+    sys.argv = ["decay_worker", *sys.argv[1:]]
+    try:
+        runpy.run_module("cortex_tpu_torch.linker.decay_worker",
+                         run_name="__main__")
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    print(json.dumps({"rc": rc, "loaded": sorted(
+        m for m, v in sys.modules.items() if v is not None and (
+            m in ("jax", "cortex_tpu")
+            or m.startswith(("jax.", "jaxlib", "cortex_tpu.")))),
+        "engine": "cortex_tpu_torch.linker.decay" in sys.modules}))
+""")
+
+
+def test_decay_worker_runs_without_jax(tmp_path):
+    from cortex_tpu_torch.storage import SqliteStorage
+    from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
+    path = str(tmp_path / "decay.db")
+    store = SqliteStorage(path)
+    nodes = [Node.new("fact", f"worker entry {i}", "body",
+                      Source(agent="a"), 0.5) for i in range(20)]
+    store.put_nodes_batch(nodes)
+    old = 1_700_000_000.0
+    store.bulk_put_edges([
+        Edge(id=f"e{i}", from_id=nodes[i].id, to_id=nodes[i + 1].id,
+             relation="related_to", weight=0.3,
+             provenance=EdgeProvenance.imported("seed"), created_at=old,
+             updated_at=old) for i in range(19)])
+    store.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    cfg = json.dumps({"daily_decay_rate": 0.01, "prune_threshold": 0.1,
+                      "delete_threshold": 0.05, "importance_shield": 0.8,
+                      "access_reinforcement_days": 7.0,
+                      "exempt_manual": True})
+    proc = subprocess.run(
+        [sys.executable, "-c", WORKER, path, cfg, "cpu", "1",
+         repr(old + 200 * 86400.0)], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    # 0.3 * exp(-0.01 * 0.6 * 200) = 0.09: pruned, not deleted
+    assert json.loads(lines[-2]) == {"pruned": 19, "deleted": 0}
+    assert json.loads(lines[-1]) == {"rc": 0, "loaded": [],
+                                     "engine": True}
 
 
 def test_hybrid_tiers_run_without_jax(report):
