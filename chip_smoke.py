@@ -55,7 +55,18 @@ Phases, each printing its results on its own line:
      exempt rows, importance * shield = 1, rows exactly on each
      threshold): new_w and its masks bit-equal to the plain version;
      its and the plain version's times at 10M and at the engine's 1M
-     chunk beside the bound in bytes (20 B an edge);
+     chunk beside the bound in bytes (20 B an edge). The text encoder's
+     residual + LayerNorm (E1) at h 36, 384 and 768 and its masked
+     attention (E2) at (B 5, H 3, dh 32), BGE-small's (H 12, dh 32) and
+     dh 64, each at S 1, 31, 128 and 512 with padded rows (E1 also with
+     the embedding's [S, h] residual): within LN_ATOL and ATTN_ATOL of the
+     plain versions, and E2's kept rows bit-equal after new values at
+     every masked key; the times of each, its plain version and one
+     PyTorch call computing the same function (F.layer_norm on the
+     pre-summed input, scaled_dot_product_attention with the mask bias)
+     at ENC_TIMED over input sets that together exceed the L2 four
+     times (so read from HBM), beside the bound (E1: bytes; E2: bytes or
+     fp32 FLOPs of the kept keys, the larger);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -118,15 +129,36 @@ Phases, each printing its results on its own line:
      (weights, deletions, audit rows, counts); then on phase 8's store
      Cortex.bulk_import of 1,000 nodes (advance_linker_cursor, never
      linked) and 1,000 through store_batch with run_linker_cycle until
-     the backlog is 0, and the cursor across a reopen.
+     the backlog is 0, and the cursor across a reopen;
+ 11. the text encoder at the full BGE-small-en-v1.5 width (vocab
+     30,522, hidden 384, 12 layers of 12 heads, intermediate 1,536, 512
+     positions, CLS pooling; seeded random weights written with the
+     port's init_params + save_npz and a made-up 30,522-entry WordPiece
+     vocabulary): the card's forward against the CPU's on 24 texts, texts
+     alone against them in a mixed batch; then Cortex with model =
+     "flax:<npz>" on SQLite, on the flat index (K1 + K2) and on the IVF
+     index (every list probed; the same weights with mean pooling):
+     bulk_import of 20,000 nodes (25-100 tokens, 5 % truncated at 512,
+     so nearly every chunk pads to 512), 200 single stores, 1,000 text
+     searches held to the exact fp32 oracle over the stored embeddings
+     (same_hits), the spread of their pairwise cosines, the oracle's
+     score gaps, and same_hits rejecting, in every search, the oracle's
+     list with its rank 1 lost; then the embedder's forward (embed_tokens,
+     in embed_batch's chunks) at B 1, 64 and 4,096 and S 32, 128 and 512
+     (ms, texts/s, fp32 FLOP/s against 67 TFLOP/s) and one
+     torch.profiler trace of a forward at B 64, S 128 and at the S 512
+     chunk: the shares of the products, E1, E2 and GELU in its device
+     time.
 
-Four main paths: phases 3-4 (IVF), 5-6 (flat), 7-8 (graph, on the
-flat index) and 9-10 (the linker). Every launch count is set to 0 just
-before each and read just after it: probed_scores from the first,
-quant_candidates and quant_rerank from the second, third and fourth,
-frontier_bfs, frontier_bfs_compact and bfs_relax from the third,
-decay_sweep from the fourth; launches made in phase 2, or to compare a
-kernel with its plain version in phases 7-9, do not count. The line
+Five main paths: phases 3-4 (IVF), 5-6 (flat), 7-8 (graph, on the
+flat index), 9-10 (the linker) and 11 (the encoder). Every launch count
+is set to 0 just before each and read just after it: probed_scores from
+the first and fifth, quant_candidates and quant_rerank from the second
+to fifth, frontier_bfs, frontier_bfs_compact and bfs_relax from the
+third, decay_sweep from the fourth, add_layer_norm and masked_attention
+from the fifth; launches made in phase 2, or to compare a kernel with
+its plain version (or to time the forward) in phases 7-9 and 11, do not
+count. The line
 before the last lists the kernels as JSON (launches per path beside
 their sum), the line before that the card's name and power limit; the
 last line is the device JSON. At the end the script fails if any
@@ -154,6 +186,7 @@ csrc/graph_bfs.cu built alone, whole and cut after its table read
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
@@ -161,6 +194,7 @@ import statistics
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -172,6 +206,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM peaks, NVIDIA's data sheet
 INT8_OPS_PER_S = 1.979e15       # dense int8 tensor cores
 F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
 SPIN_CYCLES_PER_S = 2e9         # >= the SM clock (1.98 GHz at boost)
+L2_BYTES = 50 << 20             # the H100 SXM's L2 cache
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
 SCORE_ATOL = 1e-5        # fp32 scores: host re-rank vs device oracle
 FLAT_CANDS = (64, 2048)   # k = 10 (k bucket 16) and search_threshold's 1000
@@ -196,6 +231,23 @@ HOST_ULPS = 10
 STREAM_NODES, STREAM_BATCH, STREAM_AGENTS = 10_000, 500, 1000
 STREAM_EDGE_BUDGET = 50_000
 CX_IMPORT, CX_STREAM = 1000, 1000
+ENC_EPS = 1e-12                  # BGE-small-en-v1.5's layer_norm_eps
+# E1 against plain: the mean's and variance's sums added in another order
+# (outputs ~N(0, 1) * g + b); E2 against plain: online softmax with
+# __expf and sums in another order (outputs: averages of N(0, 1) values)
+LN_ATOL, ATTN_ATOL = 1e-5, 1e-5
+ENC_ATOL, ENC_COS = 1e-4, 0.99999   # the card's forward against the CPU's
+ENC_CHECK_SEQS = (1, 31, 128, 512)
+ENC_TIMED = {            # name -> (B, S, h, heads) of a timed E1 / E2 call
+    "b64_s128": (64, 128, 384, 12),
+    "b1_s32": (1, 32, 384, 12),            # a store or a search
+    "chunk_s512": (195, 512, 384, 12),     # chunk_rows(512): bulk_import
+    "dh64_b64_s128": (64, 128, 768, 12)}   # BGE-base's head width
+ENC_NODES, ENC_STORES, ENC_SEARCHES = 20_000, 200, 1_000
+ENC_WORDS, ENC_TOPICS, ENC_LONG, ENC_SEED = 20_000, 500, 0.05, 8
+ENC_KINDS = ("fact", "event", "decision", "goal", "observation")
+ENC_SAMPLE = 24
+ENC_SPEED_BATCHES, ENC_SPEED_SEQS = (1, 64, 4096), (32, 128, 512)
 KERNELS = {               # name -> (source, what it replaces)
     "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
                       "cortex_tpu/ops/ivf_gather.py:114"),
@@ -211,6 +263,10 @@ KERNELS = {               # name -> (source, what it replaces)
                   "cortex_tpu/graph/csr.py:47"),
     "decay_sweep": ("cortex_tpu_torch/csrc/decay_sweep.cu",
                     "cortex_tpu/ops/decay.py:28"),
+    "add_layer_norm": ("cortex_tpu_torch/csrc/encoder_rows.cu",
+                       "cortex_tpu/models/encoder.py:200"),
+    "masked_attention": ("cortex_tpu_torch/csrc/encoder_attn.cu",
+                         "cortex_tpu/models/encoder.py:216"),
 }
 
 
@@ -224,14 +280,17 @@ def say(phase, **fields):
 
 
 def _wrappers():
-    from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather, similarity
+    from cortex_tpu_torch.ops import (decay, encoder, graph_bfs, ivf_gather,
+                                      similarity)
     return {"probed_scores": ivf_gather.probed_scores,
             "quant_candidates": similarity.quant_candidates,
             "quant_rerank": similarity.quant_rerank,
             "frontier_bfs": graph_bfs.frontier_bfs,
             "frontier_bfs_compact": graph_bfs.frontier_bfs_compact,
             "bfs_relax": graph_bfs.bfs_relax,
-            "decay_sweep": decay.decay_sweep}
+            "decay_sweep": decay.decay_sweep,
+            "add_layer_norm": encoder.add_layer_norm,
+            "masked_attention": encoder.masked_attention}
 
 
 def reset_launches(names=None):
@@ -2170,6 +2229,163 @@ def check_decay(dc, dev, gen, card):
     return perf
 
 
+# ------------------------------------------------------ phase 2, encoder
+
+
+class EncoderKernelCheck:
+    """E1 and E2 against their plain versions on the same card, within
+    LN_ATOL and ATTN_ATOL; keeps the largest difference of each, and
+    checks E2's padding invariance bit for bit."""
+
+    def __init__(self):
+        self.e1_err = self.e2_err = 0.0
+        self.e1_cases = self.e2_cases = self.invariant_rows = 0
+
+    def e1(self, x, r, g, b):
+        import torch
+        from cortex_tpu_torch.ops import encoder as enc
+        got = enc.add_layer_norm(x, r, g, b, ENC_EPS)
+        want = enc.add_layer_norm_plain(x, r, g, b, ENC_EPS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= LN_ATOL, f"E1 differs from plain by {err}")
+        self.e1_err = max(self.e1_err, err)
+        self.e1_cases += 1
+
+    def e2(self, q, k, v, bias, lengths):
+        """Kernel against plain, then new values at every masked key
+        position: no output of a kept row may change, bit for bit."""
+        import torch
+        from cortex_tpu_torch.ops import encoder as enc
+        got = enc.masked_attention(q, k, v, bias)
+        want = enc.masked_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= ATTN_ATOL, f"E2 differs from plain by {err}")
+        masked = (bias < -1e29)[:, None, :, None]
+        again = enc.masked_attention(*(
+            torch.where(masked, torch.randn_like(t) * 7.0, t)
+            for t in (q, k, v)), bias)
+        for row, n in enumerate(lengths):
+            check(torch.equal(got[row, :, :n], again[row, :, :n]),
+                  "E2: a masked key changed a kept row")
+        self.invariant_rows += len(lengths)
+        self.e2_err = max(self.e2_err, err)
+        self.e2_cases += 1
+
+
+def ln_inputs(dev, gen, t, h, p):
+    """E1's x [t, h], residual [p, h], gain and bias, seeded."""
+    import torch
+    x = torch.randn(t, h, device=dev, generator=gen) * 3.0 + 0.5
+    r = torch.randn(p, h, device=dev, generator=gen)
+    g = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
+    b = 0.1 * torch.randn(h, device=dev, generator=gen)
+    return x, r, g, b
+
+
+def qkv_views(dev, gen, b, heads, s, dh):
+    """E2's q, k and v [B, H, S, dh] as views of one seeded
+    [B, S, 3, H, dh] product (the encoder's layout)."""
+    import torch
+    qkv = torch.randn(b, s, 3, heads, dh, device=dev, generator=gen)
+    return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
+
+
+def attn_inputs(dev, gen, b, heads, s, dh):
+    """E2's q, k and v (qkv_views), a mask bias whose first row keeps all
+    S keys and whose others keep U(1, S), and the kept lengths."""
+    import torch
+    q, k, v = qkv_views(dev, gen, b, heads, s, dh)
+    lengths = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+    lengths[0] = s
+    bias = torch.where(torch.arange(s, device=dev)[None, :]
+                       < lengths[:, None], 0.0, -1e30)
+    return q, k, v, bias, [int(n) for n in lengths.cpu()]
+
+
+def rotating(make, nbytes):
+    """Sets of seeded inputs from make(), each of nbytes, enough that
+    together they take 4 * L2_BYTES (one when a set alone does). A timed
+    loop that takes them in turn reads its inputs from HBM, as the bound
+    assumes; one set that fits in the L2 would stay there across calls
+    and be timed below its bound."""
+    return [make() for _ in range(max(1, -(-4 * L2_BYTES // nbytes)))]
+
+
+def time_rotating(fn, sets, reps):
+    """time_ms of fn(*set), the sets taken in turn."""
+    it = itertools.cycle(sets)
+    return time_ms(lambda: fn(*next(it)), reps)
+
+
+def check_encoder_kernels(ec, dev, gen, card):
+    """Phase 2 for E1 and E2: every case of ENC_CHECKS, then the times of
+    the kernel, its plain version and one PyTorch call computing the same
+    function (F.layer_norm on the pre-summed input; SDPA with the mask
+    bias) at ENC_TIMED, beside the bound: E1's bytes (x, r and y once, g
+    and b) over 3.35 TB/s; E2's bytes (q, k, v, ctx and the mask) or its
+    fp32 FLOPs (2 * dh for the score and 2 * dh for the context, a query
+    and kept key) over 67 TFLOP/s, whichever is larger. Each is timed
+    over `rotating` input sets, so that it reads them from HBM."""
+    import torch
+    import torch.nn.functional as F
+    from cortex_tpu_torch.ops import encoder as enc
+    for h in (36, 384, 768):                    # small, BGE-small, dh 64
+        for s in ENC_CHECK_SEQS:                # T = 3 * S: 3, 93 odd
+            x, r, g, b = ln_inputs(dev, gen, 3 * s, h, 3 * s)
+            ec.e1(x, r, g, b)
+            ec.e1(x, r[:s], g, b)               # the embedding's [S, h] rows
+    for b, heads, dh in ((5, 3, 32), (4, 12, 32), (4, 12, 64)):
+        for s in ENC_CHECK_SEQS:
+            ec.e2(*attn_inputs(dev, gen, b, heads, s, dh))
+    perf = {"add_layer_norm": {}, "masked_attention": {}}
+    for name, (b, s, h, heads) in ENC_TIMED.items():
+        t, dh = b * s, h // heads
+
+        def ln_set():
+            x, r, g, bb = ln_inputs(dev, gen, t, h, t)
+            return x, r, g, bb, x + r
+        sets = rotating(ln_set, 4 * 3 * t * h)
+        perf["add_layer_norm"][name] = timing(
+            time_rotating(lambda x, r, g, bb, _: enc.add_layer_norm(
+                x, r, g, bb, ENC_EPS), sets, 50),
+            time_rotating(lambda x, r, g, bb, _: enc.add_layer_norm_plain(
+                x, r, g, bb, ENC_EPS), sets, 20),
+            bound_ms(4 * (3 * t * h + 2 * h), 8 * t * h, F32_OPS_PER_S),
+            library_ms=time_rotating(lambda x, r, g, bb, xr: F.layer_norm(
+                xr, (h,), g, bb, ENC_EPS), sets, 50),
+            shape=[t, h], input_sets=len(sets))
+        del sets
+        _, _, _, bias, lengths = attn_inputs(dev, gen, b, heads, s, dh)
+        m4 = bias[:, None, None, :]
+
+        def attn_set():
+            q, k, v = qkv_views(dev, gen, b, heads, s, dh)
+            return q, k, v, q.contiguous(), k.contiguous(), v.contiguous()
+        sets = rotating(attn_set, 4 * 6 * t * h)
+        perf["masked_attention"][name] = timing(
+            time_rotating(lambda q, k, v, *_: enc.masked_attention(
+                q, k, v, bias), sets, 20),
+            time_rotating(lambda q, k, v, *_: enc.masked_attention_plain(
+                q, k, v, bias), sets, 5),
+            bound_ms(4 * (4 * t * h + t), 4 * heads * dh * s * sum(lengths),
+                     F32_OPS_PER_S),
+            library_ms=time_rotating(
+                lambda *a: F.scaled_dot_product_attention(
+                    *a[3:], attn_mask=m4), sets, 20),
+            shape=[b, heads, s, dh], kept_keys=sum(lengths),
+            input_sets=len(sets))
+        del sets, bias, m4
+        torch.cuda.empty_cache()
+    say("2-encoder", e1_cases=ec.e1_cases, e1_max_abs_err=ec.e1_err,
+        e1_atol=LN_ATOL, e2_cases=ec.e2_cases, e2_max_abs_err=ec.e2_err,
+        e2_atol=ATTN_ATOL, e2_padding_invariant_rows=ec.invariant_rows,
+        card=card, **{f"{k}_{shape}": v for k, t in perf.items()
+                      for shape, v in t.items()})
+    return perf
+
+
 # ------------------------------------------------------------ phase 9
 
 
@@ -2955,6 +3171,363 @@ def profile_relax_variants(dev, gen, card):
     say("profile-graph-relax-variants", card=card, **out)
 
 
+# ------------------------------------------------------------ phase 11
+
+
+def encoder_words(seed):
+    """ENC_WORDS distinct made-up words of 2-3 syllables of a seeded
+    70-syllable alphabet, and the syllables."""
+    rng = np.random.default_rng(seed)
+    syllables = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    words = set()
+    while len(words) < ENC_WORDS:
+        words.add("".join(rng.choice(syllables, rng.integers(2, 4))))
+    return sorted(words), syllables
+
+
+def encoder_vocab(words, syllables, size):
+    """A WordPiece vocabulary of `size` entries (BGE-small's 30,522):
+    special tokens, the node text's fixed words and punctuation, the
+    words, ## pieces (every syllable and a few suffixes) and unused
+    filler."""
+    head = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ":", ",", ".",
+            "tags", *ENC_KINDS]
+    pieces = [f"##{s}" for s in syllables] + ["##s", "##ed", "##ing",
+                                              "##er", "##ly"]
+    vocab = head + words + pieces
+    vocab += [f"[unused{i}]" for i in range(size - len(vocab))]
+    check(len(vocab) == len(set(vocab)) == size,
+          "the encoder vocabulary is not 30,522 distinct entries")
+    return vocab
+
+
+def encoder_nodes(n, seed, words):
+    """Seeded nodes whose texts cluster by topic (each takes most of its
+    words from one of ENC_TOPICS 40-word groups, the rest from anywhere):
+    titles of 4 words, bodies of U(15, 80) words (25-100 tokens), and of
+    U(470, 520) words for ENC_LONG of them (truncated at 512 tokens), so
+    that nearly every chunk of a bulk import pads to 512. Every 9th body
+    word takes a suffix that WordPiece splits off."""
+    from cortex_tpu_torch.types import Node, Source
+    rng = np.random.default_rng(seed)
+    words = np.array(words)
+    suffixes = np.array(["s", "ed", "ing", "er", "ly"])
+    out = []
+    for i in range(n):
+        topic = int(rng.integers(0, ENC_TOPICS)) * 40
+        nb = int(rng.integers(470, 521) if rng.random() < ENC_LONG
+                 else rng.integers(15, 81))
+        own = words[topic + rng.integers(0, 40, nb + 4)]
+        other = rng.random(nb + 4) < 0.2
+        own[other] = rng.choice(words, int(other.sum()))
+        body = own[4:].astype(object)
+        body[::9] = body[::9] + rng.choice(suffixes, len(body[::9]))
+        out.append(Node.new(ENC_KINDS[i % len(ENC_KINDS)],
+                            " ".join(own[:4]), " ".join(body),
+                            Source(agent=f"agent{i % 7}"),
+                            float(rng.uniform(0.2, 0.9))))
+    return out
+
+
+def check_encoder_forward(emb, params, cfg, wp, texts):
+    """The card's forward against the port's CPU forward (the plain
+    versions of E1 and E2) on ENC_SAMPLE texts, short ones in one batch
+    and two near 512 tokens in another; then texts embedded alone against
+    the same texts inside a batch of mixed lengths (padded to 512). Each
+    to ENC_ATOL and cosine >= ENC_COS."""
+    from cortex_tpu_torch.models.encoder import BertEncoder, bert_encode
+    cpu = BertEncoder.from_params(params, cfg, device="cpu")
+    short = [t for t in texts if len(t.split()) < 120][:ENC_SAMPLE - 2]
+    long = [t for t in texts if len(t.split()) > 460][:2]
+    worst = {"max_abs_err": 0.0, "min_cos": 1.0}
+
+    def hold(got, want, what):
+        err = float(np.abs(got - want).max())
+        cos = float(np.min(np.sum(got * want, axis=1)))
+        check(err <= ENC_ATOL and cos >= ENC_COS,
+              f"{what}: max abs {err}, min cosine {cos}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["min_cos"] = min(worst["min_cos"], cos)
+
+    for group in (short, long):
+        if not group:
+            continue
+        ids, mask = wp.encode_batch(group, max_length=cfg.max_position)
+        hold(bert_encode(emb.model, ids, mask), bert_encode(cpu, ids, mask),
+             "the card's forward against the CPU's")
+    mixed = short[:6] + long[:1]
+    batch = emb.embed_batch(mixed)
+    hold(np.stack([emb.embed(t) for t in mixed]), batch,
+         "texts alone against them in a mixed batch")
+    return {"sample": len(short) + len(long), "seq": [
+        int(wp.encode_batch(g, max_length=cfg.max_position)[0].shape[1])
+        for g in (short, long) if g], **worst}
+
+
+def encoder_oracle(cx, queries, dev):
+    """The exact top-(K + 1) of each query text over every stored
+    embedding: the queries embedded by the Cortex's embedder (one batch),
+    fp32 products on the card (TF32 off), as [(score, node)] lists; and
+    the spread of the stored embeddings' pairwise cosines."""
+    import torch
+    from types import SimpleNamespace
+    from cortex_tpu_torch.storage import NodeFilter
+    stored = [n for n in cx.storage.list_nodes(NodeFilter())]
+    x = torch.from_numpy(np.asarray([n.embedding for n in stored],
+                                    np.float32)).to(dev)
+    q = torch.from_numpy(cx.embedder.embed_batch(queries)).to(dev)
+    scores, rows = torch.topk(q @ x.T, K + 1, dim=1)
+    ids = [SimpleNamespace(id=n.id) for n in stored]
+    out = [[(float(s), ids[r]) for s, r in zip(sc, rw)]
+           for sc, rw in zip(scores.cpu().tolist(), rows.cpu().tolist())]
+    sample = x[torch.randperm(len(stored), device=dev)[:2000]]
+    cos = (sample @ sample.T)[~torch.eye(len(sample), dtype=torch.bool,
+                                         device=dev)]
+    spread = {f"p{p}": float(torch.quantile(cos, p / 100))
+              for p in (1, 50, 99)}
+    spread.update(min=float(cos.min()), max=float(cos.max()))
+    return out, spread
+
+
+def rejected(want, got):
+    """Whether same_hits refuses `got` against `want`."""
+    try:
+        same_hits(want, got)
+    except AssertionError:
+        return True
+    return False
+
+
+def oracle_margins(hits, oracle):
+    """How far the searches' check can tell hits apart. Each oracle list
+    holds K + 1 hits. Returns the searches whose ids (in order) differ
+    from the oracle's top K, the median gap between the oracle's rank 1
+    and rank K and between its ranks K and K + 1, and how many searches
+    same_hits rejects when handed the oracle's list with its rank 1
+    missed (ranks 2 to K + 1) or its rank K missed (rank K + 1 in its
+    place), as a candidate scan that lost a true hit would return. The
+    first control must be rejected in every search: otherwise the
+    scores lie too close for the check to see a lost hit."""
+    top = [o[:K] for o in oracle]
+    missed_top = sum(rejected(t, o[1:]) for t, o in zip(top, oracle))
+    missed_last = sum(rejected(t, o[:K - 1] + o[K:])
+                      for t, o in zip(top, oracle))
+    check(missed_top == len(oracle),
+          f"same_hits passed {len(oracle) - missed_top} searches whose "
+          f"rank 1 was missed")
+    return {"ids_differ": sum([n.id for _, n in g] != [n.id for _, n in t]
+                              for g, t in zip(hits, top)),
+            "gap_rank1_rankK_p50": float(np.median(
+                [o[0][0] - o[K - 1][0] for o in oracle])),
+            "gap_rankK_rankK1_p50": float(np.median(
+                [o[K - 1][0] - o[K][0] for o in oracle])),
+            "missed_rank1_rejected": missed_top,
+            "missed_rankK_rejected": missed_last}
+
+
+def encoder_queries(nodes, words, n, seed):
+    """n query texts: a node's title, its title and 10 body words, or 6
+    words of one topic (thirds of each)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        node = nodes[int(rng.integers(0, len(nodes)))]
+        if j % 3 == 0:
+            out.append(node.title)
+        elif j % 3 == 1:
+            out.append(f"{node.title} {' '.join(node.body.split()[:10])}")
+        else:
+            topic = int(rng.integers(0, ENC_TOPICS)) * 40
+            out.append(" ".join(words[topic + i]
+                                for i in rng.integers(0, 40, 6)))
+    return out
+
+
+def encoder_cortex(dev, workdir, npz, words, index):
+    """Cortex with `[embedding] model = "flax:<npz>"` on SQLite, on the
+    flat index (the default: K1 + K2 at this size) or the IVF index (every
+    list probed, so exact): bulk_import ENC_NODES, store ENC_STORES one by
+    one, then ENC_SEARCHES text searches (decay off, so the hits are the
+    index's fp32 scores) held to the exact oracle (same_hits), with the
+    margins that show the check can fail (oracle_margins)."""
+    import torch
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.vector.embedding import TorchEncoderEmbedder
+    cfg = CortexConfig()
+    cfg.embedding.model = f"flax:{npz}"
+    cfg.embedding.dimension = 384
+    if index == "ivf":
+        cfg.embedding.index = "ivf"
+        cfg.embedding.ivf_graph_degree = 0
+        cfg.embedding.ivf_nprobe = 1 << 20
+    cx = Cortex.open(os.path.join(workdir, f"encoder_{index}.db"), cfg,
+                     device=dev)
+    check(isinstance(cx.embedder, TorchEncoderEmbedder)
+          and cx.embedder.model.device.type == "cuda"
+          and cx.embedder.model_name == f"flax:{npz}",
+          f"the {index} Cortex does not serve the encoder on the card")
+    nodes = encoder_nodes(ENC_NODES + ENC_STORES, ENC_SEED, words)
+    t0 = time.monotonic()
+    got = cx.bulk_import(nodes[:ENC_NODES])
+    t_bulk = time.monotonic() - t0
+    check(got["nodes"] == ENC_NODES, f"bulk_import stored {got}")
+    store_ms = []
+    for node in nodes[ENC_NODES:]:
+        t0 = time.monotonic()
+        cx.store(node)
+        store_ms.append((time.monotonic() - t0) * 1e3)
+    info = cx.index.index_info()
+    check(len(cx.index) == ENC_NODES + ENC_STORES, "the index lost nodes")
+    if index == "flat":
+        check(info["resolved_path"] == "quant",
+              f"the flat Cortex serves through {info}")
+    queries = encoder_queries(nodes, words, ENC_SEARCHES, ENC_SEED + 1)
+    search_ms, hits = [], []
+    for text in queries:
+        t0 = time.monotonic()
+        hits.append(cx.search(text, K, decay=False, record_access=False))
+        search_ms.append((time.monotonic() - t0) * 1e3)
+    with uncounted():
+        want, spread = encoder_oracle(cx, queries, dev)
+    for w, g in zip(want, hits):
+        same_hits(w[:K], g)
+    margins = oracle_margins(hits, want)
+    cx.close()
+    torch.cuda.empty_cache()
+    return {"bulk_import_s": t_bulk,
+            "bulk_texts_per_s": ENC_NODES / t_bulk,
+            "store_ms_p50": float(np.percentile(store_ms, 50)),
+            "store_ms_p99": float(np.percentile(store_ms, 99)),
+            "search_ms_p50": float(np.percentile(search_ms, 50)),
+            "search_ms_p99": float(np.percentile(search_ms, 99)),
+            "searches_equal_to_oracle": len(queries),
+            "resolved_path": info.get("resolved_path", info["kind"]),
+            "pooling": cx.embedder.model.cfg.pooling,
+            "pairwise_cos": spread, "oracle_margins": margins}
+
+
+def encoder_speed(emb, cfg, dev):
+    """ms a batch and texts/s of the embedder's forward (embed_tokens:
+    embed_batch's chunks of chunk_rows(512) rows, H2D of the ids and D2H
+    of the embeddings; tokenizing apart) at ENC_SPEED, on seeded ids with
+    every position kept; and
+    the forward's fp32 FLOP/s (the products' 24 h^2 and attention's
+    4 S h a token and layer) against the card's 67 TFLOP/s."""
+    import torch
+    gen = np.random.default_rng(12)
+    out = {}
+    for s in ENC_SPEED_SEQS:
+        for b in ENC_SPEED_BATCHES:
+            ids = gen.integers(1000, cfg.vocab_size, (b, s)).astype(np.int32)
+            mask = np.ones((b, s), np.int32)
+            reps = 1 if b * s >= 500_000 else 5
+            # one run of the large ones (0.1-3 s), beside which a first
+            # call's set-up is small
+            if reps > 1:
+                emb.embed_tokens(ids, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                emb.embed_tokens(ids, mask)
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+            flops = b * s * cfg.layers * (24 * cfg.hidden ** 2
+                                          + 4 * s * cfg.hidden)
+            out[f"b{b}_s{s}"] = {
+                "ms": ms, "texts_per_s": b / ms * 1e3,
+                "tflops": flops / ms / 1e9,
+                "share_of_fp32_peak": flops / ms * 1e3 / F32_OPS_PER_S}
+    return out
+
+
+def encoder_profile(emb, cfg):
+    """One traced forward at B = 64, S = 128 and one at the embedder's
+    S = 512 chunk: device ms by kernel, and the shares of the products
+    (cuBLAS gemm kernels), E1, E2, GELU and the rest of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for b, s in ((64, 128), (emb.chunk_rows(512), 512)):
+        ids = np.random.default_rng(s).integers(
+            1000, cfg.vocab_size, (b, s)).astype(np.int32)
+        mask = np.ones((b, s), np.int32)
+        emb.embed_tokens(ids, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            emb.embed_tokens(ids, mask)
+            torch.cuda.synchronize()
+        dev_ms = {e.key: e.self_device_time_total / 1e3
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        total = sum(dev_ms.values())
+        check(total > 0, "the profiler saw no device time")
+        parts = {"gemm": ("gemm",), "e1": ("add_ln_",),
+                 "e2": ("masked_attention_kernel",), "gelu": ("gelu",)}
+        share = {p: sum(v for k, v in dev_ms.items()
+                        if any(m in k.lower() for m in marks)) / total
+                 for p, marks in parts.items()}
+        share["other"] = 1 - sum(share.values())
+        out[f"b{b}_s{s}"] = {"device_ms": total, "share": share,
+                             "kernels": len(dev_ms)}
+    return out
+
+
+def phase_encoder(dev, workdir, card):
+    """Phase 11: the text encoder at the full BGE-small-en-v1.5 width
+    (vocab 30,522, hidden 384, 12 layers of 12 heads, intermediate 1,536,
+    512 positions, CLS pooling) with seeded random weights written by the
+    port's own init_params + save_npz with a made-up vocabulary; the
+    card's forward held to the CPU's; Cortex on the flat index (CLS) and
+    the IVF index (the same weights, mean pooling); then the forward's
+    speed and a trace."""
+    from cortex_tpu_torch.models.encoder import (BertEncoderConfig,
+                                                 init_params,
+                                                 load_npz_tokenizer,
+                                                 save_npz)
+    from cortex_tpu_torch.vector.embedding import (TorchEncoderEmbedder,
+                                                   embedding_input)
+    t_phase = time.monotonic()
+    words, syllables = encoder_words(ENC_SEED)
+    cfg = BertEncoderConfig()
+    vocab = encoder_vocab(words, syllables, cfg.vocab_size)
+    params = init_params(cfg, seed=ENC_SEED)
+    npz = os.path.join(workdir, "bge_small_random.npz")
+    save_npz(npz, params, cfg, vocab=vocab)
+    wp = load_npz_tokenizer(npz)
+    texts = [embedding_input(n) for n in encoder_nodes(2000, ENC_SEED,
+                                                       words)]
+    t0 = time.perf_counter()
+    ids, mask = wp.encode_batch(texts, max_length=cfg.max_position)
+    tok_s = time.perf_counter() - t0
+    tokens = int(mask.sum())
+    check(ids.shape[1] == cfg.max_position
+          and 20 <= np.median(mask.sum(1)) <= 100,
+          f"the length mix is off: S {ids.shape[1]}, median "
+          f"{np.median(mask.sum(1))} tokens")
+    emb = TorchEncoderEmbedder(npz, device=dev)
+    with uncounted():
+        forward = check_encoder_forward(emb, params, cfg, wp, texts)
+    # the IVF leg's model pools by the masked mean (the reference's other
+    # pooling), whose random-weight embeddings lie further apart
+    npz_mean = os.path.join(workdir, "bge_small_random_mean.npz")
+    save_npz(npz_mean, params, replace(cfg, pooling="mean"), vocab=vocab)
+    out = {index: encoder_cortex(dev, workdir, path, words, index)
+           for index, path in (("flat", npz), ("ivf", npz_mean))}
+    with uncounted():
+        speed = encoder_speed(emb, cfg, dev)
+        trace = encoder_profile(emb, cfg)
+    say("11-encoder", config={k: getattr(cfg, k) for k in (
+        "vocab_size", "hidden", "layers", "heads", "intermediate",
+        "max_position", "pooling")}, nodes=ENC_NODES, stores=ENC_STORES,
+        searches=ENC_SEARCHES, long_share=ENC_LONG,
+        tokenizer_tokens_per_s=tokens / tok_s,
+        median_tokens=float(np.median(mask.sum(1))), forward=forward,
+        chunk_rows_s512=emb.chunk_rows(512), speed=speed, trace=trace,
+        phase_s=time.monotonic() - t_phase, card=card, **out)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3021,19 +3594,24 @@ def main(argv) -> int:
         graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err)
     dc = DecayCheck()
     perf = {"decay_sweep": check_decay(dc, dev, gen, card)}
+    ec = EncoderKernelCheck()
+    perf.update(check_encoder_kernels(ec, dev, gen, card))
     perf.update(check_graph_big(gc, dev, gen, card))
     torch.cuda.empty_cache()
     index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
                                                      gen, kc)
     perf["probed_scores"] = ivf_perf
 
-    # four main paths, each read just after it: IVF (3-4), flat (5-6),
-    # graph (7-8) and linker (9-10); 9 runs between 7 and 6 because it
-    # needs phase 5's index and phase 7's storage
+    # five main paths, each read just after it: IVF (3-4), flat (5-6),
+    # graph (7-8), linker (9-10) and encoder (11); 9 runs between 7 and 6
+    # because it needs phase 5's index and phase 7's storage
     flat, graph = ("quant_candidates", "quant_rerank"), (
         "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
     linker = ("quant_candidates", "quant_rerank", "decay_sweep")
-    launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {}}
+    encoder = ("add_layer_norm", "masked_attention", "quant_candidates",
+               "quant_rerank", "probed_scores")
+    launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {},
+                "encoder": {}}
 
     def take(path, names):
         counts = launch_counts()
@@ -3075,12 +3653,18 @@ def main(argv) -> int:
         phase_decay_store(dev, workdir, card)
         phase_cortex_linker(dev, workdir, card)
         take("linker", linker)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        reset_launches(encoder)
+        phase_encoder(dev, workdir, card)
+        take("encoder", encoder)
     for path, counts in launches.items():
         for name, n in counts.items():
             check(n > 0, f"the {path} main path never launched {name}")
 
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
             "quant_rerank": fc.k2_err, "decay_sweep": dc.max_abs_err,
+            "add_layer_norm": ec.e1_err, "masked_attention": ec.e2_err,
             **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
                    "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
@@ -3089,7 +3673,9 @@ def main(argv) -> int:
                    "frontier_bfs": ("a1_h3", None),
                    "frontier_bfs_compact": ("a1_h3", None),
                    "bfs_relax": ("a1_r3", None),
-                   "decay_sweep": ("e10M", None)}
+                   "decay_sweep": ("e10M", None),
+                   "add_layer_norm": ("b64_s128", "b1_s32"),
+                   "masked_attention": ("b64_s128", "b1_s32")}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
                                           "share_of_bound")}
@@ -3107,7 +3693,7 @@ def main(argv) -> int:
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": head}
+            "library_ms": t.get("library_ms"), "shape": head}
         if second is not None:
             entry["batch1"] = perf[name][second]
         entry.update({k: v for k, v in perf[name].items()

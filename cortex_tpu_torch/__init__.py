@@ -14,7 +14,11 @@ fp32 re-rank as hand-written CUDA kernels (csrc/flat_scan.cu), and over
 the IVF index (`index = "ivf"`), with the probed-block scan as one
 (csrc/ivf_gather.cu); edges, the graph engine and hybrid search, whose
 proximity leg walks the device graph mirror with two more
-(csrc/graph_bfs.cu: the frontier walk and the min-plus relaxation).
+(csrc/graph_bfs.cu: the frontier walk and the min-plus relaxation); the
+auto-linker with edge decay (csrc/decay_sweep.cu); and the text encoder
+(models/: the BERT tower of BGE-small-en-v1.5, its WordPiece tokenizer
+and the npz of converted weights), whose residual + LayerNorm and masked
+attention are two more (csrc/encoder_rows.cu, csrc/encoder_attn.cu).
 """
 
 __all__ = ["Cortex"]

@@ -1,6 +1,8 @@
 """Embedded Cortex of the port: store -> search over the flat index
 (the default) or the IVF index, edges, the graph engine and hybrid
-search, and the auto-linker with edge decay.
+search, and the auto-linker with edge decay; text is embedded by the
+configured model, the device text encoder for a model with weights on
+disk (`vector/embedding.py::default_embedder`).
 
 Counterpart of cortex_tpu/api.py::Cortex, limited to the slices this
 package ports: open / in_memory, store / store_batch / bulk_import /
@@ -9,9 +11,10 @@ score-decay re-rank and access recording, create_edge / delete_edge,
 search_hybrid (vector similarity x graph proximity), traverse /
 neighborhood / find_paths, run_linker_cycle, and close. Storage (SQLite
 or memory), node types, hooks, the graph engine and the auto-linker
-are the port's copies of the reference's modules; the device graph
-mirror (graph/csr.py) runs its hop depths, and the linker's decay
-engine its sweep (D1), on `device`.
+are the port's copies of the reference's modules; the text encoder
+(models/encoder.py) runs its forward, the device graph mirror
+(graph/csr.py) its hop depths, and the linker's decay engine its sweep
+(D1), on `device`.
 
 At open the index is rebuilt from the stored embeddings (index
 snapshots are not ported). The device is an argument: "cuda" (the
@@ -57,7 +60,8 @@ class Cortex:
         # held across every store-write + index-mutation pair
         self._persist_lock = threading.Lock()
         self.embedder = default_embedder(self.config.embedding.model,
-                                         self.config.embedding.dimension)
+                                         self.config.embedding.dimension,
+                                         device=self.device)
         self.index = self._make_index()
         self._rebuild_index()
         self.graph = GraphEngine(storage)

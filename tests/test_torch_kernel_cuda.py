@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain torch versions, on the card:
 the IVF probed-block scan, the flat index's int8 candidate scan (K1)
 and exact re-rank (K2), the graph mirror's frontier walk (G1) and
-min-plus relaxation (G2), and the edge decay sweep (D1). Marked `cuda`:
-skipped without a GPU.
+min-plus relaxation (G2), the edge decay sweep (D1), and the text
+encoder's residual + LayerNorm (E1) and masked attention (E2), with the
+encoder's forward against the CPU's. Marked `cuda`: skipped without a
+GPU.
 This file imports no jax (the card's machine has none); run it there
 with
 
@@ -18,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from cortex_tpu_torch.models.encoder import (BertEncoder, BertEncoderConfig,
+                                             bert_encode, init_params)
 from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather
+from cortex_tpu_torch.ops import encoder as enc
 from cortex_tpu_torch.ops import similarity as sim
 from cortex_tpu_torch.vector.shard import build_bias
 
@@ -946,3 +951,182 @@ def test_decay_sweep_argument_checks(dev, bad):
         imp = imp.cpu()
     with pytest.raises(ValueError):
         decay.decay_sweep(w, days, imp, exempt, **DECAY_ARGS)
+
+
+# ------------------------------------------------------------ encoder
+# E1 (add_layer_norm) and E2 (masked_attention) against their plain
+# versions. E1: within LN_ATOL (the mean's and variance's sums are added
+# in another order; outputs are ~N(0, 1) * g + b). E2: within ATTN_ATOL
+# (online softmax with __expf against torch's softmax and two einsums;
+# outputs are averages of N(0, 1) values); an unmasked row's output is
+# bit-equal whatever the masked keys hold.
+
+LN_ATOL = 1e-5
+ATTN_ATOL = 1e-5
+ENCODER_ATOL = 1e-4      # the forward against the CPU's, BGE-small width
+
+
+def _ln_inputs(dev, t, h, p, seed):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(0.5, 3.0, (t, h)), rng.normal(0.0, 1.0, (p, h)),
+              rng.normal(1.0, 0.1, h), rng.normal(0.0, 0.1, h))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+def _check_e1(x, r, g, b, eps=1e-12):
+    before = enc.add_layer_norm.launches
+    got = enc.add_layer_norm(x, r, g, b, eps)
+    torch.cuda.synchronize()
+    assert enc.add_layer_norm.launches == before + 1
+    want = enc.add_layer_norm_plain(x, r, g, b, eps)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= LN_ATOL
+    return got
+
+
+@pytest.mark.parametrize("t,h,p", [(1, 384, 1), (31, 384, 31),
+                                   (8192, 384, 8192), (8192, 384, 512),
+                                   (1000, 768, 1000), (7, 36, 7),
+                                   (5, 1024, 5), (3, 4, 3), (65, 100, 13)])
+def test_add_layer_norm_equals_plain(dev, t, h, p):
+    _check_e1(*_ln_inputs(dev, t, h, p, seed=t + h))
+
+
+def test_add_layer_norm_unaligned_rows(dev):
+    # x one float off 16 bytes: the wrapper hands the kernel an aligned
+    # copy, so the result is the aligned call's, bit for bit
+    x, r, g, b = _ln_inputs(dev, 65, 384, 65, seed=3)
+    buf = torch.empty(65 * 384 + 1, device=dev)
+    xs = buf[1:].view(65, 384)
+    xs.copy_(x)
+    assert torch.equal(_check_e1(xs, r, g, b), _check_e1(x, r, g, b))
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])
+def test_add_layer_norm_constant_rows(dev, eps):
+    x, r, g, b = _ln_inputs(dev, 16, 384, 16, seed=4)
+    x[:] = 2.5
+    r[:] = 0.0
+    _check_e1(x, r, g, b, eps)
+
+
+def test_add_layer_norm_limits(dev):
+    x, r, g, b = _ln_inputs(dev, 4, 1025, 4, seed=5)
+    with pytest.raises(ValueError, match="h <= 1024"):
+        enc.add_layer_norm(x, r, g, b, 1e-12)
+    x, r, g, b = _ln_inputs(dev, 4, 37, 4, seed=5)
+    with pytest.raises(ValueError, match="h % 4 == 0"):
+        enc.add_layer_norm(x, r, g, b, 1e-12)
+    x, r, g, b = _ln_inputs(dev, 6, 64, 4, seed=5)
+    with pytest.raises(ValueError, match="divide"):
+        enc.add_layer_norm(x, r, g, b, 1e-12)
+    with pytest.raises(ValueError, match="float32"):
+        enc.add_layer_norm(x.double(), r[:3].double(), g, b, 1e-12)
+
+
+def _attn_inputs(dev, b, h, s, dh, seed):
+    """q, k, v [B, H, S, dh] as views of one [B, S, 3, H, dh] buffer (the
+    encoder's Q|K|V product), a mask bias whose first row is unpadded
+    and whose others keep 1..S keys, and the kept lengths."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(0.0, 1.0, (b, s, 3, h, dh)).astype(
+        np.float32)).to(dev)
+    lengths = rng.integers(1, s + 1, b)
+    lengths[0] = s
+    bias = np.where(np.arange(s)[None, :] < lengths[:, None], 0.0, -1e30)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    return q, k, v, torch.from_numpy(bias.astype(np.float32)).to(dev), lengths
+
+
+def _check_e2(q, k, v, bias):
+    before = enc.masked_attention.launches
+    got = enc.masked_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert enc.masked_attention.launches == before + 1
+    want = enc.masked_attention_plain(q, k, v, bias)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= ATTN_ATOL
+    return got
+
+
+@pytest.mark.parametrize("b,h,s,dh", [(1, 12, 1, 32), (2, 12, 31, 32),
+                                      (4, 12, 128, 32), (2, 12, 512, 32),
+                                      (3, 2, 31, 64), (2, 12, 512, 64),
+                                      (5, 3, 77, 64), (64, 12, 128, 32)])
+def test_masked_attention_equals_plain(dev, b, h, s, dh):
+    q, k, v, bias, _ = _attn_inputs(dev, b, h, s, dh, seed=b * s + dh)
+    got = _check_e2(q, k, v, bias)
+    # written as [B, S, H, dh]: back to [B * S, H * dh] without a copy
+    assert got.transpose(1, 2).is_contiguous()
+    # strided views and contiguous copies give the same bits
+    assert torch.equal(got, enc.masked_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), bias))
+
+
+@pytest.mark.parametrize("s,dh", [(31, 32), (128, 32), (512, 32),
+                                  (200, 64)])
+def test_masked_attention_padding_invariance(dev, s, dh):
+    q, k, v, bias, lengths = _attn_inputs(dev, 4, 12, s, dh, seed=s)
+    got = enc.masked_attention(q, k, v, bias)
+    masked = bias < -1e29                              # [B, S] keys
+    q2, k2, v2 = (t.clone() for t in (q, k, v))
+    for t in (q2, k2, v2):
+        noise = torch.randn_like(t) * 7.0
+        t.copy_(torch.where(masked[:, None, :, None], noise, t))
+    again = enc.masked_attention(q2, k2, v2, bias)
+    torch.cuda.synchronize()
+    for row, n in enumerate(lengths):
+        assert torch.equal(got[row, :, :n], again[row, :, :n])
+
+
+def test_masked_attention_every_key_masked(dev):
+    # the reference's softmax over equal scores: the mean of v
+    q, k, v, bias, _ = _attn_inputs(dev, 3, 4, 40, 32, seed=9)
+    bias[1] = -1e30
+    got = _check_e2(q, k, v, bias)
+    want = v[1].mean(dim=1, keepdim=True).expand_as(got[1])
+    assert float((got[1] - want).abs().max()) <= ATTN_ATOL
+
+
+def test_masked_attention_limits(dev):
+    for s, dh in ((16, 16), (16, 128), (513, 32)):
+        q, k, v, bias, _ = _attn_inputs(dev, 1, 2, s, dh, seed=1)
+        with pytest.raises(ValueError, match="dh in"):
+            enc.masked_attention(q, k, v, bias)
+    q, k, v, bias, _ = _attn_inputs(dev, 1, 2, 8, 32, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        enc.masked_attention(q.double(), k.double(), v.double(), bias)
+    with pytest.raises(ValueError, match="mask_bias"):
+        enc.masked_attention(q, k, v, bias[:, :4])
+
+
+def _texts_ids(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+    lengths = rng.integers(2, s + 1, b)
+    lengths[0] = s
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    return ids * mask, mask
+
+
+@pytest.mark.parametrize("cfg", [
+    BertEncoderConfig(vocab_size=500, hidden=64, layers=2, heads=2,
+                      intermediate=128, max_position=128),
+    BertEncoderConfig(vocab_size=500, hidden=128, layers=2, heads=2,
+                      intermediate=256, max_position=128, pooling="mean"),
+    BertEncoderConfig()], ids=["h64", "h128-mean", "bge-small"])
+def test_encoder_forward_equals_cpu(dev, cfg):
+    params = init_params(cfg, seed=5)
+    ids, mask = _texts_ids(cfg, 6, 45, seed=6)
+    card = BertEncoder.from_params(params, cfg, device=dev)
+    cpu = BertEncoder.from_params(params, cfg, device="cpu")
+    e1, e2 = enc.add_layer_norm.launches, enc.masked_attention.launches
+    got = bert_encode(card, ids, mask)
+    assert enc.add_layer_norm.launches - e1 == 2 * cfg.layers + 1
+    assert enc.masked_attention.launches - e2 == cfg.layers
+    want = bert_encode(cpu, ids, mask)
+    assert float(np.abs(got - want).max()) <= ENCODER_ATOL
+    # a row alone equals it inside the padded batch
+    alone = bert_encode(card, ids[3:4, :mask[3].sum()],
+                        mask[3:4, :mask[3].sum()])
+    assert float(np.abs(alone[0] - got[3]).max()) <= ENCODER_ATOL

@@ -6,8 +6,9 @@ of them raises), imports every module of the port, runs tiny
 store -> search passes on the CPU (the IVF index, the flat index and the
 default config), an edges -> hybrid search pass through every tier of
 the graph mirror and linker cycles with decay and dedup on SQLite (the
-decay sweep through the out-of-process worker), and reports what it saw
-as JSON; the tests below check that report. Another runs the decay
+decay sweep through the out-of-process worker), a store -> search pass
+through the text encoder (a "flax:<npz>" model), and reports what it
+saw as JSON; the tests below check that report. Another runs the decay
 worker itself (python -m cortex_tpu_torch.linker.decay_worker) with the
 same blocks. A third shows that chip_smoke.py's own check fails once a
 module of the JAX package is loaded.
@@ -25,6 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, json, pkgutil, sys, tempfile
+    from dataclasses import replace
     sys.modules["jax"] = None
     sys.modules["jaxlib"] = None
     sys.modules["cortex_tpu"] = None
@@ -141,19 +143,42 @@ SCRIPT = textwrap.dedent("""
                                      DeviceUnavailable)
         out["cortex_cuda_refused"] = raises(
             lambda: Cortex.in_memory(cfg()), DeviceUnavailable)
+    unported = {
+        "flat": dict(index="flat", sharded=True),
+        "graph": dict(ivf_graph_degree=32),
+        "tuner": dict(ivf_target_recall=0.9),
+        "sharded": dict(sharded=True),
+    }
+    out["config_errors"] = {
+        name: raises(lambda kw=kw: Cortex.in_memory(cfg(**kw),
+                                                    device="cpu"),
+                     ConfigError)
+        for name, kw in unported.items()}
+
+    def local_weights(weights_dir):
+        # an empty model dir holds no weights: hashing, as in the
+        # reference; a flax:<npz> model serves the device encoder
+        from cortex_tpu_torch.models.encoder import (BertEncoderConfig,
+                                                     init_params, save_npz)
+        empty = Cortex.in_memory(cfg(model=weights_dir), device="cpu")
+        enc_cfg = BertEncoderConfig(vocab_size=64, hidden=32, layers=1,
+                                    heads=2, intermediate=64,
+                                    max_position=64)
+        words = sorted({w for i in range(40) for w in (
+            f"note {i} about topic{i % 5} body word{i}").split()})
+        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+        npz = f"{weights_dir}/enc.npz"
+        save_npz(npz, init_params(replace(enc_cfg, vocab_size=len(vocab))),
+                 replace(enc_cfg, vocab_size=len(vocab)), vocab=vocab)
+        flax_cx, got = store_search(cfg(index="flat", model=f"flax:{npz}",
+                                        dimension=32))
+        return {"empty_dir": empty.embedder.model_name,
+                "flax": type(flax_cx.embedder).__name__,
+                "flax_name": flax_cx.embedder.model_name == f"flax:{npz}",
+                "flax_top1": got["top1"]}
+
     with tempfile.TemporaryDirectory() as weights_dir:
-        unported = {
-            "flat": dict(index="flat", sharded=True),
-            "graph": dict(ivf_graph_degree=32),
-            "tuner": dict(ivf_target_recall=0.9),
-            "sharded": dict(sharded=True),
-            "local_weights": dict(model=weights_dir),
-        }
-        out["config_errors"] = {
-            name: raises(lambda kw=kw: Cortex.in_memory(cfg(**kw),
-                                                        device="cpu"),
-                         ConfigError)
-            for name, kw in unported.items()}
+        out["local_weights"] = local_weights(weights_dir)
     ivf_defaults = CortexConfig()
     ivf_defaults.embedding.index = "ivf"
     ivf_defaults.embedding.model = "hash-64"
@@ -186,7 +211,8 @@ def test_every_module_imports_without_jax(report):
                  "linker.auto_linker", "linker.config", "linker.decay",
                  "linker.decay_worker", "linker.dedup", "linker.metrics",
                  "linker.rules", "ops.decay", "utils.tracing",
-                 "vector.config"):
+                 "vector.config", "models.encoder", "models.tokenizer",
+                 "models.convert", "ops.encoder"):
         assert f"cortex_tpu_torch.{name}" in mods
 
 
@@ -306,6 +332,14 @@ def test_cuda_absent_raises(report):
 def test_unported_config_raises_config_error(report, name):
     # flat: the sharded flat index; graph and tuner: ivf_graph_degree /
     # ivf_target_recall with index = "ivf", the only index that reads them
+    if name == "local_weights":
+        # the text encoder is ported: nothing refuses a model with
+        # weights. An empty local model dir falls back to hashing, as in
+        # the reference; a flax:<npz> model opens and serves without jax
+        assert report["local_weights"] == {
+            "empty_dir": "hash-384", "flax": "TorchEncoderEmbedder",
+            "flax_name": True, "flax_top1": True}
+        return
     msg = report["config_errors"][name]
     assert msg is not None and "ROADMAP" in msg
 
