@@ -58,15 +58,25 @@ Phases, each printing its results on its own line:
      chunk beside the bound in bytes (20 B an edge). The text encoder's
      residual + LayerNorm (E1) at h 36, 384 and 768 and its masked
      attention (E2) at (B 5, H 3, dh 32), BGE-small's (H 12, dh 32) and
-     dh 64, each at S 1, 31, 128 and 512 with padded rows (E1 also with
-     the embedding's [S, h] residual): within LN_ATOL and ATTN_ATOL of the
-     plain versions, and E2's kept rows bit-equal after new values at
-     every masked key; the times of each, its plain version and one
+     dh 64, each at S 1, 31, 128 and 512 and at E2's tile edges (S 63,
+     64, 65, 127, 129) with padded rows, at the mask patterns of
+     kept_patterns (kept keys ending on and one past a tile edge, masked
+     keys in front and in the middle, a wholly masked tile between two
+     kept ones, only the last key kept) and at dh 64, S 512, B * H 3,072
+     (E1 also with the embedding's [S, h] residual): within LN_ATOL and
+     ATTN_ATOL of the plain versions, and E2's kept rows bit-equal after
+     new values at every masked key; E2 with |q| and |k| 10x larger,
+     where the plain fp32 version is itself further than ATTN_ATOL from
+     the float64 answer: no further from it than the plain version plus
+     ATTN_ATOL. Then the times of each, its plain version and one
      PyTorch call computing the same function (F.layer_norm on the
      pre-summed input, scaled_dot_product_attention with the mask bias)
-     at ENC_TIMED over input sets that together exceed the L2 four
-     times (so read from HBM), beside the bound (E1: bytes; E2: bytes or
-     fp32 FLOPs of the kept keys, the larger);
+     at ENC_TIMED (E2 also at ENC_MIX: the S 512 chunk with phase 11's
+     lengths and with every key kept)
+     over input sets that together exceed the L2 four times (so read
+     from HBM), beside the bound (E1: bytes; E2: bytes or fp32 FLOPs of
+     the kept keys, the larger, and beside it the bound of its route:
+     3 TF32 products per fp32 product at 495 TFLOP/s);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
      nprobe = nlist the top-10 of 64 queries equals the exact fp32
      oracle (near-ties of 1e-6 may swap); at the default nprobe the
@@ -146,8 +156,9 @@ Phases, each printing its results on its own line:
      list with its rank 1 lost; then the embedder's forward (embed_tokens,
      in embed_batch's chunks) at B 1, 64 and 4,096 and S 32, 128 and 512
      (ms, texts/s, fp32 FLOP/s against 67 TFLOP/s) and one
-     torch.profiler trace of a forward at B 64, S 128 and at the S 512
-     chunk: the shares of the products, E1, E2 and GELU in its device
+     torch.profiler trace of a forward at B 64, S 128, at the S 512
+     chunk with every key kept and at the S 512 chunk with phase 11's
+     lengths: the shares of the products, E1, E2 and GELU in its device
      time.
 
 Five main paths: phases 3-4 (IVF), 5-6 (flat), 7-8 (graph, on the
@@ -205,6 +216,7 @@ PROFILE_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM peaks, NVIDIA's data sheet
 INT8_OPS_PER_S = 1.979e15       # dense int8 tensor cores
 F32_OPS_PER_S = 67e12           # fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # dense TF32 tensor cores
 SPIN_CYCLES_PER_S = 2e9         # >= the SM clock (1.98 GHz at boost)
 L2_BYTES = 50 << 20             # the H100 SXM's L2 cache
 NEAR_TIE = 1e-6          # exact-oracle near-ties that may swap ranks
@@ -238,11 +250,23 @@ ENC_EPS = 1e-12                  # BGE-small-en-v1.5's layer_norm_eps
 LN_ATOL, ATTN_ATOL = 1e-5, 1e-5
 ENC_ATOL, ENC_COS = 1e-4, 0.99999   # the card's forward against the CPU's
 ENC_CHECK_SEQS = (1, 31, 128, 512)
+ATTN_TILE = 32                           # E2's key tile (encoder_attn.cu)
+ENC_EDGE_SEQS = (63, 64, 65, 127, 129)   # about E2's key tile edges
+ENC_ATTN_BIG = (256, 12, 512, 64)        # B, H, S, dh: B * H 3,072
+# |q| and |k| ENC_ATTN_SCALE times the other cases': scores of std ~100,
+# where the plain fp32 version is itself ~1e-4 from the float64 answer
+ENC_ATTN_SCALE = 10.0
 ENC_TIMED = {            # name -> (B, S, h, heads) of a timed E1 / E2 call
     "b64_s128": (64, 128, 384, 12),
     "b1_s32": (1, 32, 384, 12),            # a store or a search
     "chunk_s512": (195, 512, 384, 12),     # chunk_rows(512): bulk_import
     "dh64_b64_s128": (64, 128, 768, 12)}   # BGE-base's head width
+# E2 also at the S 512 chunk with phase 11's lengths (encoder_nodes: most
+# rows keep U(25, 100) keys, ENC_LONG of them all 512) and with every key
+# kept (as encoder_speed runs it): name -> (B, S, h, heads, attn_mask kind)
+ENC_MIX = {"chunk_s512_mix": (195, 512, 384, 12, "mix"),
+           "chunk_s512_all": (195, 512, 384, 12, "all")}
+ENC_MIX_KEYS = (25, 100)
 ENC_NODES, ENC_STORES, ENC_SEARCHES = 20_000, 200, 1_000
 ENC_WORDS, ENC_TOPICS, ENC_LONG, ENC_SEED = 20_000, 500, 0.05, 8
 ENC_KINDS = ("fact", "event", "decision", "goal", "observation")
@@ -2235,11 +2259,13 @@ def check_decay(dc, dev, gen, card):
 class EncoderKernelCheck:
     """E1 and E2 against their plain versions on the same card, within
     LN_ATOL and ATTN_ATOL; keeps the largest difference of each, and
-    checks E2's padding invariance bit for bit."""
+    checks E2's padding invariance bit for bit. E2 at large |q| and |k|
+    is held to the float64 answer instead (e2_scaled)."""
 
     def __init__(self):
         self.e1_err = self.e2_err = 0.0
         self.e1_cases = self.e2_cases = self.invariant_rows = 0
+        self.scaled = []
 
     def e1(self, x, r, g, b):
         import torch
@@ -2252,26 +2278,50 @@ class EncoderKernelCheck:
         self.e1_err = max(self.e1_err, err)
         self.e1_cases += 1
 
-    def e2(self, q, k, v, bias, lengths):
+    def e2(self, q, k, v, bias, kept):
         """Kernel against plain, then new values at every masked key
-        position: no output of a kept row may change, bit for bit."""
+        position: no output of a kept row (a query at a kept position)
+        may change, bit for bit."""
         import torch
         from cortex_tpu_torch.ops import encoder as enc
         got = enc.masked_attention(q, k, v, bias)
         want = enc.masked_attention_plain(q, k, v, bias)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= ATTN_ATOL, f"E2 differs from plain by {err}")
-        masked = (bias < -1e29)[:, None, :, None]
+        check(err <= ATTN_ATOL, f"E2 differs from plain by {err} at "
+              f"{tuple(q.shape)}")
+        masked = (~kept)[:, None, :, None]
         again = enc.masked_attention(*(
             torch.where(masked, torch.randn_like(t) * 7.0, t)
             for t in (q, k, v)), bias)
-        for row, n in enumerate(lengths):
-            check(torch.equal(got[row, :, :n], again[row, :, :n]),
-                  "E2: a masked key changed a kept row")
-        self.invariant_rows += len(lengths)
+        pos = kept[:, None, :, None].expand_as(got)
+        check(torch.equal(got[pos], again[pos]),
+              "E2: a masked key changed a kept row")
+        self.invariant_rows += int(kept.sum())
         self.e2_err = max(self.e2_err, err)
         self.e2_cases += 1
+
+    def e2_scaled(self, q, k, v, bias):
+        """E2 where the plain fp32 version's own error exceeds ATTN_ATOL:
+        the kernel and the plain version against the plain version in
+        float64; the kernel may be no further from it than the plain
+        version plus ATTN_ATOL."""
+        import torch
+        from cortex_tpu_torch.ops import encoder as enc
+        got = enc.masked_attention(q, k, v, bias)
+        want = enc.masked_attention_plain(q, k, v, bias)
+        exact = enc.masked_attention_plain(
+            *(t.double() for t in (q, k, v, bias)))
+        torch.cuda.synchronize()
+        err = float((got.double() - exact).abs().max())
+        plain_err = float((want.double() - exact).abs().max())
+        check(err <= plain_err + ATTN_ATOL,
+              f"E2 at |q|, |k| x{ENC_ATTN_SCALE}: {err} from the float64 "
+              f"answer, the plain fp32 version {plain_err}")
+        self.scaled.append({
+            "shape": list(q.shape), "err_vs_f64": err,
+            "plain_err_vs_f64": plain_err,
+            "err_vs_plain": float((got - want).abs().max())})
 
 
 def ln_inputs(dev, gen, t, h, p):
@@ -2292,16 +2342,81 @@ def qkv_views(dev, gen, b, heads, s, dh):
     return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
 
 
-def attn_inputs(dev, gen, b, heads, s, dh):
-    """E2's q, k and v (qkv_views), a mask bias whose first row keeps all
-    S keys and whose others keep U(1, S), and the kept lengths."""
+def kept_patterns(b, s):
+    """[b, s] bool: row i keeps the keys of pattern i % 9: all; the first
+    64, 65, 128 or 129 (ending on and one past a tile edge of E2); all
+    but the first third; all but the keys from S / 4 to S / 2; keys 0-63
+    and 128 onwards, with 64-127 (two tiles) wholly masked; only the
+    last key."""
+    kept = np.zeros((b, s), bool)
+    for i in range(b):
+        p, row = i % 9, kept[i]
+        if p == 0:
+            row[:] = True
+        elif p in (1, 2, 3, 4):
+            row[:(64, 65, 128, 129)[p - 1]] = True
+        elif p == 5:
+            row[s // 3:] = True
+        elif p == 6:
+            row[:max(1, s // 4)] = True
+            row[s // 2:] = True
+        elif p == 7:
+            row[:64] = True
+            row[128:] = True
+        else:
+            row[s - 1] = True
+    return kept
+
+
+def attn_mask(dev, gen, b, s, kind):
+    """E2's mask bias [B, S] (0 kept, -1e30 masked) and its kept keys
+    [B, S] (bool). "uniform": row 0 keeps all S keys, the others their
+    first U(1, S); "patterns": kept_patterns; "mix": phase 11's chunk,
+    round(ENC_LONG * B) rows keep all S, the others their first
+    U(ENC_MIX_KEYS) (the embedder pads a chunk to its longest row);
+    "all": every key."""
     import torch
+    if kind == "patterns":
+        kept = torch.from_numpy(kept_patterns(b, s)).to(dev)
+    elif kind == "all":
+        kept = torch.ones(b, s, dtype=torch.bool, device=dev)
+    else:
+        if kind == "uniform":
+            lengths = torch.randint(1, s + 1, (b,), device=dev,
+                                    generator=gen)
+            lengths[0] = s
+        else:
+            lo, hi = ENC_MIX_KEYS
+            lengths = torch.randint(lo, hi + 1, (b,), device=dev,
+                                    generator=gen)
+            long_rows = torch.randperm(b, device=dev, generator=gen)
+            lengths[long_rows[:max(1, round(ENC_LONG * b))]] = s
+        kept = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    return torch.where(kept, 0.0, -1e30), kept
+
+
+def attn_inputs(dev, gen, b, heads, s, dh, kind="uniform", scale=1.0):
+    """E2's q, k and v (qkv_views; q and k times `scale`), a mask bias of
+    attn_mask's `kind` and its kept keys."""
     q, k, v = qkv_views(dev, gen, b, heads, s, dh)
-    lengths = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
-    lengths[0] = s
-    bias = torch.where(torch.arange(s, device=dev)[None, :]
-                       < lengths[:, None], 0.0, -1e30)
-    return q, k, v, bias, [int(n) for n in lengths.cpu()]
+    if scale != 1.0:
+        q, k = q * scale, k * scale
+    return (q, k, v, *attn_mask(dev, gen, b, s, kind))
+
+
+def walked_keys(kept):
+    """Keys E2 stages and multiplies for one query row, summed over the
+    rows of kept [B, S]: ATTN_TILE for each tile of ATTN_TILE keys that
+    holds a kept key (every tile where none does)."""
+    import torch
+    b, s = kept.shape
+    tiles = -(-s // ATTN_TILE)
+    pad = torch.zeros(b, tiles * ATTN_TILE, dtype=torch.bool,
+                      device=kept.device)
+    pad[:, :s] = kept
+    walk = pad.view(b, tiles, ATTN_TILE).any(-1)
+    walk[~walk.any(-1)] = True
+    return int(walk.sum()) * ATTN_TILE
 
 
 def rotating(make, nbytes):
@@ -2320,14 +2435,16 @@ def time_rotating(fn, sets, reps):
 
 
 def check_encoder_kernels(ec, dev, gen, card):
-    """Phase 2 for E1 and E2: every case of ENC_CHECKS, then the times of
-    the kernel, its plain version and one PyTorch call computing the same
+    """Phase 2 for E1 and E2: every check case, then the times of the
+    kernel, its plain version and one PyTorch call computing the same
     function (F.layer_norm on the pre-summed input; SDPA with the mask
-    bias) at ENC_TIMED, beside the bound: E1's bytes (x, r and y once, g
-    and b) over 3.35 TB/s; E2's bytes (q, k, v, ctx and the mask) or its
-    fp32 FLOPs (2 * dh for the score and 2 * dh for the context, a query
-    and kept key) over 67 TFLOP/s, whichever is larger. Each is timed
-    over `rotating` input sets, so that it reads them from HBM."""
+    bias) at ENC_TIMED (E2 also at ENC_MIX), beside the bound: E1's bytes
+    (x, r and y once, g and b) over 3.35 TB/s; E2's bytes (q, k, v, ctx
+    and the mask) or its fp32 FLOPs (2 * dh for the score and 2 * dh for
+    the context, a query and kept key) over 67 TFLOP/s, whichever is
+    larger; and E2's route's bound, the same with 3 TF32 FLOPs for each
+    fp32 FLOP at 495 TFLOP/s. Each is timed over `rotating` input sets,
+    so that it reads them from HBM."""
     import torch
     import torch.nn.functional as F
     from cortex_tpu_torch.ops import encoder as enc
@@ -2337,9 +2454,21 @@ def check_encoder_kernels(ec, dev, gen, card):
             ec.e1(x, r, g, b)
             ec.e1(x, r[:s], g, b)               # the embedding's [S, h] rows
     for b, heads, dh in ((5, 3, 32), (4, 12, 32), (4, 12, 64)):
-        for s in ENC_CHECK_SEQS:
+        for s in ENC_CHECK_SEQS + ENC_EDGE_SEQS:
             ec.e2(*attn_inputs(dev, gen, b, heads, s, dh))
+    for s in (31, 129, 200, 512):
+        for dh in (32, 64):
+            ec.e2(*attn_inputs(dev, gen, 9, 4, s, dh, "patterns"))
+    ec.e2(*attn_inputs(dev, gen, *ENC_ATTN_BIG))
+    torch.cuda.empty_cache()
+    for b, heads, s, dh, kind in ((4, 12, 128, 32, "uniform"),
+                                  (9, 12, 512, 64, "patterns")):
+        ec.e2_scaled(*attn_inputs(dev, gen, b, heads, s, dh, kind,
+                                  ENC_ATTN_SCALE)[:4])
     perf = {"add_layer_norm": {}, "masked_attention": {}}
+    for name, (b, s, h, heads, kind) in ENC_MIX.items():
+        perf["masked_attention"][name] = time_attention(
+            dev, gen, b, s, h, heads, kind)
     for name, (b, s, h, heads) in ENC_TIMED.items():
         t, dh = b * s, h // heads
 
@@ -2357,33 +2486,51 @@ def check_encoder_kernels(ec, dev, gen, card):
                 xr, (h,), g, bb, ENC_EPS), sets, 50),
             shape=[t, h], input_sets=len(sets))
         del sets
-        _, _, _, bias, lengths = attn_inputs(dev, gen, b, heads, s, dh)
-        m4 = bias[:, None, None, :]
-
-        def attn_set():
-            q, k, v = qkv_views(dev, gen, b, heads, s, dh)
-            return q, k, v, q.contiguous(), k.contiguous(), v.contiguous()
-        sets = rotating(attn_set, 4 * 6 * t * h)
-        perf["masked_attention"][name] = timing(
-            time_rotating(lambda q, k, v, *_: enc.masked_attention(
-                q, k, v, bias), sets, 20),
-            time_rotating(lambda q, k, v, *_: enc.masked_attention_plain(
-                q, k, v, bias), sets, 5),
-            bound_ms(4 * (4 * t * h + t), 4 * heads * dh * s * sum(lengths),
-                     F32_OPS_PER_S),
-            library_ms=time_rotating(
-                lambda *a: F.scaled_dot_product_attention(
-                    *a[3:], attn_mask=m4), sets, 20),
-            shape=[b, heads, s, dh], kept_keys=sum(lengths),
-            input_sets=len(sets))
-        del sets, bias, m4
-        torch.cuda.empty_cache()
+        perf["masked_attention"][name] = time_attention(
+            dev, gen, b, s, h, heads, "uniform")
     say("2-encoder", e1_cases=ec.e1_cases, e1_max_abs_err=ec.e1_err,
         e1_atol=LN_ATOL, e2_cases=ec.e2_cases, e2_max_abs_err=ec.e2_err,
         e2_atol=ATTN_ATOL, e2_padding_invariant_rows=ec.invariant_rows,
+        e2_scaled=ec.scaled, e2_scale=ENC_ATTN_SCALE,
         card=card, **{f"{k}_{shape}": v for k, t in perf.items()
                       for shape, v in t.items()})
     return perf
+
+
+def time_attention(dev, gen, b, s, h, heads, kind):
+    """E2's, its plain version's and SDPA's times at one shape, over
+    `rotating` input sets, with a mask of attn_mask's `kind`; the bound
+    in fp32 (check_encoder_kernels) and the route's 3xTF32 bound."""
+    import torch
+    import torch.nn.functional as F
+    from cortex_tpu_torch.ops import encoder as enc
+    t, dh = b * s, h // heads
+    bias, kept = attn_mask(dev, gen, b, s, kind)
+    m4 = bias[:, None, None, :]
+    kept_keys = int(kept.sum())
+
+    def attn_set():
+        q, k, v = qkv_views(dev, gen, b, heads, s, dh)
+        return q, k, v, q.contiguous(), k.contiguous(), v.contiguous()
+    sets = rotating(attn_set, 4 * 6 * t * h)
+    nbytes, flops = 4 * (4 * t * h + t), 4 * heads * dh * s * kept_keys
+    ms = time_rotating(lambda q, k, v, *_: enc.masked_attention(
+        q, k, v, bias), sets, 20)
+    tc_bound = bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
+    out = timing(
+        ms, time_rotating(lambda q, k, v, *_: enc.masked_attention_plain(
+            q, k, v, bias), sets, 5),
+        bound_ms(nbytes, flops, F32_OPS_PER_S),
+        library_ms=time_rotating(
+            lambda *a: F.scaled_dot_product_attention(
+                *a[3:], attn_mask=m4), sets, 20),
+        tc_bound_ms=tc_bound[0], tc_bound_by=tc_bound[1],
+        share_of_tc_bound=tc_bound[0] / ms,
+        shape=[b, heads, s, dh], kept_keys=kept_keys,
+        walked_keys=walked_keys(kept), mask=kind, input_sets=len(sets))
+    del sets
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 9
@@ -3441,17 +3588,26 @@ def encoder_speed(emb, cfg, dev):
 
 
 def encoder_profile(emb, cfg):
-    """One traced forward at B = 64, S = 128 and one at the embedder's
-    S = 512 chunk: device ms by kernel, and the shares of the products
-    (cuBLAS gemm kernels), E1, E2, GELU and the rest of the device time."""
+    """One traced forward at B = 64, S = 128, one at the embedder's
+    S = 512 chunk with every key kept and one at that chunk with phase
+    11's lengths (attn_mask's "mix"): device ms by kernel, and the shares
+    of the products (cuBLAS gemm kernels), E1, E2, GELU and the rest of
+    the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for b, s in ((64, 128), (emb.chunk_rows(512), 512)):
+    rows = emb.chunk_rows(512)
+    gen = torch.Generator()
+    gen.manual_seed(ENC_SEED)
+    for b, s, mix in ((64, 128, False), (rows, 512, False),
+                      (rows, 512, True)):
         ids = np.random.default_rng(s).integers(
             1000, cfg.vocab_size, (b, s)).astype(np.int32)
         mask = np.ones((b, s), np.int32)
+        if mix:
+            mask = attn_mask("cpu", gen, b, s, "mix")[1].numpy().astype(
+                np.int32)
         emb.embed_tokens(ids, mask)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3464,13 +3620,14 @@ def encoder_profile(emb, cfg):
         total = sum(dev_ms.values())
         check(total > 0, "the profiler saw no device time")
         parts = {"gemm": ("gemm",), "e1": ("add_ln_",),
-                 "e2": ("masked_attention_kernel",), "gelu": ("gelu",)}
+                 "e2": ("masked_attention_tc_kernel",), "gelu": ("gelu",)}
         share = {p: sum(v for k, v in dev_ms.items()
                         if any(m in k.lower() for m in marks)) / total
                  for p, marks in parts.items()}
         share["other"] = 1 - sum(share.values())
-        out[f"b{b}_s{s}"] = {"device_ms": total, "share": share,
-                             "kernels": len(dev_ms)}
+        out[f"b{b}_s{s}" + ("_mix" if mix else "")] = {
+            "device_ms": total, "share": share, "kernels": len(dev_ms),
+            "kept_tokens": int(mask.sum())}
     return out
 
 
@@ -3677,8 +3834,9 @@ def main(argv) -> int:
                    "add_layer_norm": ("b64_s128", "b1_s32"),
                    "masked_attention": ("b64_s128", "b1_s32")}
     say("2-bounds", card=card, **{
-        name: {shape: {k: t[k] for k in ("ms", "bound_ms", "bound_by",
-                                          "share_of_bound")}
+        name: {shape: {k: t[k] for k in (
+            "ms", "bound_ms", "bound_by", "share_of_bound", "tc_bound_ms",
+            "share_of_tc_bound") if k in t}
                for shape, t in perf[name].items()}
         for name in KERNELS})
     check_no_reference_import()

@@ -8,175 +8,429 @@
 // [B, S] float32 (0 or -1e30). ctx is written as [B, S, H, dh], which is
 // the [B*S, h] layout the output product reads.
 //
-// What bounds it: fp32 operations at BGE-small's shapes. A (query, key)
-// pair costs 2 * dh FMAs (the score and its share of the context), so a
-// head of S = 512 does 16.8M FMAs on 256 KB of q, k, v and ctx; the
-// card's 67 TFLOP/s fp32 rate is reached past S ~ 64. Tensor cores are
-// not used: TF32 would break parity with the fp32 reference.
+// What bounds it: operations. A (query, kept key) pair costs 4 * dh
+// flops (the score and its share of the context): 2.1 GFLOP for one
+// head of S = 512 against 4 MB of q, k, v and ctx. On the CUDA cores
+// (67 TFLOP/s fp32) that is 32 us a head; the tensor cores take TF32 at
+// 495 TFLOP/s, and three TF32 products per fp32 product (3xTF32, below)
+// still leave 165. Keys that the mask removes add nothing to the
+// reference's result, so the work that counts is that of kept keys.
 //
-// What the design does about it: the [B, H, S, S] scores never leave
-// the block (the plain version writes and reads them about four times:
-// 805 MB a layer at B = 64, S = 512). A block takes kRows query rows of
-// one (batch, head); each thread keeps its query row and its context sum
-// in registers, and the block walks the keys in tiles of kKeys rows of K
-// and V staged in shared memory (every thread reads the same key at the
-// same time: a broadcast, one 16-byte load for four FMAs). The softmax
-// is online: scores of 8 keys at a time, the running max raised and the
-// sums rescaled only when a chunk's max exceeds it. A masked key scores
-// exactly -1e30 (its dot is far below the bias's ulp), so exp of it less
-// the max underflows to exactly 0 once any unmasked key has been seen;
-// keys masked before that are scaled by exp(-1e30 - max) = 0 when the
-// first unmasked key arrives. So an unmasked row's output does not
-// depend on the values at masked keys, bit for bit, and a row with every
-// key masked averages all of them, as the reference's softmax does.
-// exp is __expf (ex2.approx), within the stated tolerance of the plain
-// version. The launch is checked with cudaGetLastError; nothing
-// synchronises.
+// What the design does about it (FlashAttention-2's pattern):
+// - A block of 4 warps takes 64 query rows of one (batch, head), 16 rows
+//   a warp; the scores never leave the registers.
+// - Tile skip: the block stages the row's mask bias and marks which
+//   32-key tiles hold a kept key (bias above -1e29); it walks only those.
+//   In a walked tile the K and V rows of masked keys are set to zeros,
+//   so a masked score is exactly 0 + bias and its weight exactly 0: the
+//   inputs of every product, and so a kept query row's output, do not
+//   depend on what masked keys hold, bit for bit. A row with no kept key
+//   walks every tile with its real K and V, and averages v as the
+//   reference's softmax over equal scores does.
+// - K and V tiles are copied with cp.async, 16 bytes a thread, into two
+//   stages: the next walked tile's copy runs under the current tile's
+//   math. Tile 0's copy starts before the mask is read (nearly every row
+//   keeps key 0); each thread zeroes its own chunks of masked keys once
+//   its copy has landed. Shared rows are dh + 4 floats (16-byte rows,
+//   and the fragment loads below hit 32 distinct banks).
+// - S = Q K^T and O += P V run on mma.sync m16n8k8 TF32 with fp32
+//   accumulation. Q is split once into two shared planes (high parts,
+//   rests) that the warps read by ldmatrix.x4 (an 8 x 4 block of fp32
+//   words is an 8 x 8 block of b16), as they read K; K and V are split
+//   in registers as their fragments are loaded. P goes from the
+//   accumulator layout to the A operand without a shuffle: the
+//   accumulator holds keys 2t and 2t + 1 of each 8, which the A operand
+//   takes as its columns t and t + 4, and V's rows are read in the same
+//   order (2t, 2t + 1).
+// - The online softmax runs on the fragments: row max and row sum by
+//   shuffles within a quad, exp2 on scores that Q and the bias carry
+//   pre-scaled by log2(e) / sqrt(dh) and log2(e) (ex2.approx, as __expf).
+// - One tile shape for dh 32 and 64.
+// Why this shape (each choice timed on the H100 against the others):
+// 32-key tiles ran faster than 64-key ones at every timed shape and skip
+// at a finer grain; Q in shared memory instead of
+// registers leaves room for 5 blocks an SM at dh 32; splitting K and V
+// once a block into shared planes ran slower (the extra pass and
+// barrier cost more than the splits it saves); two 16-row tiles a warp
+// ran faster at S 512 with every key kept but slower at S 128 and at
+// the embedder's real lengths.
+//
+// The 3xTF32 error argument. Each fp32 operand x is split into
+// hi = x rounded to TF32 (11 significant bits) and lo = x - hi (exact in
+// fp32, |lo| <= 2^-11 |x|), which the mma reads truncated to TF32. Then
+// a*b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b: the dropped lo_a lo_b and the
+// truncations of lo are each below 2^-21 |a b|, about 8 fp32 ulps of
+// the product; the products themselves are exact in the mma, which adds
+// them in fp32, truncating. A score's small cross products are summed
+// apart from its large products (onto the bias) and the two added once
+// the score is complete, so that the large sum's rounding does not
+// swallow them; in P V each k-step adds its small products before its
+// large one, and a tile's P V is summed apart and added to o with a
+// rounded fma (chained into o, the truncations of up to 16 tiles' adds
+// all lean one way, and at S 512 came near ATTN_ATOL). On N(0, 1)
+// inputs the result is within ATTN_ATOL (1e-5) of the plain fp32
+// version. With |q| and |k| 10x larger (scores of std ~100) the plain
+// fp32 version is itself ~1e-4 from the float64 answer, and this kernel
+// no further from it.
+//
+// The launch is checked with cudaGetLastError; nothing synchronises.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <algorithm>
 #include <cstdint>
+
+#include "device_common.cuh"
 
 namespace {
 
-constexpr int kKeys = 64;     // key rows staged a tile
-constexpr int kChunk = 8;     // keys scored together (online-softmax step)
-constexpr int kMaxSeq = 512;  // the mask row staged whole
+constexpr int kRows = 64;           // query rows a block: 4 warps of 16
+constexpr int kThreads = 128;
+constexpr int kKeys = 32;           // key rows a tile
+constexpr int kMaxSeq = 512;        // the mask row staged whole
+constexpr int kMaxTiles = kMaxSeq / kKeys;
+constexpr float kMaskedBelow = -1e29f;   // the reference's bias is -1e30
+constexpr float kLog2e = 1.4426950408889634f;
+
+static_assert(kMaxTiles <= 32, "a walk is one 32-bit mask of tiles");
 
 struct Strides {
   int64_t b, h, s;            // in floats; rows are dense and 16-byte aligned
 };
 
 template <int kDh>
-__device__ __forceinline__ float dot_row(const float (&q)[kDh],
-                                         const float4* k) {
-  float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kDh / 4; c += 2) {
-    const float4 x = k[c], y = k[c + 1];
-    a0 = fmaf(q[4 * c], x.x, a0);
-    a0 = fmaf(q[4 * c + 1], x.y, a0);
-    a0 = fmaf(q[4 * c + 2], x.z, a0);
-    a0 = fmaf(q[4 * c + 3], x.w, a0);
-    a1 = fmaf(q[4 * c + 4], y.x, a1);
-    a1 = fmaf(q[4 * c + 5], y.y, a1);
-    a1 = fmaf(q[4 * c + 6], y.z, a1);
-    a1 = fmaf(q[4 * c + 7], y.w, a1);
-  }
-  return a0 + a1;
+struct Shape {
+  static constexpr int kStride = kDh + 4;          // floats a shared row
+  static constexpr int kTile = kKeys * kStride;    // floats of one K or V tile
+  // K and V in 2 stages, then Q's TF32 high parts and rests
+  static constexpr size_t kSmem =
+      (2 * 2 * kTile + 2 * kRows * kStride) * sizeof(float);
+  static constexpr int kSteps = kDh / 8;           // k-steps of Q K^T
+  static constexpr int kRowChunks = kDh / 4;       // 16-byte chunks a row
+  static constexpr int kLoadRows = kThreads / kRowChunks;   // rows a pass
+};
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the
+// exact rest, whose low 13 bits the mma ignores
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int kDh, int kRows>
-__global__ void __launch_bounds__(kRows)
-    masked_attention_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ mask_bias, int heads,
-                            int seq, Strides qs, Strides ks, Strides vs,
-                            float scale, float* __restrict__ out) {
-  constexpr int kVec = kDh / 4;
-  __shared__ float4 k_tile[kKeys * kVec];
-  __shared__ float4 v_tile[kKeys * kVec];
-  __shared__ float bias[kMaxSeq];
+// c += a (16 x 8 TF32, row) * b (8 x 8 TF32, col), fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int bh = blockIdx.x;
-  const int bi = bh / heads, hi = bh % heads;
-  const int row = blockIdx.y * kRows + threadIdx.x;
-  const bool active = row < seq;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  for (int i = threadIdx.x; i < seq; i += kRows) {
-    bias[i] = mask_bias[static_cast<int64_t>(bi) * seq + i];
-  }
-  float qr[kDh], acc[kDh];
-  if (active) {
-    const float4* qp = reinterpret_cast<const float4*>(
-        q + bi * qs.b + hi * qs.h + row * qs.s);
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// blocks an SM: shared memory holds 5 at dh 32 (39 KB each) and 3 at dh
+// 64 (72 KB); the bound caps registers to fit them (96 and 153 used)
+template <int kDh>
+__global__ void __launch_bounds__(kThreads, kDh == 32 ? 5 : 3)
+    masked_attention_tc_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ mask_bias,
+                               int heads, int seq, int row_blocks,
+                               int heads_per_y, int64_t batch_heads,
+                               Strides qs, Strides ks, Strides vs,
+                               float q_scale, float* __restrict__ out) {
+  using S = Shape<kDh>;
+  extern __shared__ __align__(16) float kv[];   // [stage][K, V][key][kStride]
+  __shared__ __align__(16) float bias[kMaxSeq];  // log2(e) * bias; -inf past S
+  __shared__ uint32_t kept_bits[kMaxSeq / 32];
+
+  // row blocks of one (batch, head) are neighbours in launch order, so
+  // its K and V come from the L2 after the first block reads them
+  const int64_t bh = static_cast<int64_t>(blockIdx.y) * heads_per_y +
+                     blockIdx.x / row_blocks;
+  if (bh >= batch_heads) return;
+  const int64_t bi = bh / heads;
+  const int hi = static_cast<int>(bh % heads);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (seq + kKeys - 1) / kKeys;
+
+  // a thread copies 16-byte chunk `lc` of rows lr, lr + kLoadRows, ... of
+  // a tile: its rows below seq as they are, the others as zeros
+  const int lr = tid / S::kRowChunks, lc = 4 * (tid % S::kRowChunks);
+  const float* kb = k + bi * ks.b + hi * ks.h + lc;
+  const float* vb = v + bi * vs.b + hi * vs.h + lc;
+  auto load_tile = [&](int j, int stage) {
+    float* dst = kv + 2 * stage * S::kTile + lr * S::kStride + lc;
+    int key = j * kKeys + lr;
+    const float* ksrc = kb + key * ks.s;
+    const float* vsrc = vb + key * vs.s;
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      const float4 t = __ldg(qp + c);
-      qr[4 * c] = t.x;
-      qr[4 * c + 1] = t.y;
-      qr[4 * c + 2] = t.z;
-      qr[4 * c + 3] = t.w;
+    for (int i = 0; i < kKeys / S::kLoadRows; ++i) {
+      const bool in = key < seq;
+      cortex_dev::cp_async16(dst, in ? ksrc : kb, in ? 16 : 0);
+      cortex_dev::cp_async16(dst + S::kTile, in ? vsrc : vb, in ? 16 : 0);
+      dst += S::kLoadRows * S::kStride;
+      ksrc += S::kLoadRows * ks.s;
+      vsrc += S::kLoadRows * vs.s;
+      key += S::kLoadRows;
+    }
+    cortex_dev::cp_async_commit();
+  };
+  load_tile(0, 0);          // nearly always walked: its copy runs under
+                            // the mask's and Q's loads
+
+#pragma unroll
+  for (int r = 0; r < kMaxSeq / kThreads; ++r) {
+    const int i = r * kThreads + tid;
+    const float b = i < seq ? __ldg(mask_bias + bi * seq + i) : -CUDART_INF_F;
+    bias[i] = b * kLog2e;
+    const uint32_t bits = __ballot_sync(0xffffffffu, b > kMaskedBelow);
+    if (lane == 0) kept_bits[i >> 5] = bits;
+  }
+
+  // the block's 64 query rows, pre-scaled and split once, as two planes
+  // of the same layout as a K tile; warps read their A fragments there
+  float* const qhi = kv + 2 * 2 * S::kTile;
+  float* const qlo = qhi + kRows * S::kStride;
+  const int row0 = (blockIdx.x % row_blocks) * kRows;
+  {
+    const float* qb = q + bi * qs.b + hi * qs.h + lc;
+#pragma unroll
+    for (int i = 0; i < kRows / S::kLoadRows; ++i) {
+      const int r = lr + i * S::kLoadRows, row = row0 + r;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < seq) x = __ldg(reinterpret_cast<const float4*>(qb + row * qs.s));
+      uint4 h, l;
+      split(x.x * q_scale, h.x, l.x);
+      split(x.y * q_scale, h.y, l.y);
+      split(x.z * q_scale, h.z, l.z);
+      split(x.w * q_scale, h.w, l.w);
+      *reinterpret_cast<uint4*>(qhi + r * S::kStride + lc) = h;
+      *reinterpret_cast<uint4*>(qlo + r * S::kStride + lc) = l;
     }
   }
-#pragma unroll
-  for (int d = 0; d < kDh; ++d) acc[d] = 0.0f;
-  float m = -CUDART_INF_F, l = 0.0f;
+  const int ra = row0 + warp * 16 + g;      // this thread's rows: ra, ra + 8
+  // lane's row address for an x4 ldmatrix of a 16 x 8 A fragment: rows
+  // 0-7 / 8-15 (lane bit 3), columns 0-3 / 4-7 (lane bit 4)
+  const int qa = (warp * 16 + (lane & 15)) * S::kStride + 4 * (lane >> 4);
+  __syncthreads();
 
-  const float* kb = k + bi * ks.b + hi * ks.h;
-  const float* vb = v + bi * vs.b + hi * vs.h;
-  for (int t0 = 0; t0 < seq; t0 += kKeys) {
-    const int nk = min(kKeys, seq - t0);
-    __syncthreads();            // the previous tile is read; bias is staged
-    for (int i = threadIdx.x; i < nk * kVec; i += kRows) {
-      const int j = i / kVec, c = i % kVec;
-      k_tile[i] = __ldg(reinterpret_cast<const float4*>(
-                            kb + (t0 + j) * ks.s) + c);
-      v_tile[i] = __ldg(reinterpret_cast<const float4*>(
-                            vb + (t0 + j) * vs.s) + c);
+  uint32_t walk = 0;
+  for (int j = 0; j < tiles; ++j) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int w = 0; w < kKeys / 32; ++w) any |= kept_bits[j * kKeys / 32 + w];
+    walk |= any ? 1u << j : 0u;
+  }
+  const bool zero_masked = walk != 0;
+  if (!zero_masked) walk = (1u << tiles) - 1u;   // no kept key: every tile
+
+  float o[S::kSteps][4];
+#pragma unroll
+  for (int n = 0; n < S::kSteps; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  }
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.0f, l1 = 0.0f;
+
+  int cur = __ffs(walk) - 1;
+  walk &= walk - 1;
+  if (cur != 0) {           // tile 0 holds no kept key: drop its copy
+    cortex_dev::cp_async_wait<0>();
+    load_tile(cur, 0);
+  }
+  for (int it = 0; cur >= 0; ++it) {
+    const int stage = it & 1;
+    const int next = walk ? __ffs(walk) - 1 : -1;
+    if (next >= 0) {
+      walk &= walk - 1;
+      load_tile(next, stage ^ 1);
+    } else {
+      cortex_dev::cp_async_commit();
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float s[kChunk];
-      float mc = -CUDART_INF_F;
+    cortex_dev::cp_async_wait<1>();
+    if (zero_masked) {      // this thread's chunks of masked keys -> 0
+      float* dst = kv + 2 * stage * S::kTile + lr * S::kStride + lc;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = j0 + jj;
-        s[jj] = j < nk ? dot_row<kDh>(qr, k_tile + j * kVec) * scale +
-                             bias[t0 + j]
-                       : -CUDART_INF_F;
-        mc = fmaxf(mc, s[jj]);
+      for (int i = 0; i < kKeys / S::kLoadRows; ++i) {
+        const int key = cur * kKeys + lr + i * S::kLoadRows;
+        if (!((kept_bits[key >> 5] >> (key & 31)) & 1u)) {
+          const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          *reinterpret_cast<float4*>(dst) = zero;
+          *reinterpret_cast<float4*>(dst + S::kTile) = zero;
+        }
+        dst += S::kLoadRows * S::kStride;
       }
-      if (mc > m) {
-        const float alpha = __expf(m - mc);
-        l *= alpha;
+    }
+    __syncthreads();                 // tile `cur` has landed for every warp
+    const float* kt = kv + 2 * stage * S::kTile;
+    const float* vt = kt + S::kTile;
+    const int key0 = cur * kKeys;
+
+    // s = Q K^T + bias for kKeys / 8 columns of 8 keys: s[n][0..1] row g,
+    // keys 2t and 2t + 1 of column n; s[n][2..3] the same keys for row
+    // g + 8. The small products accumulate onto the bias: 0 at a kept
+    // key, and at a masked one it swallows them.
+    constexpr int kCols = kKeys / 8;
+    float s[kCols][4], big[kCols][4];
 #pragma unroll
-        for (int d = 0; d < kDh; ++d) acc[d] *= alpha;
-        m = mc;
+    for (int n = 0; n < kCols; ++n) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(bias + key0 + 8 * n + 2 * t);
+      s[n][0] = s[n][2] = bb.x;
+      s[n][1] = s[n][3] = bb.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[n][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kp = 0; kp < S::kSteps / 2; ++kp) {     // k-steps 2kp, 2kp + 1
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cortex_dev::ldmatrix_x4(ah[h], qhi + qa + 16 * kp + 8 * h);
+        cortex_dev::ldmatrix_x4(al[h], qlo + qa + 16 * kp + 8 * h);
       }
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = j0 + jj;
-        if (j < nk) {
-          const float p = __expf(s[jj] - m);
-          l += p;
-          const float4* vr = v_tile + j * kVec;
+      for (int n = 0; n < kCols; ++n) {
+        uint32_t b[4];             // b0, b1 of k-steps 2kp and 2kp + 1
+        cortex_dev::ldmatrix_x4(
+            b, kt + (8 * n + (lane & 7)) * S::kStride + 16 * kp +
+                   4 * (lane >> 3));
 #pragma unroll
-          for (int c = 0; c < kVec; ++c) {
-            const float4 t = vr[c];
-            acc[4 * c] = fmaf(p, t.x, acc[4 * c]);
-            acc[4 * c + 1] = fmaf(p, t.y, acc[4 * c + 1]);
-            acc[4 * c + 2] = fmaf(p, t.z, acc[4 * c + 2]);
-            acc[4 * c + 3] = fmaf(p, t.w, acc[4 * c + 3]);
-          }
+        for (int h = 0; h < 2; ++h) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(b[2 * h]), bh0, bl0);
+          split(__uint_as_float(b[2 * h + 1]), bh1, bl1);
+          mma_tf32(s[n], al[h], bh0, bh1);
+          mma_tf32(s[n], ah[h], bl0, bl1);
+          mma_tf32(big[n], ah[h], bh0, bh1);
         }
       }
     }
-  }
-  if (!active) return;
-  const float inv = 1.0f / l;
-  float4* op = reinterpret_cast<float4*>(
-      out + ((static_cast<int64_t>(bi) * seq + row) * heads + hi) * kDh);
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    op[c] = make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
-                        acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
+    for (int n = 0; n < kCols; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += big[n][e];
+    }
+
+    // online softmax: the quad holds a row's 64 scores
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kCols; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);   // 0 on the first
+    m0 = mx0;
+    m1 = mx1;
+    float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kCols; ++n) {
+      s[n][0] = ex2(s[n][0] - m0);
+      s[n][1] = ex2(s[n][1] - m0);
+      s[n][2] = ex2(s[n][2] - m1);
+      s[n][3] = ex2(s[n][3] - m1);
+      ls0 += s[n][0] + s[n][1];
+      ls1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+
+    // o = o * alpha + P V: P's k-step j is score column j, taken as it
+    // lies (keys 2t, 2t + 1 as A columns t, t + 4); V's rows likewise.
+    // The tile's P V is summed apart and added to o once, rounded to
+    // nearest: o itself never takes the mma's truncating adds.
+    float pv[S::kSteps][4];
+#pragma unroll
+    for (int n = 0; n < S::kSteps; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      uint32_t ah[4], al[4];
+      split(s[j][0], ah[0], al[0]);
+      split(s[j][2], ah[1], al[1]);
+      split(s[j][1], ah[2], al[2]);
+      split(s[j][3], ah[3], al[3]);
+      const float* v0 = vt + (8 * j + 2 * t) * S::kStride + g;
+#pragma unroll
+      for (int n = 0; n < S::kSteps; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(v0[8 * n], bh0, bl0);
+        split(v0[S::kStride + 8 * n], bh1, bl1);
+        mma_tf32(pv[n], al, bh0, bh1);
+        mma_tf32(pv[n], ah, bl0, bl1);
+        mma_tf32(pv[n], ah, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < S::kSteps; ++n) {
+      o[n][0] = o[n][0] * a0 + pv[n][0];
+      o[n][1] = o[n][1] * a0 + pv[n][1];
+      o[n][2] = o[n][2] * a1 + pv[n][2];
+      o[n][3] = o[n][3] * a1 + pv[n][3];
+    }
+    __syncthreads();                 // every warp is done with this stage
+    cur = next;
+  }
+
+  const float inv0 = 1.0f / quad_sum(l0), inv1 = 1.0f / quad_sum(l1);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = ra + 8 * e;
+    if (row >= seq) continue;
+    const float inv = e ? inv1 : inv0;
+    float* op = out + ((bi * seq + row) * heads + hi) * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < S::kSteps; ++n) {
+      *reinterpret_cast<float2*>(op + 8 * n) =
+          make_float2(o[n][2 * e] * inv, o[n][2 * e + 1] * inv);
+    }
   }
 }
 
-template <int kDh, int kRows>
+template <int kDh>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            int batch, int heads, int seq, Strides qs, Strides ks, Strides vs,
-           float scale, void* out, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(batch) * heads,
-                  (seq + kRows - 1) / kRows);
-  masked_attention_kernel<kDh, kRows><<<grid, kRows, 0, st>>>(
+           float q_scale, void* out, cudaStream_t st) {
+  constexpr size_t smem = Shape<kDh>::kSmem;
+  const void* fn =
+      reinterpret_cast<const void*>(&masked_attention_tc_kernel<kDh>);
+  cortex_dev::DeviceLimits lim;
+  int per_sm = 0;
+  cudaError_t err = cortex_dev::fit_kernel(fn, kThreads, smem, &lim, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t batch_heads = static_cast<int64_t>(batch) * heads;
+  const int row_blocks = (seq + kRows - 1) / kRows;
+  const int per_y = static_cast<int>(std::min<int64_t>(batch_heads, 65536));
+  const dim3 grid(static_cast<unsigned>(row_blocks * per_y),
+                  static_cast<unsigned>((batch_heads + per_y - 1) / per_y));
+  masked_attention_tc_kernel<kDh><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias), heads,
-      seq, qs, ks, vs, scale, static_cast<float*>(out));
+      seq, row_blocks, per_y, batch_heads, qs, ks, vs, q_scale,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,13 +453,14 @@ extern "C" int cortex_masked_attention_launch(
   const Strides ks{k_strides[0], k_strides[1], k_strides[2]};
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float q_scale = scale * kLog2e;    // scores in log2 units: exp2
   if (dh == 32) {
-    return launch<32, 128>(q, k, v, mask_bias, batch, heads, seq, qs, ks, vs,
-                           scale, out, st);
+    return launch<32>(q, k, v, mask_bias, batch, heads, seq, qs, ks, vs,
+                      q_scale, out, st);
   }
   if (dh == 64) {
-    return launch<64, 64>(q, k, v, mask_bias, batch, heads, seq, qs, ks, vs,
-                          scale, out, st);
+    return launch<64>(q, k, v, mask_bias, batch, heads, seq, qs, ks, vs,
+                      q_scale, out, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

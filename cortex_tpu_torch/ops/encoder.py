@@ -14,7 +14,11 @@ has no Pallas kernel:
     softmax(q k^T / sqrt(dh) + mask_bias[:, None, None, :]) v for q, k,
     v [B, H, S, dh] and mask_bias [B, S] (0 or -1e30). A masked key
     contributes exactly 0 to every row that has an unmasked key, as
-    exp's underflow does in the reference.
+    exp's underflow does in the reference. The kernel runs on the tensor
+    cores in 3xTF32 (each fp32 operand split into a TF32 high part and
+    its rest, three products per fp32 product), walks only the 32-key
+    tiles that hold a kept key, and sets masked keys' K and V to zeros,
+    so that a kept row does not depend on them, bit for bit.
 
 Each wrapper checks its arguments, then dispatches on the tensors'
 device with exactly two branches: CUDA tensors launch the hand-written
@@ -40,9 +44,10 @@ from .build import load_ops
 #: E1 holds a row in a warp's registers, float4s: at most 32 floats a
 #: lane, h % 4 == 0 (every BERT width: 384, 768, 1024)
 MAX_LN_WIDTH = 1024
-#: E2 keeps a query row and its sum in one thread's registers
+#: E2's tile shape: k-steps of 8 over dh, Q's fragments in registers
 ATTN_HEAD_DIMS = (32, 64)
-#: E2 stages a sequence's mask row in shared memory; BERT's max_position
+#: E2 stages a sequence's mask row in shared memory and walks its 32-key
+#: tiles from a 32-bit mask; BERT's max_position
 MAX_ATTN_SEQ = 512
 
 

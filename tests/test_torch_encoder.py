@@ -189,6 +189,27 @@ def test_attention_plain_matches_reference(b, h, s, dh):
     assert max_abs(got.numpy(), want) <= TINY_ATOL
 
 
+@pytest.mark.parametrize("s,dh", [(40, 16), (129, 32), (200, 64)])
+def test_attention_plain_matches_reference_on_mask_patterns(s, dh):
+    # masks the card's kernel walks tile by tile: masked keys in front,
+    # in the middle, a masked run of 64 between kept keys, only the last
+    # key kept, and a row with every key masked (the mean of v)
+    rng = np.random.default_rng(s + dh)
+    q, k, v = (rng.normal(0, 1, (5, 2, s, dh)).astype(np.float32)
+               for _ in range(3))
+    keys = np.arange(s)
+    mask = np.stack([keys >= s // 3,
+                     (keys < s // 4) | (keys >= s // 2),
+                     (keys < 64) | (keys >= 128),
+                     keys == s - 1,
+                     np.zeros(s, bool)])
+    bias = np.where(mask, 0.0, -1e30).astype(np.float32)
+    want = _reference_attention(q, k, v, bias)
+    got = ops.masked_attention(*(torch.from_numpy(a)
+                                 for a in (q, k, v, bias)))
+    assert max_abs(got.numpy(), want) <= TINY_ATOL
+
+
 def test_encoder_layer_matches_reference():
     jcfg, tcfg = configs()
     params = jenc.init_params(jcfg, seed=8)

@@ -957,9 +957,12 @@ def test_decay_sweep_argument_checks(dev, bad):
 # E1 (add_layer_norm) and E2 (masked_attention) against their plain
 # versions. E1: within LN_ATOL (the mean's and variance's sums are added
 # in another order; outputs are ~N(0, 1) * g + b). E2: within ATTN_ATOL
-# (online softmax with __expf against torch's softmax and two einsums;
-# outputs are averages of N(0, 1) values); an unmasked row's output is
-# bit-equal whatever the masked keys hold.
+# (3xTF32 products and an online softmax with exp2 against torch's fp32
+# einsums and softmax; outputs are averages of N(0, 1) values); an
+# unmasked row's output is bit-equal whatever the masked keys hold. With
+# |q| and |k| 10x larger (scores of std ~100) the plain fp32 version is
+# itself ~1e-4 from the float64 answer; there E2 may be no further from
+# that answer than the plain version plus ATTN_ATOL.
 
 LN_ATOL = 1e-5
 ATTN_ATOL = 1e-5
@@ -1024,38 +1027,94 @@ def test_add_layer_norm_limits(dev):
         enc.add_layer_norm(x.double(), r[:3].double(), g, b, 1e-12)
 
 
-def _attn_inputs(dev, b, h, s, dh, seed):
+def _kept_patterns(b, s):
+    """[b, s] bool: row i keeps the keys of pattern i % 9: all; the first
+    64, 65, 128 or 129 (ending on and one past E2's tile edges, 32 keys
+    a tile); all but the first third; all but the keys from S / 4 to
+    S / 2; keys 0-63 and 128 onwards, with 64-127 (two tiles) wholly
+    masked; only the last key."""
+    kept = np.zeros((b, s), bool)
+    for i in range(b):
+        p, row = i % 9, kept[i]
+        if p == 0:
+            row[:] = True
+        elif p in (1, 2, 3, 4):
+            row[:(64, 65, 128, 129)[p - 1]] = True
+        elif p == 5:
+            row[s // 3:] = True
+        elif p == 6:
+            row[:max(1, s // 4)] = True
+            row[s // 2:] = True
+        elif p == 7:
+            row[:64] = True
+            row[128:] = True
+        else:
+            row[s - 1] = True
+    return kept
+
+
+def _attn_inputs(dev, b, h, s, dh, seed, mask="tail", scale=1.0):
     """q, k, v [B, H, S, dh] as views of one [B, S, 3, H, dh] buffer (the
-    encoder's Q|K|V product), a mask bias whose first row is unpadded
-    and whose others keep 1..S keys, and the kept lengths."""
+    encoder's Q|K|V product; q and k times `scale`), a mask bias and its
+    kept keys [B, S] (numpy bool). mask "tail": the first row keeps all
+    S keys and the others their first 1..S; "patterns": _kept_patterns."""
     rng = np.random.default_rng(seed)
     qkv = torch.from_numpy(rng.normal(0.0, 1.0, (b, s, 3, h, dh)).astype(
         np.float32)).to(dev)
-    lengths = rng.integers(1, s + 1, b)
-    lengths[0] = s
-    bias = np.where(np.arange(s)[None, :] < lengths[:, None], 0.0, -1e30)
+    if mask == "tail":
+        lengths = rng.integers(1, s + 1, b)
+        lengths[0] = s
+        kept = np.arange(s)[None, :] < lengths[:, None]
+    else:
+        kept = _kept_patterns(b, s)
+    bias = np.where(kept, 0.0, -1e30)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-    return q, k, v, torch.from_numpy(bias.astype(np.float32)).to(dev), lengths
+    if scale != 1.0:
+        q, k = q * scale, k * scale
+    return q, k, v, torch.from_numpy(bias.astype(np.float32)).to(dev), kept
 
 
-def _check_e2(q, k, v, bias):
+def _check_e2(q, k, v, bias, scale=1.0):
     before = enc.masked_attention.launches
     got = enc.masked_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert enc.masked_attention.launches == before + 1
     want = enc.masked_attention_plain(q, k, v, bias)
     assert got.shape == want.shape and got.dtype == torch.float32
-    assert float((got - want).abs().max()) <= ATTN_ATOL
+    if scale == 1.0:
+        assert float((got - want).abs().max()) <= ATTN_ATOL
+    else:
+        exact = enc.masked_attention_plain(
+            *(t.double() for t in (q, k, v, bias)))
+        plain_err = float((want.double() - exact).abs().max())
+        assert float((got.double() - exact).abs().max()) <= (
+            plain_err + ATTN_ATOL)
     return got
 
 
-@pytest.mark.parametrize("b,h,s,dh", [(1, 12, 1, 32), (2, 12, 31, 32),
-                                      (4, 12, 128, 32), (2, 12, 512, 32),
-                                      (3, 2, 31, 64), (2, 12, 512, 64),
-                                      (5, 3, 77, 64), (64, 12, 128, 32)])
-def test_masked_attention_equals_plain(dev, b, h, s, dh):
-    q, k, v, bias, _ = _attn_inputs(dev, b, h, s, dh, seed=b * s + dh)
-    got = _check_e2(q, k, v, bias)
+@pytest.mark.parametrize("b,h,s,dh,mask,scale", [
+    (1, 12, 1, 32, "tail", 1.0), (2, 12, 31, 32, "tail", 1.0),
+    (4, 12, 128, 32, "tail", 1.0), (2, 12, 512, 32, "tail", 1.0),
+    (3, 2, 31, 64, "tail", 1.0), (2, 12, 512, 64, "tail", 1.0),
+    (5, 3, 77, 64, "tail", 1.0), (64, 12, 128, 32, "tail", 1.0),
+    # about the tile edges (32 keys a tile)
+    (4, 12, 63, 32, "tail", 1.0), (4, 12, 64, 32, "tail", 1.0),
+    (4, 12, 65, 64, "tail", 1.0), (4, 12, 127, 32, "tail", 1.0),
+    (4, 12, 129, 64, "tail", 1.0),
+    # masks that are not a tail: tile edges, front, middle, a masked
+    # tile between kept ones, only the last key
+    (9, 4, 31, 32, "patterns", 1.0), (9, 4, 129, 32, "patterns", 1.0),
+    (9, 4, 200, 64, "patterns", 1.0), (9, 12, 512, 32, "patterns", 1.0),
+    (18, 3, 512, 64, "patterns", 1.0),
+    # dh 64 at S 512, B * H 3,072
+    (256, 12, 512, 64, "tail", 1.0),
+    # |q| and |k| 10x: held to the float64 answer
+    (4, 12, 128, 32, "tail", 10.0), (9, 12, 512, 64, "patterns", 10.0),
+    (9, 4, 200, 32, "patterns", 10.0)])
+def test_masked_attention_equals_plain(dev, b, h, s, dh, mask, scale):
+    q, k, v, bias, _ = _attn_inputs(dev, b, h, s, dh, seed=b * s + dh,
+                                    mask=mask, scale=scale)
+    got = _check_e2(q, k, v, bias, scale)
     # written as [B, S, H, dh]: back to [B * S, H * dh] without a copy
     assert got.transpose(1, 2).is_contiguous()
     # strided views and contiguous copies give the same bits
@@ -1063,10 +1122,13 @@ def test_masked_attention_equals_plain(dev, b, h, s, dh):
         q.contiguous(), k.contiguous(), v.contiguous(), bias))
 
 
-@pytest.mark.parametrize("s,dh", [(31, 32), (128, 32), (512, 32),
-                                  (200, 64)])
-def test_masked_attention_padding_invariance(dev, s, dh):
-    q, k, v, bias, lengths = _attn_inputs(dev, 4, 12, s, dh, seed=s)
+@pytest.mark.parametrize("b,s,dh,mask", [
+    (4, 31, 32, "tail"), (4, 128, 32, "tail"), (4, 512, 32, "tail"),
+    (4, 200, 64, "tail"), (4, 65, 32, "tail"), (9, 129, 32, "patterns"),
+    (9, 200, 64, "patterns"), (9, 512, 32, "patterns")])
+def test_masked_attention_padding_invariance(dev, b, s, dh, mask):
+    q, k, v, bias, kept = _attn_inputs(dev, b, 12, s, dh, seed=s,
+                                       mask=mask)
     got = enc.masked_attention(q, k, v, bias)
     masked = bias < -1e29                              # [B, S] keys
     q2, k2, v2 = (t.clone() for t in (q, k, v))
@@ -1075,13 +1137,16 @@ def test_masked_attention_padding_invariance(dev, s, dh):
         t.copy_(torch.where(masked[:, None, :, None], noise, t))
     again = enc.masked_attention(q2, k2, v2, bias)
     torch.cuda.synchronize()
-    for row, n in enumerate(lengths):
-        assert torch.equal(got[row, :, :n], again[row, :, :n])
+    for row in range(b):
+        rows = torch.from_numpy(np.flatnonzero(kept[row])).to(dev)
+        assert torch.equal(got[row][:, rows], again[row][:, rows])
 
 
-def test_masked_attention_every_key_masked(dev):
-    # the reference's softmax over equal scores: the mean of v
-    q, k, v, bias, _ = _attn_inputs(dev, 3, 4, 40, 32, seed=9)
+@pytest.mark.parametrize("s", [40, 200])
+def test_masked_attention_every_key_masked(dev, s):
+    # the reference's softmax over equal scores: the mean of v (the
+    # kernel walks every key tile of such a row, with its real values)
+    q, k, v, bias, _ = _attn_inputs(dev, 3, 4, s, 32, seed=9)
     bias[1] = -1e30
     got = _check_e2(q, k, v, bias)
     want = v[1].mean(dim=1, keepdim=True).expand_as(got[1])
