@@ -76,19 +76,49 @@ Phases, each printing its results on its own line:
      over input sets that together exceed the L2 four times (so read
      from HBM), beside the bound (E1: bytes; E2: bytes or fp32 FLOPs of
      the kept keys, the larger, and beside it the bound of its route:
-     3 TF32 products per fp32 product at 495 TFLOP/s);
-  3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows): at
-     nprobe = nlist the top-10 of 64 queries equals the exact fp32
-     oracle (near-ties of 1e-6 may swap); at the default nprobe the
-     recall@10, batch-64 throughput (median of 5 runs of 30 batches) and
-     batch-1 latency (p50 and p99 over 1,000 queries); then 1,000
-     inserts and 100 removes through the incremental update;
+     3 TF32 products per fp32 product at 495 TFLOP/s). The kNN-graph
+     block kernel (N1) against its plain version, list for list: small
+     and odd (L 37, d 100, a list with 3 live slots, r 1, 12 and 36),
+     phase 4's 384-d layout (144 lists of 192 slots, r 32) and the 10M
+     auto layout's lists (4 of 4,096 x 768, r 32: a block of 8 rows); at
+     phase 3's
+     1M layout, on its first 64 lists at r 32 and r = L - 1, with their
+     and the plain version's times beside the bound (operations: the
+     L (L - 1) / 2 distinct dots of a list's symmetric self-product,
+     L (L - 1) d int8 operations, at 1,979 TOP/s; bytes: the lists' rows
+     and planes read once, the lists written once), and torch._int_mm
+     over one list's
+     block times C ("product only"); K1 at the nprobe tuner's shape (256
+     queries, cand 32, over the tuner's chunk of the flattened layout,
+     dead slots biased to NEG_INF), checked and timed as above;
+  3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows), with
+     the kNN graph at the default degree 32, built on its background
+     thread (the build's wall split into device work, fetch and host
+     merge, and N1's launches): at nprobe = nlist the top-10 of 64
+     queries equals the exact fp32 oracle (near-ties of 1e-6 may swap);
+     at the default nprobe the recall@10, batch-64 throughput (median of
+     5 runs of 30 batches) and batch-1 latency (p50 and p99 over 1,000
+     queries), refined; recall@10 at nprobe 128, 16, 4 and 1 with refine
+     on and off (refined never below unrefined), for these queries and
+     for 64 hard ones (corpus rows plus 1.0 x noise), and the speeds
+     unrefined;
+     then 1,000 inserts and 100 removes through the incremental update;
+     then a second index over the same rows with ivf_target_recall 0.95,
+     whose build (sync) runs the nprobe tuner: its pick, curve,
+     delivered recall and candidate boost read from index_info(), the
+     build's wall, its graph swapped in, and recall@10 at its pick for
+     phase 3's queries against the exact oracle;
   4. the Cortex slice: Cortex.open on SQLite with index = "ivf" (every
-     list probed), store_batch 20,000 seeded nodes, store / delete_node,
-     searches with decay and record_access, a kind filter and > 64
-     exclusions; the same searches at the default nprobe against the
-     exact results; close, reopen (rebuild from storage), the same
-     results;
+     list probed, no graph), store_batch 20,000 seeded nodes, store /
+     delete_node, searches with decay and record_access, a kind filter
+     and > 64 exclusions; the same searches at the default nprobe
+     against the exact results; close, reopen (rebuild from storage),
+     the same results; then CortexConfig() with only index = "ivf" (the
+     reference's IVF defaults: graph degree 32, auto nprobe), and the
+     same with ivf_target_recall = 0.95, in memory over 20,000 nodes:
+     every hit scores its exact cosine, every oracle top-10 row that a
+     probed list holds is returned, each sampled node's own text returns
+     it first unless no probed list holds it;
   5. the flat index (the default) over phase 3's rows: it resolves to
      the quant path (K1 + K2); search_path "exact" equals the oracle,
      "auto" reaches recall@10 >= 0.99 with every score exact; the same
@@ -161,15 +191,17 @@ Phases, each printing its results on its own line:
      lengths: the shares of the products, E1, E2 and GELU in its device
      time.
 
-Five main paths: phases 3-4 (IVF), 5-6 (flat), 7-8 (graph, on the
-flat index), 9-10 (the linker) and 11 (the encoder). Every launch count
-is set to 0 just before each and read just after it: probed_scores from
-the first and fifth, quant_candidates and quant_rerank from the second
-to fifth, frontier_bfs, frontier_bfs_compact and bfs_relax from the
-third, decay_sweep from the fourth, add_layer_norm and masked_attention
-from the fifth; launches made in phase 2, or to compare a kernel with
-its plain version (or to time the forward) in phases 7-9 and 11, do not
-count. The line
+Five main paths: phases 3-4 (IVF, from the index's build), 5-6 (flat),
+7-8 (graph, on the flat index), 9-10 (the linker) and 11 (the encoder).
+Every launch count is set to 0 just before each and read just after it:
+probed_scores from the first and fifth, block_knn from the first,
+quant_candidates from the first (the tuner's truth) to the fifth,
+quant_rerank from the second to fifth, frontier_bfs,
+frontier_bfs_compact and bfs_relax from the third, decay_sweep from the
+fourth, add_layer_norm and masked_attention from the fifth; launches
+made in phase 2 (also its part at the 1M layout, inside phase 3), or to
+compare a kernel with its plain version (or to time the forward) in
+phases 7-9 and 11, do not count. The line
 before the last lists the kernels as JSON (launches per path beside
 their sum), the line before that the card's name and power limit; the
 last line is the device JSON. At the end the script fails if any
@@ -187,7 +219,9 @@ profile_out/ beside this script. Last, on the flat index's planes, it
 times K1's kernel whole and cut short after each of its parts, and K2
 with its largest warp sort of 64, 256 and 1,024 entries, each from
 csrc/flat_scan.cu built alone with a compile-time switch
-(CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX). Then it traces
+(CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX); before that, on the IVF
+index's layout, N1 on 64 lists whole, cut after its product and without
+it (CORTEX_KNN_PARTS, csrc/block_knn.cu). Then it traces
 PROFILE_ROUNDS hybrid searches of phase 7's device tier (host ms per
 leg, device ms per kernel, idle share), and times G2 from
 csrc/graph_bfs.cu built alone, whole and cut after its table read
@@ -272,6 +306,14 @@ ENC_WORDS, ENC_TOPICS, ENC_LONG, ENC_SEED = 20_000, 500, 0.05, 8
 ENC_KINDS = ("fact", "event", "decision", "goal", "observation")
 ENC_SAMPLE = 24
 ENC_SPEED_BATCHES, ENC_SPEED_SEQS = (1, 64, 4096), (32, 128, 512)
+GRAPH_DEGREE = 32         # [embedding] ivf_graph_degree's default
+GRAPH_WAIT_S = 600        # the background graph build must swap in by then
+KNN_CHUNK = 64            # lists a chunk at the 1M layout (_chunk_clusters)
+L_10M = 4096              # slots a list of the auto layout at 10M rows
+REFINE_NPROBES = (128, 16, 4, 1)   # recall with and without the graph
+HARD_SPREAD = 1.0         # phase 3's hard queries: a row + 1.0 * noise
+TUNE_TARGET = 0.95
+TUNE_QUERIES, TUNE_CAND = 256, 32   # K1 at the tuner's shape
 KERNELS = {               # name -> (source, what it replaces)
     "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
                       "cortex_tpu/ops/ivf_gather.py:114"),
@@ -291,6 +333,8 @@ KERNELS = {               # name -> (source, what it replaces)
                        "cortex_tpu/models/encoder.py:200"),
     "masked_attention": ("cortex_tpu_torch/csrc/encoder_attn.cu",
                          "cortex_tpu/models/encoder.py:216"),
+    "block_knn": ("cortex_tpu_torch/csrc/block_knn.cu",
+                  "cortex_tpu/vector/knn_graph.py:105"),
 }
 
 
@@ -305,7 +349,7 @@ def say(phase, **fields):
 
 def _wrappers():
     from cortex_tpu_torch.ops import (decay, encoder, graph_bfs, ivf_gather,
-                                      similarity)
+                                      knn_graph, similarity)
     return {"probed_scores": ivf_gather.probed_scores,
             "quant_candidates": similarity.quant_candidates,
             "quant_rerank": similarity.quant_rerank,
@@ -314,7 +358,8 @@ def _wrappers():
             "bfs_relax": graph_bfs.bfs_relax,
             "decay_sweep": decay.decay_sweep,
             "add_layer_norm": encoder.add_layer_norm,
-            "masked_attention": encoder.masked_attention}
+            "masked_attention": encoder.masked_attention,
+            "block_knn": knn_graph.block_knn}
 
 
 def reset_launches(names=None):
@@ -533,6 +578,127 @@ def check_real_layout(kc, index, queries):
     return out, p
 
 
+# ------------------------------------------------ phase 2, N1
+
+
+class KnnKernelCheck:
+    """N1 (block_knn) against block_knn_plain: the lists equal, bit for
+    bit (max_abs_err must stay 0)."""
+
+    def __init__(self):
+        self.max_abs_err = 0
+        self.cases = 0
+
+    def compare(self, emb, rinv, rows, mud, r):
+        import torch
+        from cortex_tpu_torch.ops.knn_graph import block_knn, block_knn_plain
+        got = block_knn(emb, rinv, rows, mud, r)
+        want = block_knn_plain(emb, rinv, rows, mud, r)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, "N1 and plain shapes differ")
+        bad = int((got != want).sum())
+        check(bad == 0, f"N1 differs from plain in {bad} list entries "
+              f"(shape {tuple(emb.shape)}, r {r})")
+        check(bool((want >= 0).any()), "N1 comparison saw no neighbour")
+        self.cases += 1
+
+
+def knn_inputs(dev, gen, c, l, d):
+    """A synthetic layout (synthetic_layout) and its mud for a random mu."""
+    import torch
+    from cortex_tpu_torch.ops.knn_graph import slot_mu_dot
+    emb, rinv, rows, _, _ = synthetic_layout(dev, gen, c, l, d)
+    rinv = torch.where(rows >= 0, rinv, torch.zeros_like(rinv))
+    mu = torch.randn(d, device=dev, generator=gen) * 0.02
+    return emb, rinv, rows, slot_mu_dot(emb, rinv, mu)
+
+
+def check_knn_synthetic(knc, dev, gen):
+    """Phase 2's N1 shapes: small and odd (L not a multiple of the 64-slot
+    tile, d not of 16, a list with 3 live slots so r passes its live
+    count), phase 4's 384-d layout at the default degree, and the 10M
+    auto layout's lists (L 4,096 at d 768, 8 rows a block; from a
+    generator of its own, so that the shared one draws as before), timed
+    beside its bound; returns that timing."""
+    import torch
+    from cortex_tpu_torch.ops.knn_graph import block_knn, block_knn_plain
+    emb, rinv, rows, mud = knn_inputs(dev, gen, 5, 37, 100)
+    rows[4, 3:] = -1
+    emb[4, 3:] = 0
+    rinv[4, 3:] = 0.0
+    for r in (1, 12, 36):
+        knc.compare(emb, rinv, rows, mud, r)
+    knc.compare(*knn_inputs(dev, gen, 144, 192, DIM_NODES), GRAPH_DEGREE)
+    wide = torch.Generator(device=dev)
+    wide.manual_seed(2)
+    args = knn_inputs(dev, wide, 4, L_10M, D_BIG)
+    knc.compare(*args, GRAPH_DEGREE)
+    lists, r = args[0].shape[0], GRAPH_DEGREE
+    return timing(time_ms(lambda: block_knn(*args, r), 5),
+                  time_ms(lambda: block_knn_plain(*args, r), 1),
+                  bound_ms(lists * L_10M * (D_BIG + 12 + 4 * r),
+                           lists * L_10M * (L_10M - 1) * D_BIG,
+                           INT8_OPS_PER_S), lists=lists, slots=L_10M, r=r)
+
+
+def check_knn_real(knc, fc, index):
+    """N1 on KNN_CHUNK lists of the 1M layout at r = the default degree
+    and r = L - 1, and K1 at the tuner's shape (TUNE_QUERIES queries,
+    cand TUNE_CAND, over the tuner's chunk of the flattened layout);
+    timings beside their bounds. Launches here are not the main path's."""
+    import torch
+    from cortex_tpu_torch.ops.knn_graph import (block_knn, block_knn_plain,
+                                                slot_mu_dot)
+    from cortex_tpu_torch.ops.similarity import (quant_candidates,
+                                                 quant_candidates_plain,
+                                                 quantize_queries)
+    from cortex_tpu_torch.vector.ivf import GATHER_BUDGET_BYTES
+    co = index._corpus
+    _, emb, rinv, rows, _, _ = co._ivf_dev
+    c, l, d = emb.shape
+    mu = torch.from_numpy(co._quant_mu).to(emb.device)
+    blk, ri, sr = emb[:KNN_CHUNK], rinv[:KNN_CHUNK], rows[:KNN_CHUNK]
+    mud = slot_mu_dot(blk, ri, mu)
+    out = {}
+    chunks = -(-c // KNN_CHUNK)
+    # the int8 self-product alone ("product only": not the same function),
+    # one list's block, times the C lists
+    one = emb[0]
+    product_ms = time_ms(lambda: torch._int_mm(one, one.T), 5) * c
+    for r in (GRAPH_DEGREE, l - 1):
+        knc.compare(blk, ri, sr, mud, r)
+        # bytes: the chunk's rows, rinv, slot_rows and mud read once, the
+        # lists written once; operations: a list's self-product is
+        # symmetric, so it needs its L (L - 1) / 2 distinct dots of 2 d
+        nbytes = KNN_CHUNK * l * (d + 12) + KNN_CHUNK * l * r * 4
+        ops = KNN_CHUNK * l * (l - 1) * d
+        ms = time_ms(lambda: block_knn(blk, ri, sr, mud, r), 5)
+        t = timing(ms, time_ms(lambda: block_knn_plain(blk, ri, sr, mud, r),
+                               1),
+                   bound_ms(nbytes, ops, INT8_OPS_PER_S), lists=KNN_CHUNK,
+                   layout_ms=ms * chunks, layout_chunks=chunks,
+                   layout_int_mm_product_only_ms=product_ms)
+        t["layout_bound_ms"] = t["bound_ms"] * chunks
+        out[f"c{KNN_CHUNK}_r{r}"] = t
+    # K1 as the tuner runs it: its first chunk of the flattened layout
+    cc = max(1, min(c, GATHER_BUDGET_BYTES // (l * (d + 4 * TUNE_QUERIES))))
+    q = torch.from_numpy(co._emb_h[np.flatnonzero(co._live_h)[
+        :TUNE_QUERIES * 97:97]]).to(emb.device)
+    qi8, qs = quantize_queries(q)
+    flat_rows = rows[:cc].reshape(-1)
+    bias = torch.where(flat_rows >= 0, 0.0, -1e30).to(torch.float32)
+    args = (emb[:cc].reshape(-1, d), rinv[:cc].reshape(-1), qi8, qs, bias)
+    fc.k1(*args, TUNE_CAND)
+    cap = cc * l
+    k1 = timing(time_ms(lambda: quant_candidates(*args, TUNE_CAND), 5),
+                time_ms(lambda: quant_candidates_plain(*args, TUNE_CAND), 2),
+                bound_ms(cap * (d + 8) + TUNE_QUERIES * d
+                         + 8 * TUNE_QUERIES * TUNE_CAND,
+                         2 * TUNE_QUERIES * cap * d, INT8_OPS_PER_S),
+                rows=cap)
+    return out, k1
+
+
 # ------------------------------------------------ phase 2, flat kernels
 
 
@@ -660,14 +826,15 @@ def clustered_rows(gen, dev, n, d, *, groups, spread=0.35,
     return x, centers
 
 
-def noisy_centers(gen, centers, n):
-    """n unit queries, each a noisy copy of a random cluster center."""
+def noisy_centers(gen, centers, n, spread=0.35):
+    """n unit queries, each a noisy copy (spread x unit-scale noise) of a
+    random row of `centers`."""
     import torch
     d = centers.shape[1]
     sel = torch.randint(0, centers.shape[0], (n,), device=centers.device,
                         generator=gen)
-    q = centers[sel] + 0.35 * torch.randn((n, d), device=centers.device,
-                                          generator=gen) / d ** 0.5
+    q = centers[sel] + spread * torch.randn((n, d), device=centers.device,
+                                            generator=gen) / d ** 0.5
     return (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
 
 
@@ -709,9 +876,25 @@ def hits_match_oracle(hits, ov, oi, id_of, k):
                                atol=SCORE_ATOL)
 
 
-def phase_index(dev, n, d, gen, kc):
-    """Phases 3 (build) and 2 at the real layout; returns the index, the
-    query sets, the timings and the rows (for phase 5)."""
+def wait_for_graph(index):
+    """Wait for the background kNN-graph build to swap in; fail if it
+    never does (a failed build is logged and leaves the graph off)."""
+    co = index._corpus
+    t0 = time.monotonic()
+    while (co._graph_inflight and co._nbrs_h is None
+           and time.monotonic() - t0 < GRAPH_WAIT_S):
+        time.sleep(0.05)
+    check(co._nbrs_h is not None, "the kNN graph never swapped in (see "
+          "the log for the background build's error)")
+    return time.monotonic() - t0
+
+
+def phase_index(dev, n, d, gen, kc, knc=None, fc=None):
+    """Phases 3 (build, the kNN graph at the default degree on its
+    background thread) and 2 at the real layout (probed_scores; N1 and
+    K1 at the tuner's shape when knc and fc are given, their launches
+    uncounted); returns the index, the query sets, the timings and the
+    rows (for phase 5)."""
     import torch
     from cortex_tpu_torch.vector.ivf import TorchIvfIndex
     t0 = time.monotonic()
@@ -728,41 +911,59 @@ def phase_index(dev, n, d, gen, kc):
     index.insert_batch(ids, x_h, kinds=kinds)
     t_insert = time.monotonic() - t0
     t0 = time.monotonic()
-    index._corpus.sync()                       # k-means + pack + upload
+    index._corpus.sync()                # k-means + pack + upload + spawn
     torch.cuda.synchronize()
     t_build = time.monotonic() - t0
     co = index._corpus
     c, l, _ = co._ivf_dev[1].shape
+    graph_wait = wait_for_graph(index)
+    gs = co._graph_stats
+    check(gs.get("background") is True, "the 1M graph was not built on "
+          "the background path")
+    filled = float((co._nbrs_h[co._live_h] >= 0).sum(axis=1).mean())
     say("3-build", rows=n, dim=d, nlist=int(c), slots_per_list=int(l),
         nprobe=int(co._nprobe(c)), spill=bool(co._has_spill),
         gen_s=round(t_gen, 2), insert_s=round(t_insert, 2),
-        build_s=round(t_build, 2))
+        build_s=round(t_build, 2), graph_degree=co._graph_degree,
+        graph_wait_after_build_s=graph_wait, graph_wall_s=gs["wall_s"],
+        graph_device_s=gs["device_s"], graph_fetch_s=gs["fetch_s"],
+        graph_merge_s=gs["merge_s"], graph_chunks=gs["chunks"],
+        graph_chunk_lists=gs["chunk_clusters"], graph_r=gs["r"],
+        graph_mean_filled=filled,
+        block_knn_launches=launch_counts()["block_knn"])
     q_np = noisy_centers(gen, centers, BATCH)
     q_lat = noisy_centers(gen, centers, N_LAT)
-    perf, p = check_real_layout(kc, index, q_np)
-    say("2-kernel-1M", nprobe=int(p), cases=kc.cases,
-        max_abs_err=kc.max_abs_err, **perf)
+    with uncounted():
+        perf, p = check_real_layout(kc, index, q_np)
+        say("2-kernel-1M", nprobe=int(p), cases=kc.cases,
+            max_abs_err=kc.max_abs_err, **perf)
+        if knc is not None:
+            knn, k1 = check_knn_real(knc, fc, index)
+            perf = {"probed_scores": perf, "block_knn": knn,
+                    "k1_tuner": k1}
+            say("2-kernel-1M-knn", cases=knc.cases,
+                max_abs_err=knc.max_abs_err, **knn, k1_tuner=k1)
     return index, q_np, q_lat, perf, (x_h, ids, kinds, q_np, member)
 
 
-def search_speed(index, q_np, q_lat):
+def search_speed(index, q_np, q_lat, refine=True):
     """Batch-64 queries/s (median of QPS_RUNS runs of QPS_ROUNDS
     batches) and batch-1 latency in ms (p50, p99 over len(q_lat)
     queries), on the host clock around search_batch with k = K, after
     one untimed search of each shape (the first search loads the host
     re-rank library)."""
-    index.search_batch(q_np, K)
-    index.search_batch(q_lat[:1], K)
+    index.search_batch(q_np, K, refine=refine)
+    index.search_batch(q_lat[:1], K, refine=refine)
     qps = []
     for _ in range(QPS_RUNS):
         t0 = time.perf_counter()
         for _ in range(QPS_ROUNDS):
-            index.search_batch(q_np, K)
+            index.search_batch(q_np, K, refine=refine)
         qps.append(QPS_ROUNDS * len(q_np) / (time.perf_counter() - t0))
     lat = []
     for b in range(len(q_lat)):
         t0 = time.perf_counter()
-        index.search_batch(q_lat[b:b + 1], K)
+        index.search_batch(q_lat[b:b + 1], K, refine=refine)
         lat.append((time.perf_counter() - t0) * 1e3)
     p50, p99 = np.percentile(lat, [50, 99])
     return qps, float(p50), float(p99)
@@ -787,10 +988,12 @@ def phase_search(index, q_np, q_lat, gen, dev, card):
                             for h, t in zip(hits, truth)]))
     qps, p50, p99 = search_speed(index, q_np, q_lat)
     say("3-search", full_probe_exact=True, nprobe=int(co._nprobe(c)),
-        recall_at_10=recall, batch64_qps_median=statistics.median(qps),
+        refined=True, recall_at_10=recall,
+        batch64_qps_median=statistics.median(qps),
         batch64_qps_runs=qps, batch1_ms_p50=p50, batch1_ms_p99=p99,
         batch1_queries=len(q_lat), card=card)
     check(recall >= 0.9, f"default-nprobe recall@10 {recall} < 0.9")
+    refine_report(index, q_np, q_lat, oi, truth, card)
     # incremental: 1,000 fresh rows, 100 removes
     new, _ = clustered_rows(gen, dev, 1000, q_np.shape[1], groups=1000,
                             spread=0.5)
@@ -813,6 +1016,110 @@ def phase_search(index, q_np, q_lat, gen, dev, card):
     check(not found & set(gone), "a removed row was returned")
     say("3-update", inserted=len(new_ids), removed=len(gone),
         self_top1=True, removed_never_returned=True)
+
+
+def recall_at(index, q_np, truth, nprobe, refine):
+    """recall@K of search_batch at `nprobe` against the oracle's sets."""
+    co = index._corpus
+    keep = co._nprobe_cfg
+    co._nprobe_cfg = nprobe
+    try:
+        hits = index.search_batch(q_np, K, refine=refine)
+    finally:
+        co._nprobe_cfg = keep
+    return float(np.mean([len({i for i, _ in h} & t) / K
+                          for h, t in zip(hits, truth)]))
+
+
+def refine_report(index, q_np, q_lat, oi, truth, card):
+    """Phase 3 with the kNN graph on and off: recall@10 against the exact
+    oracle at REFINE_NPROBES (refined never below unrefined), for phase
+    3's queries and for hard ones (noisy copies of corpus rows,
+    HARD_SPREAD, from a generator of their own so that the shared one
+    draws as before), with the oracle rows that no probed list holds;
+    and batch-1 latency and batch-64 throughput unrefined (3-search
+    measured them refined)."""
+    import torch
+    co = index._corpus
+    cent, slot_rows = co._ivf_dev[0], co._ivf_dev[3]
+    hard_gen = torch.Generator(device=cent.device)
+    hard_gen.manual_seed(1)
+    pick = np.flatnonzero(co._live_h)[:BATCH * 997:997]
+    q_hard = noisy_centers(hard_gen, torch.from_numpy(co._emb_h[pick]).to(
+        cent.device), BATCH, spread=HARD_SPREAD)
+    _, oi_hard = oracle_topk(co._emb_h, co._live_h, q_hard, K,
+                             cent.device)
+    truth_hard = [{co._id_of[r] for r in oi_hard[b][:K]}
+                  for b in range(len(q_hard))]
+    out = {}
+    for name, qs, oracle, want in (("", q_np, oi, truth),
+                                   ("hard_", q_hard, oi_hard, truth_hard)):
+        for p in REFINE_NPROBES:
+            on = recall_at(index, qs, want, p, True)
+            off = recall_at(index, qs, want, p, False)
+            check(on >= off, f"refined recall@10 {on} < unrefined {off} "
+                  f"at nprobe {p} ({name or 'phase 3'} queries)")
+            probed = torch.topk(torch.from_numpy(qs).to(cent.device)
+                                @ cent.T, p, dim=1).indices
+            held = [set(slot_rows[probed[b]].reshape(-1).cpu().numpy()
+                        .tolist()) for b in range(len(qs))]
+            missing = sum(1 for b in range(len(qs)) for r in oracle[b][:K]
+                          if int(r) not in held[b])
+            out[f"{name}nprobe{p}"] = {
+                "recall_refined": on, "recall_unrefined": off,
+                "oracle_rows_in_no_probed_list": missing}
+    qps, p50, p99 = search_speed(index, q_np, q_lat, refine=False)
+    say("3-refine", graph_degree=co._graph_degree, **out,
+        unrefined_batch64_qps_median=statistics.median(qps),
+        unrefined_batch64_qps_runs=qps, unrefined_batch1_ms_p50=p50,
+        unrefined_batch1_ms_p99=p99, card=card)
+
+
+def phase_tuned(dev, rows, card):
+    """Phase 3's rows in a second index with ivf_target_recall =
+    TUNE_TARGET: its build (sync, as the first search runs it) runs the
+    nprobe tuner on the placed layout (K1 over the flattened layout for
+    the truth, the probe-hit curve, then the delivered recall through the
+    search) and spawns the kNN graph. Reports the pick, curve, delivered
+    recall and candidate boost as index_info() publishes them, the
+    build's wall, and recall@10 at the pick for phase 3's queries against
+    the exact oracle, refined."""
+    import torch
+    from cortex_tpu_torch.vector.ivf import TorchIvfIndex
+    x_h, ids, kinds, q_np, _ = rows
+    index = TorchIvfIndex(x_h.shape[1], target_recall=TUNE_TARGET,
+                          device=dev)
+    index.insert_batch(ids, x_h, kinds=kinds)
+    t0 = time.monotonic()
+    index._corpus.sync()                # k-means + pack + tune + spawn
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    info = index.index_info()
+    c = info["nlist"]
+    check(info["nprobe_tuned"] > 0 and info["tune_curve"],
+          f"the tuner picked no nprobe: {info}")
+    check(info["nprobe"] == info["nprobe_tuned"],
+          f"the index does not serve its tuned nprobe: {info}")
+    check(info["delivered_recall"] is not None,
+          "the tuner measured no delivered recall")
+    wait_for_graph(index)
+    info = index.index_info()
+    check(info["graph_built"] and info["graph_error"] is None,
+          f"the tuned index's graph is not serving: {info}")
+    co = index._corpus
+    _, oi = oracle_topk(co._emb_h, co._live_h, q_np, K, dev)
+    truth = [{co._id_of[r] for r in oi[b][:K]} for b in range(len(q_np))]
+    hits = index.search_batch(q_np, K)
+    recall = float(np.mean([len({i for i, _ in h} & t) / K
+                            for h, t in zip(hits, truth)]))
+    say("3-tune", target_recall=TUNE_TARGET, nlist=c,
+        nprobe_tuned=info["nprobe_tuned"], auto_nprobe=max(8, c // 8),
+        tune_curve=info["tune_curve"],
+        delivered_recall=info["delivered_recall"],
+        cand_boost=info["cand_boost"], build_s=build_s,
+        graph_built=info["graph_built"], recall_at_10_at_pick=recall,
+        card=card)
+    return index
 
 
 # ------------------------------------------------------------ phase 4
@@ -994,6 +1301,93 @@ def default_nprobe_pass(cx, dev, sample):
     return {"default_nprobe": nprobe, "default_recall_at_10": recall,
             "default_self_top1": top1, "default_searches": len(cases),
             "default_stranded_nodes": len(stranded)}
+
+
+def phase_cortex_defaults(dev):
+    """Phase 4 at the reference's IVF defaults: CortexConfig() with only
+    index = "ivf" (ivf_graph_degree 32, nprobe auto, the default model:
+    hashing without its weights on disk), in memory, N_NODES seeded
+    nodes; then the same with ivf_target_recall = TUNE_TARGET. Searches
+    run at the served nprobe through Cortex.search (decay off, so the
+    hits are the index's fp32 scores). Held to the exact fp32 oracle
+    over the host mirror: every hit scores its exact cosine, and every
+    oracle top-K row that a probed list holds is returned (the graph may
+    add rows no probed list holds; they are counted); a node's own text
+    returns it first unless no probed list holds it."""
+    import torch
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    nodes = seeded_nodes(N_NODES, seed=3)
+    sample = nodes[:4000:100]
+    out = {}
+    for name, target in (("defaults", 0.0), ("target", TUNE_TARGET)):
+        cfg = CortexConfig()
+        cfg.embedding.index = "ivf"
+        cfg.embedding.ivf_target_recall = target
+        t0 = time.monotonic()
+        cx = Cortex.in_memory(cfg, device=dev)
+        cx.store_batch(nodes)
+        texts = [embedding_input(n) for n in sample]
+        got = [[(n.id, sc) for sc, n in cx.search(
+            t, K, decay=False, record_access=False)] for t in texts]
+        t_store = time.monotonic() - t0
+        co = cx.index._corpus
+        info = cx.index.index_info()
+        check(co._graph_degree == GRAPH_DEGREE and co._nbrs_h is not None,
+              f"{name}: the kNN graph is not serving")
+        check(info["target_recall"] == target, f"{name}: target lost")
+        if target > 0:
+            check(info["nprobe_tuned"] > 0 and info["tune_curve"]
+                  and info["delivered_recall"] is not None,
+                  f"{name}: the tuner did not run: {info}")
+        qv = np.stack([cx.embedder.embed(t) for t in texts]).astype(
+            np.float32)
+        qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+        ov, oi = oracle_topk(co._emb_h, co._live_h, qv, K, dev)
+        cent, slot_rows = co._ivf_dev[0], co._ivf_dev[3]
+        p = co._nprobe(int(cent.shape[0]))
+        probed = torch.topk(torch.from_numpy(qv).to(cent.device) @ cent.T,
+                            p, dim=1).indices
+        recall, top1, stranded, via_graph = [], 0, 0, 0
+        for b, (node, hits) in enumerate(zip(sample, got)):
+            held = set(slot_rows[probed[b]].reshape(-1).cpu().numpy()
+                       .tolist())
+            ids = {nid for nid, _ in hits}
+            for nid, sc in hits:
+                exact = float(co._emb_h[co._row_of[nid]] @ qv[b])
+                check(abs(sc - exact) <= SCORE_ATOL, f"{nid} rescored")
+                check(sc <= ov[b][K - 1] + SCORE_ATOL or nid in {
+                    co._id_of[r] for r in oi[b][:K]},
+                      f"{nid} beats the exact top-{K}")
+            for j, r in enumerate(oi[b][:K]):
+                nid = co._id_of[int(r)]
+                if int(r) in held:
+                    check(nid in ids or abs(ov[b][j] - ov[b][K]) <= NEAR_TIE,
+                          f"{name}: oracle rank {j} ({nid}) lies in a "
+                          f"probed list but was not returned")
+                elif nid in ids:
+                    via_graph += 1
+            recall.append(len(ids & {co._id_of[int(r)] for r in oi[b][:K]})
+                          / K)
+            if hits and hits[0][0] == node.id:
+                top1 += 1
+            else:
+                check(co._row_of[node.id] not in held,
+                      f"{name}: {node.id} lies in a probed list but is not "
+                      f"its own top-1")
+                stranded += 1
+        out[name] = {"nlist": info["nlist"], "nprobe": p,
+                     "nprobe_tuned": info["nprobe_tuned"],
+                     "tune_curve": info["tune_curve"],
+                     "delivered_recall": info["delivered_recall"],
+                     "cand_boost": info["cand_boost"],
+                     "recall_at_10": float(np.mean(recall)),
+                     "self_top1": top1, "stranded": stranded,
+                     "oracle_rows_via_graph": via_graph,
+                     "open_store_search_s": t_store}
+        cx.close()
+    say("4-cortex-defaults", nodes=N_NODES, searches=len(sample), **out)
 
 
 # ------------------------------------------------------------ phase 5
@@ -3277,6 +3671,42 @@ def profile_k2_sorts(index, q_np, card):
     say("profile-flat-k2-sorts", card=card, nvcc_s=secs, **out)
 
 
+def profile_knn_parts(index, card):
+    """N1 alone (csrc/block_knn.cu) on the first KNN_CHUNK lists of phase
+    3's layout at r = the default degree: whole (CORTEX_KNN_PARTS = 0,
+    whose lists must equal the op's), cut after the product (1), and
+    without the product (2: the selection over whatever the strip
+    holds, the last block's scores on that SM)."""
+    import ctypes
+    import torch
+    from cortex_tpu_torch.ops.knn_graph import block_knn, slot_mu_dot
+    parts, secs = build_variants("CORTEX_KNN_PARTS", (0, 1, 2),
+                                 "block_knn.cu")
+    co = index._corpus
+    _, emb, rinv, rows, _, _ = co._ivf_dev
+    blk, ri, sr = emb[:KNN_CHUNK], rinv[:KNN_CHUNK], rows[:KNN_CHUNK]
+    mud = slot_mu_dot(blk, ri, torch.from_numpy(co._quant_mu).to(emb.device))
+    c, l, d = blk.shape
+    want = block_knn(blk, ri, sr, mud, GRAPH_DEGREE)
+    out = torch.empty_like(want)
+    ptr = ctypes.c_void_p
+    stream = ptr(torch.cuda.current_stream().cuda_stream)
+    res = {}
+    for n, name in ((0, "whole"), (1, "product_only"), (2, "selection_only")):
+        def run(lib=parts[n]):
+            check(lib.cortex_block_knn_launch(
+                ptr(blk.data_ptr()), ptr(ri.data_ptr()), ptr(sr.data_ptr()),
+                ptr(mud.data_ptr()), ptr(out.data_ptr()), c, l, d,
+                GRAPH_DEGREE, 1, stream) == 0, "N1 variants: launch failed")
+        if n == 0:
+            run()
+            torch.cuda.synchronize()
+            check(torch.equal(out, want), "N1 variant 0 differs from the op")
+        res[f"{name}_ms"] = time_ms(run, 5)
+    say("profile-knn-parts", card=card, lists=c, slots=l, dim=d,
+        r=GRAPH_DEGREE, nvcc_s=secs, **res)
+
+
 def profile_relax_variants(dev, gen, card):
     """G2 alone (csrc/graph_bfs.cu) at phase 2's 10M x 64 table, 1 and 8
     anchors, 3 rounds: whole (CORTEX_RELAX_PARTS = 0, whose results must
@@ -3721,11 +4151,12 @@ def main(argv) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    kc, fc = KernelCheck(), FlatKernelCheck()
+    kc, fc, knc = KernelCheck(), FlatKernelCheck(), KnnKernelCheck()
     if argv == ["--profile"]:
         index, q_np, q_lat, _, rows = phase_index(dev, N_BIG, D_BIG, gen,
                                                   kc)
         profile_index("ivf", index, q_np, q_lat, card)
+        profile_knn_parts(index, card)
         del index
         torch.cuda.empty_cache()
         index, _ = phase_flat_build(dev, rows, fc)
@@ -3745,23 +4176,25 @@ def main(argv) -> int:
     check_flat_synthetic(fc, dev, gen, 32768, 384, BATCH)    # phase 6's
     gc = GraphKernelCheck()
     check_graph_small(gc, dev, gen)
+    knn_10m = check_knn_synthetic(knc, dev, gen)
     say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err,
         flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
         k2_max_abs_err=fc.k2_err, graph_cases=gc.cases,
-        graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err)
+        graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err,
+        knn_cases=knc.cases, knn_max_abs_err=knc.max_abs_err)
+    say("2-kernel-knn-10M-lists", **knn_10m, card=card)
     dc = DecayCheck()
     perf = {"decay_sweep": check_decay(dc, dev, gen, card)}
     ec = EncoderKernelCheck()
     perf.update(check_encoder_kernels(ec, dev, gen, card))
     perf.update(check_graph_big(gc, dev, gen, card))
     torch.cuda.empty_cache()
-    index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
-                                                     gen, kc)
-    perf["probed_scores"] = ivf_perf
 
-    # five main paths, each read just after it: IVF (3-4), flat (5-6),
-    # graph (7-8), linker (9-10) and encoder (11); 9 runs between 7 and 6
-    # because it needs phase 5's index and phase 7's storage
+    # five main paths, each read just after it: IVF (3-4, from the build:
+    # its kNN graph runs N1, the tuner K1), flat (5-6), graph (7-8),
+    # linker (9-10) and encoder (11); 9 runs between 7 and 6 because it
+    # needs phase 5's index and phase 7's storage
+    ivf = ("probed_scores", "block_knn", "quant_candidates")
     flat, graph = ("quant_candidates", "quant_rerank"), (
         "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
     linker = ("quant_candidates", "quant_rerank", "decay_sweep")
@@ -3776,15 +4209,25 @@ def main(argv) -> int:
             launches[path][n] = launches[path].get(n, 0) + counts[n]
 
     reset_launches()                          # the IVF main path
+    index, q_np, q_lat, ivf_perf, rows = phase_index(dev, N_BIG, D_BIG,
+                                                     gen, kc, knc, fc)
+    perf["probed_scores"] = ivf_perf["probed_scores"]
+    perf["block_knn"] = ivf_perf["block_knn"]
     phase_search(index, q_np, q_lat, gen, dev, card)
+    del index
+    torch.cuda.empty_cache()
+    index = phase_tuned(dev, rows, card)
     del index
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         phase_cortex(dev, workdir)
-    take("ivf", ["probed_scores"])
+    phase_cortex_defaults(dev)
+    take("ivf", ivf)
 
     index, flat_perf = phase_flat_build(dev, rows, fc)
     perf.update(flat_perf)
+    perf["quant_candidates"][f"b{TUNE_QUERIES}_cand{TUNE_CAND}_tuner"] = \
+        ivf_perf["k1_tuner"]
     x_h = rows[0]
     rows = (None, *rows[1:3], None, rows[4])   # phase 7: ids, kinds, member
     reset_launches()                          # the flat main path
@@ -3822,7 +4265,7 @@ def main(argv) -> int:
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
             "quant_rerank": fc.k2_err, "decay_sweep": dc.max_abs_err,
             "add_layer_norm": ec.e1_err, "masked_attention": ec.e2_err,
-            **gc.max_abs_err}
+            "block_knn": knc.max_abs_err, **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
                    "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
                                         f"b1_cand{FLAT_CANDS[0]}"),
@@ -3832,7 +4275,8 @@ def main(argv) -> int:
                    "bfs_relax": ("a1_r3", None),
                    "decay_sweep": ("e10M", None),
                    "add_layer_norm": ("b64_s128", "b1_s32"),
-                   "masked_attention": ("b64_s128", "b1_s32")}
+                   "masked_attention": ("b64_s128", "b1_s32"),
+                   "block_knn": (f"c{KNN_CHUNK}_r{GRAPH_DEGREE}", None)}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in (
             "ms", "bound_ms", "bound_by", "share_of_bound", "tc_bound_ms",

@@ -100,6 +100,8 @@ class Cortex:
         if e.index == "ivf":
             return TorchIvfIndex(self.embedder.dimension, nlist=e.ivf_nlist,
                                  nprobe=e.ivf_nprobe, spill=e.ivf_spill,
+                                 graph_degree=e.ivf_graph_degree,
+                                 target_recall=e.ivf_target_recall,
                                  device=self.device)
         return TorchFlatIndex(self.embedder.dimension,
                               search_path=e.search_path,

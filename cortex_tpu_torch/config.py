@@ -9,11 +9,12 @@ defaults.
   [score_decay]            ScoreDecayConfig
 
 The defaults are the reference's, so a default config opens the flat
-index (device_dtype and search_path take effect there). `check_ported`
-raises ConfigError for every setting whose code path is not ported yet
-and names the ROADMAP item that will port it: the IVF index's kNN-graph
-refinement and nprobe tuner (read only when index = "ivf", as in the
-reference) and the sharded index.
+index (device_dtype and search_path take effect there); index = "ivf"
+takes every IVF key, the kNN-graph refinement (ivf_graph_degree, 32 by
+default) and the nprobe tuner (ivf_target_recall) included.
+`check_ported` raises ConfigError for every setting whose code path is
+not ported yet and names the ROADMAP item that will port it: the
+sharded index.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ from .vector.config import SimilarityConfig
 from .vector.scoring import ScoreDecayConfig
 
 #: ROADMAP items that port what this slice refuses
-GRAPH_ITEM = "ROADMAP queue A, 'IVF remainder: kNN-graph refinement'"
-TUNER_ITEM = "ROADMAP queue A, 'IVF remainder: nprobe tuner'"
 MESH_ITEM = "ROADMAP queue A, 'Multi-GPU'"
 GATE_ITEM = "ROADMAP queue A, 'Write gate'"
 
@@ -179,18 +178,6 @@ def check_ported(cfg: CortexConfig) -> None:
     the port does not have yet."""
     cfg.validate()
     e = cfg.embedding
-    if e.index == "ivf":
-        # the reference reads these for the IVF index only
-        # (cortex_tpu/api.py:334-348)
-        if e.ivf_graph_degree > 0:
-            raise ConfigError(
-                f"[embedding] ivf_graph_degree={e.ivf_graph_degree}: the "
-                f"kNN-graph refinement is not ported yet ({GRAPH_ITEM}); "
-                f"set ivf_graph_degree = 0")
-        if e.ivf_target_recall > 0:
-            raise ConfigError(
-                f"[embedding] ivf_target_recall={e.ivf_target_recall}: the "
-                f"nprobe tuner is not ported yet ({TUNER_ITEM})")
     if e.sharded:
         raise ConfigError(
             f"[embedding] sharded=true: the sharded index is not ported "

@@ -63,10 +63,8 @@ class VectorIndex:
                      flt: Optional[VectorFilter] = None, *,
                      refine: bool = True) -> List[List[SearchHit]]:
         """refine=False skips recall-widening candidate expansion
-        (graph-refined indexes); the linker's and dedup's bulk scans pass
-        it. The flat index ignores it, and so does the IVF index until
-        it has the kNN-graph refinement (ROADMAP queue A, "IVF
-        remainder")."""
+        (the IVF index's kNN-graph refinement); the linker's and dedup's
+        bulk scans pass it. The flat index has nothing to expand."""
         raise NotImplementedError
 
     def search_threshold(self, vector: np.ndarray, threshold: float,
@@ -132,15 +130,13 @@ class TorchFlatIndex(VectorIndex):
         """Dispatch without fetching; returns a zero-arg callable that
         blocks for the hits, so callers can overlap device work with
         host work."""
-        # refine is ignored here and in TorchIvfIndex, which has no kNN-graph
-        # refinement yet (ROADMAP queue A, "IVF remainder")
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2:
             raise IndexError_("search_batch expects [B, d]")
         flt = flt or VectorFilter()
         finish = self._corpus.topk_async(
             vectors, k, kinds=flt.kinds, agent=flt.source_agent,
-            exclude_ids=flt.exclude_ids)
+            exclude_ids=flt.exclude_ids, refine=refine)
         return lambda: _hits(*finish())
 
     def search_stream(self, vectors: np.ndarray, k: int,
@@ -155,7 +151,8 @@ class TorchFlatIndex(VectorIndex):
         flt = flt or VectorFilter()
         return _hits(*self._corpus.topk_stream(
             vectors, k, batch=batch, kinds=flt.kinds,
-            agent=flt.source_agent, exclude_ids=flt.exclude_ids))
+            agent=flt.source_agent, exclude_ids=flt.exclude_ids,
+            refine=refine))
 
     def __len__(self) -> int:
         return len(self._corpus)

@@ -9,34 +9,58 @@ Counterpart of cortex_tpu/vector/ivf.py (IvfCorpus, TpuIvfIndex):
     rows are spilled into their second-choice cluster's spare slots.
     The packing, spill and quantization are the reference's numpy code,
     so the same clustering gives the same layout slot for slot.
+  * tuning ([embedding] ivf_target_recall > 0, nprobe auto): sampled
+    rows as self-queries, their top-10 by the layout's own int8 scores
+    (K1, ops/similarity.py::quant_candidates, over chunks of the
+    flattened layout), the probe-hit curve over a ladder of nprobe, the
+    smallest rung that meets the target, then the delivered recall
+    through the real search and a wider candidate list while that helps.
+  * the kNN graph ([embedding] ivf_graph_degree > 0, vector/knn_graph.py):
+    each row's nearest rows within its cluster(s), from N1
+    (ops/knn_graph.py::block_knn); built inline for small layouts and
+    on a background thread (on a CUDA stream of its own) for large ones.
   * search: q @ centroids.T, top-nprobe clusters per query, the
     probed-block scan (ops/ivf_gather.py::probed_scores, a CUDA kernel
     on the card), top-`cand`, the query descale, spill dedup. The
-    candidates then get the exact fp32 host re-rank of
-    DeviceCorpus._finish_topk, so final scores are fp32-true and the
-    only approximation is candidate membership.
+    candidates, widened through the kNN graph (_expand_candidates), then
+    get the exact fp32 host re-rank of DeviceCorpus._finish_topk, so
+    final scores are fp32-true and the only approximation is candidate
+    membership.
 
-Left out of this slice (ROADMAP queue A, 'IVF remainder'): the
-recall-target nprobe tuner, the kNN-graph refinement, snapshots and the
-warm-ahead compiles. Incremental updates write the layout in place
-(index_put_ / torch.cat) under the corpus lock.
+Left out (ROADMAP queue A): snapshots and compaction (item 3), the
+sharded index (item 8) and the warm-ahead compiles (nothing to compile).
+Incremental updates write the layout in place (index_put_ / torch.cat)
+under the corpus lock; the background graph build reads host copies of
+the planes, never the ones being written.
+
+One named deviation from the reference (ROADMAP queue C):
+_measure_delivered takes a query's candidates from its valid entries and
+counts a query with none as all misses; the reference reads rows >= 0
+(invalid entries come back as row 0) and skips a query with none
+(cortex_tpu/vector/ivf.py:1290-1292).
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.ivf_gather import probed_scores
-from ..ops.similarity import (NEG_INF, quantize_queries,
+from ..ops.similarity import (NEG_INF, quant_candidates, quantize_queries,
                               quantize_rows_centered)
 from ..utils.device import resolve_device
-from .index import TorchFlatIndex, VectorIndex
+from . import knn_graph
+from .index import TorchFlatIndex
 from .shard import (DeviceCorpus, MAX_EXCLUDE, MAX_FILTER_KINDS,
                     NO_FILTER, PAD_CODE)
+
+log = logging.getLogger("cortex.ivf")
 
 #: auto-nlist ceiling: past this the centroid scan itself starts to
 #: cost like a small flat scan (C*d per query)
@@ -51,6 +75,20 @@ RETRAIN_GROWTH = 2.0
 GATHER_BUDGET_BYTES = 2 << 30
 #: rows per k-means assignment pass (bounds the [rows, C] score plane)
 ASSIGN_CHUNK = 1 << 18
+#: graph refinement frontier: the top-E int8-ranked candidates whose
+#: kNN-graph neighbours join the exact re-rank (~E * degree extra host
+#: re-ranked rows a query)
+REFINE_FRONTIER = 16
+#: expansion hops: 1 = neighbours of found candidates; 2+ re-expands from
+#: the exact-scored top of each hop's additions
+REFINE_HOPS = 1
+#: recall-target tuning: corpus rows sampled as self-queries at (re)train
+TUNE_SAMPLES = 256
+#: the recall@k the tuner measures (the serving metric's k)
+TUNE_TRUTH_K = 10
+#: layouts of at least this many slots (C * L) build their kNN graph on a
+#: background thread; smaller ones inline, under the build's lock
+WARM_MIN_SLOTS = 1 << 16
 
 
 # ---------------------------------------------------------------- training
@@ -156,10 +194,44 @@ class IvfCorpus(DeviceCorpus):
     everything downstream is inherited."""
 
     def __init__(self, dim: int, *, nlist: int = 0, nprobe: int = 0,
-                 spill: float = 1.0, device):
+                 spill: float = 1.0, graph_degree: int = 32,
+                 target_recall: float = 0.0, device):
         super().__init__(dim, device=device)
         self._nlist_cfg = int(nlist)          # 0 = auto (~sqrt(N))
         self._nprobe_cfg = int(nprobe)        # 0 = auto (C/8, >= 8)
+        #: recall-target nprobe tuning (_tune_nprobe): > 0 with nprobe
+        #: auto measures the probe-hit curve at each fresh (re)train and
+        #: serves the smallest ladder nprobe that meets the target
+        self._target_recall = min(1.0, max(0.0, float(target_recall)))
+        self._nprobe_tuned = 0                # 0 = not tuned
+        self._tune_curve: list = []           # last measured (p, recall)
+        #: candidate-width escalation: x2 (up to x4) while the delivered
+        #: recall misses the target and widening helps
+        self._cand_boost = 1
+        self._delivered_recall: Optional[float] = None
+        # carried-over tuning (load_jax_state), consumed by the next build
+        self._boot_nprobe_tuned = 0
+        self._boot_tune_curve: Optional[list] = None
+        self._boot_cand_boost = 0
+        self._boot_delivered: Optional[float] = None
+        #: what index_info serves: one dict, swapped whole (_publish_info)
+        self._info_pub: dict = {"trained": False}
+        #: kNN-graph refinement degree (vector/knn_graph.py); 0 disables
+        self._graph_degree = max(0, int(graph_degree))
+        self._nbrs_h: Optional[np.ndarray] = None     # [cap, degree]
+        self._boot_nbrs: Optional[np.ndarray] = None  # carried over
+        #: background builds: seq invalidates in-flight builds across
+        #: rebuilds; stale collects rows mutated while one is in flight,
+        #: whose out-edges the swap masks
+        self._graph_seq = 0
+        self._graph_inflight = False
+        self._graph_stale: set = set()
+        #: the last graph build's timings (build_knn_graph's stats, plus
+        #: wall_s and background)
+        self._graph_stats: dict = {}
+        #: why the last background build left the graph off (index_info's
+        #: graph_error); None while none failed since the last rebuild
+        self._graph_error: Optional[str] = None
         #: fraction of the layout's post-reserve slack filled with
         #: spilled duplicates of boundary rows (0 disables)
         self._spill = min(1.0, max(0.0, float(spill)))
@@ -185,11 +257,14 @@ class IvfCorpus(DeviceCorpus):
     def load_jax_state(self, st) -> None:
         """Load the dict that cortex_tpu's IvfCorpus.state() returns (ids,
         vectors, kinds, agents, ivf_centroids, ivf_cluster, ivf_cluster2,
-        all numpy) the way TpuIvfIndex.load does: rows in `ids` order,
-        then the clustering as one-shot hints for the next build. Loaded
-        into an empty corpus, the build then packs the same [C, L, d]
-        layout, slot for slot, as cortex_tpu's index loaded from the same
-        state."""
+        and when present ivf_nbrs, ivf_nprobe_tuned, ivf_cand_boost,
+        ivf_delivered, ivf_tune_curve; all numpy) the way TpuIvfIndex.load
+        does: rows in `ids` order, then the clustering, the tuned nprobe
+        and the kNN graph (id-relative, remapped to this corpus's rows) as
+        one-shot hints for the next build. Loaded into an empty corpus,
+        the build then packs the same [C, L, d] layout, slot for slot,
+        as cortex_tpu's index loaded from the same state, and serves the
+        same tuned nprobe and graph."""
         super().load_jax_state(st)
         ids = [str(i) for i in st["ids"]]
         cl = np.asarray(st["ivf_cluster"], np.int32)
@@ -198,29 +273,66 @@ class IvfCorpus(DeviceCorpus):
         with self._lock:
             boot = np.full(self._cap, -1, np.int32)
             boot2 = np.full(self._cap, -1, np.int32)
+            rows_new = np.empty(len(ids), np.int64)
             for j, nid in enumerate(ids):
                 r = self._row_of[nid]
                 boot[r] = cl[j]
                 boot2[r] = cl2[j]
+                rows_new[j] = r
             self._boot_cent = np.asarray(st["ivf_centroids"], np.float32)
             self._boot_cluster = boot
             self._boot_cluster2 = boot2
+            if "ivf_nprobe_tuned" in st:
+                self._boot_nprobe_tuned = int(st["ivf_nprobe_tuned"])
+                if "ivf_tune_curve" in st:
+                    self._boot_tune_curve = [
+                        (int(p), float(r)) for p, r in st["ivf_tune_curve"]]
+                if "ivf_cand_boost" in st:
+                    self._boot_cand_boost = int(st["ivf_cand_boost"])
+                if "ivf_delivered" in st:
+                    self._boot_delivered = float(st["ivf_delivered"])
+            if "ivf_nbrs" in st and self._graph_degree > 0:
+                # positions in st["ids"] -> this corpus's rows
+                nbp = np.asarray(st["ivf_nbrs"], np.int32)
+                tgt = np.where(nbp >= 0, rows_new[np.where(nbp >= 0, nbp, 0)],
+                               -1).astype(np.int32)
+                bn = np.full((self._cap, nbp.shape[1]), -1, np.int32)
+                bn[rows_new] = tgt
+                self._boot_nbrs = bn
 
     # -------------------------------------------------------- bookkeeping
     def _mask_boot_hint(self, row: int) -> None:
-        """Drop the carried-over cluster hint of a mutated row: its
-        vector (or its node) changed, so it re-assigns fresh at the next
-        build. Callers hold the corpus lock."""
-        for bc in (self._boot_cluster, self._boot_cluster2):
+        """Drop the carried-over cluster hint and graph row of a mutated
+        row: its vector (or its node) changed, so it re-assigns fresh at
+        the next build. Callers hold the corpus lock."""
+        for bc in (self._boot_cluster, self._boot_cluster2, self._boot_nbrs):
             if bc is not None and 0 <= row < len(bc):
                 bc[row] = -1
 
+    def _mask_graph_row(self, row: int) -> None:
+        """Drop a mutated row's out-edges: its vector changed (or the row
+        was freed), so its list no longer describes it. In-edges that
+        point at it stay: expansion re-checks liveness and filters, and
+        the exact re-rank scores the current vector, so a stale edge
+        costs one wasted candidate, never a wrong result. Callers hold
+        the corpus lock."""
+        nb = self._nbrs_h
+        if nb is not None and 0 <= row < len(nb):
+            nb[row] = -1
+        if self._graph_inflight:
+            self._graph_stale.add(row)
+
     def upsert_batch(self, ids, vectors, kinds, agents) -> None:
+        # the write and the masking under one lock hold: a search's sync
+        # in between could consume the still-unmasked one-shot hints
         with self._lock:
             super().upsert_batch(ids, vectors, kinds, agents)
-            if self._boot_cluster is not None:
+            if (self._boot_cluster is not None or self._boot_nbrs is not None
+                    or self._nbrs_h is not None or self._graph_inflight):
                 for nid in ids:
-                    self._mask_boot_hint(self._row_of[nid])
+                    r = self._row_of[nid]
+                    self._mask_boot_hint(r)
+                    self._mask_graph_row(r)
 
     def remove(self, node_id: str) -> bool:
         with self._lock:
@@ -228,6 +340,7 @@ class IvfCorpus(DeviceCorpus):
             out = super().remove(node_id)
             if out:
                 self._mask_boot_hint(row)
+                self._mask_graph_row(row)
             return out
 
     def _grow(self, need: int) -> None:
@@ -240,6 +353,12 @@ class IvfCorpus(DeviceCorpus):
             self._slot_of = np.concatenate([self._slot_of, fill])
             self._cluster_of2 = np.concatenate([self._cluster_of2, fill])
             self._slot_of2 = np.concatenate([self._slot_of2, fill])
+            if self._nbrs_h is not None:
+                self._nbrs_h = np.concatenate([self._nbrs_h, np.full(
+                    (pad, self._nbrs_h.shape[1]), -1, np.int32)])
+            if self._boot_nbrs is not None:
+                self._boot_nbrs = np.concatenate([self._boot_nbrs, np.full(
+                    (pad, self._boot_nbrs.shape[1]), -1, np.int32)])
 
     def _auto_nlist(self, n_live: int) -> int:
         if self._nlist_cfg > 0:
@@ -262,6 +381,8 @@ class IvfCorpus(DeviceCorpus):
     def _nprobe(self, c: int) -> int:
         if self._nprobe_cfg > 0:
             return min(c, self._nprobe_cfg)
+        if self._nprobe_tuned > 0:            # ivf_target_recall
+            return min(c, self._nprobe_tuned)
         # c/8 (>= 8): the recall band the reference measured for c/8
         return min(c, max(8, c // 8))
 
@@ -282,6 +403,10 @@ class IvfCorpus(DeviceCorpus):
             self._cluster_free = []
             self._trained_live = 0
             self._has_spill = False
+            self._nbrs_h = None
+            self._graph_seq += 1              # discard in-flight builds
+            self._graph_inflight = False
+            self._publish_info()
             return
         dev = self._device
         data = self._emb_h[rows]              # unit-norm fp32 [N, d]
@@ -310,7 +435,9 @@ class IvfCorpus(DeviceCorpus):
                     first[sel] = a1.cpu().numpy()
             second = None                     # spill: hints only
             margin = None
+            boot_restored = True
         else:
+            boot_restored = False
             c = self._auto_nlist(n)
             rng = np.random.default_rng(n)    # deterministic per size
             sample = data[rng.choice(n, size=min(n, 131072),
@@ -415,9 +542,310 @@ class IvfCorpus(DeviceCorpus):
         self._centroids_h = cent
         self._slot_cap = lcap
         self._trained_live = n
-        self._ivf_dev = tuple(torch.from_numpy(a).to(dev) for a in (
+        # device copies (a clone on the CPU too): a background graph build
+        # reads the host arrays while _apply_dirty writes the device planes
+        self._ivf_dev = tuple(self._to_dev(a) for a in (
             cent, emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl))
         self._has_spill = bool((self._cluster_of2[rows] >= 0).any())
+        # recall-target tuning: a carried-over pick is consumed once (the
+        # layout is the one it was measured on); a fresh train re-measures
+        boot_np, boot_curve = self._boot_nprobe_tuned, self._boot_tune_curve
+        boot_boost, boot_delivered = (self._boot_cand_boost,
+                                      self._boot_delivered)
+        self._boot_nprobe_tuned = 0
+        self._boot_tune_curve = None
+        self._boot_cand_boost = 0
+        self._boot_delivered = None
+        if self._target_recall <= 0.0 or self._nprobe_cfg > 0:
+            self._nprobe_tuned = 0            # explicit nprobe wins
+            self._tune_curve = []
+        elif boot_restored and boot_np > 0:
+            self._nprobe_tuned = min(c, boot_np)
+            self._tune_curve = list(boot_curve or [])
+            if boot_boost > 0:
+                self._cand_boost = boot_boost
+            self._delivered_recall = boot_delivered
+        else:
+            self._tune_nprobe(rows, data, c, *self._ivf_dev[1:4])
+        # the kNN graph: a carried-over one as it is (one-shot, like the
+        # clustering hints); else built inline below WARM_MIN_SLOTS from
+        # the device planes, or on a background thread from the host ones
+        boot_nbrs, self._boot_nbrs = self._boot_nbrs, None
+        self._graph_seq += 1                  # invalidate in-flight builds
+        self._graph_inflight = False
+        self._graph_error = None
+        self._nbrs_h = None
+        if boot_nbrs is not None and self._graph_degree > 0:
+            self._nbrs_h = boot_nbrs
+        elif self._graph_degree > 0 and lcap > 1:
+            if c * lcap < WARM_MIN_SLOTS:
+                t0 = time.monotonic()
+                stats = {}
+                self._nbrs_h = knn_graph.build_knn_graph(
+                    *self._ivf_dev[1:4], self._quant_mu,
+                    degree=self._graph_degree, cap=self._cap, rows=rows,
+                    cluster_of=self._cluster_of, slot_of=self._slot_of,
+                    cluster_of2=self._cluster_of2, slot_of2=self._slot_of2,
+                    stats=stats)
+                self._graph_stats = dict(stats, background=False,
+                                         wall_s=time.monotonic() - t0)
+            else:
+                self._spawn_graph_build(emb_i8, rinv_sl, slot_rows, rows)
+        self._publish_info()
+
+    def _publish_info(self) -> None:
+        """Publish the state index_info() serves as one dict, swapped
+        whole: a reader never waits on the corpus lock for a retrain and
+        never sees a mix of two builds."""
+        if self._centroids_h is None:
+            self._info_pub = {"trained": False}
+            return
+        c = int(self._centroids_h.shape[0])
+        self._info_pub = {
+            "trained": True,
+            "nlist": c,
+            "nprobe": int(self._nprobe(c)),
+            "nprobe_tuned": int(self._nprobe_tuned),
+            "target_recall": float(self._target_recall),
+            "tune_curve": [[int(p), round(float(r), 4)]
+                           for p, r in self._tune_curve],
+            "delivered_recall": (round(float(self._delivered_recall), 4)
+                                 if self._delivered_recall is not None
+                                 else None),
+            "cand_boost": int(self._cand_boost),
+            "graph_degree": int(self._graph_degree),
+            # whether refinement serves: False while a background build
+            # runs, after one failed (graph_error says why) or at degree 0
+            "graph_built": self._nbrs_h is not None,
+            "graph_error": self._graph_error,
+            "spill": bool(self._has_spill),
+        }
+
+    def _tune_nprobe(self, rows: np.ndarray, data: np.ndarray, c: int,
+                     emb_i8: torch.Tensor, rinv_sl: torch.Tensor,
+                     slot_rows: torch.Tensor) -> None:
+        """Measure the probe-hit curve on the corpus itself and serve the
+        smallest ladder nprobe whose sampled recall@10 meets the target
+        (the reference's _tune_nprobe, step for step).
+
+        Sampled rows are self-queries; their true top-10 is by the
+        layout's own int8 scores (what the candidate scan could at best
+        find at full probe): K1 over chunks of the flattened [C * L, d]
+        layout, dead slots biased to NEG_INF, top-k_chunk each, merged on
+        the host. Clusters rank per query as the search ranks them (fp32
+        q . centroids); a truth row is hit at p when its home or spill
+        cluster ranks inside the top p. Then the delivered recall through
+        the real search, and a wider candidate list (x2, up to x4) while
+        it misses the target and widening helps. Runs under the lock."""
+        self._nprobe_tuned = 0
+        self._tune_curve = []     # never report a stale layout's curve
+        self._cand_boost = 1      # re-measured per layout
+        self._delivered_recall = None
+        n = len(rows)
+        if c <= 8 or n < 4 * TUNE_TRUTH_K:
+            return                            # trivial layouts: auto
+        rng = np.random.default_rng(n ^ 0x5EED)
+        s = min(TUNE_SAMPLES, n)
+        pick = rng.choice(n, size=s, replace=False)
+        q = np.ascontiguousarray(data[pick], np.float32)    # [S, d]
+        qrows = rows[pick]
+        # the chunk bounds the int8 chunk (L * d bytes a cluster) and the
+        # [S, cc * L] f32 scores (4 S a slot); the last chunk slides back
+        # and overlaps, and the host merge drops its duplicates
+        lcap = int(emb_i8.shape[1])
+        per_cluster = lcap * (self.dim + 4 * s)
+        cc = max(1, min(c, GATHER_BUDGET_BYTES // max(1, per_cluster)))
+        k_chunk = min(cc * lcap, 2 * TUNE_TRUTH_K + 12)   # dup/self margin
+        qi8, qs = quantize_queries(torch.from_numpy(q).to(emb_i8.device))
+        vs, rs = [], []
+        for c0 in range(0, c, cc):
+            c0 = min(c0, c - cc)
+            sr = slot_rows[c0:c0 + cc].reshape(-1)
+            bias = torch.where(sr >= 0, 0.0, NEG_INF).to(torch.float32)
+            v, i = quant_candidates(emb_i8[c0:c0 + cc].reshape(-1, self.dim),
+                                    rinv_sl[c0:c0 + cc].reshape(-1), qi8, qs,
+                                    bias, k_chunk)
+            vs.append(v.cpu().numpy())
+            rs.append(sr[i.long()].cpu().numpy())
+        v = np.concatenate(vs, axis=1)        # [S, nchunk * k]
+        r = np.concatenate(rs, axis=1)
+        order = np.argsort(-v, axis=1, kind="stable")
+        v = np.take_along_axis(v, order, axis=1)
+        r = np.take_along_axis(r, order, axis=1)
+        # per query: drop self and spill / overlap duplicates, keep top-10
+        truth = np.full((s, TUNE_TRUTH_K), -1, np.int64)
+        for qi in range(s):
+            seen = {int(qrows[qi])}
+            t = 0
+            for j in range(r.shape[1]):
+                if v[qi, j] <= NEG_INF / 2:
+                    break
+                row = int(r[qi, j])
+                if row in seen:
+                    continue
+                seen.add(row)
+                truth[qi, t] = row
+                t += 1
+                if t == TUNE_TRUTH_K:
+                    break
+        valid = truth >= 0
+        total = int(valid.sum())
+        if total == 0:
+            return
+        # the search's probe order: fp32 q . cent^T
+        cs = q @ self._centroids_h.T          # [S, C]
+        crank = np.empty((s, c), np.int64)
+        np.put_along_axis(
+            crank, np.argsort(-cs, axis=1, kind="stable"),
+            np.broadcast_to(np.arange(c, dtype=np.int64), (s, c)), axis=1)
+        tr = np.where(valid, truth, 0)
+        cl1 = self._cluster_of[tr]
+        cl2 = self._cluster_of2[tr]
+        r1 = np.take_along_axis(crank, np.clip(cl1, 0, c - 1).astype(
+            np.int64), axis=1)
+        r1 = np.where(cl1 >= 0, r1, c)
+        r2 = np.take_along_axis(crank, np.clip(cl2, 0, c - 1).astype(
+            np.int64), axis=1)
+        r2 = np.where(cl2 >= 0, r2, c)
+        pr = np.sort(np.minimum(r1, r2)[valid])
+        # rungs: C/64..C/2 by doubling, then 3C/4, then C
+        ladder = sorted({max(8, c >> i) for i in range(6, 0, -1)}
+                        | {(3 * c) // 4, c})
+        curve = [(p, np.searchsorted(pr, p, side="left") / total)
+                 for p in ladder if p <= c]
+        chosen = c
+        for p, rec in curve:
+            if rec >= self._target_recall:
+                chosen = p
+                break
+        self._nprobe_tuned = chosen
+        self._tune_curve = [(int(p), float(rec)) for p, rec in curve]
+        log.info("ivf nprobe tune: target %.3f -> nprobe %d/%d (auto would "
+                 "be %d; sampled probe-hit curve %s)", self._target_recall,
+                 chosen, c, max(8, c // 8),
+                 [(p, round(float(rec), 4)) for p, rec in curve])
+        # probe-hit only bounds the delivered recall from above: measure
+        # it through the real search and widen the candidate list while it
+        # misses the target and widening helps
+        delivered = self._measure_delivered(q, qrows, truth, valid)
+        while (delivered is not None
+               and delivered < self._target_recall - 1e-9
+               and self._cand_boost < 4):
+            self._cand_boost *= 2
+            re_meas = self._measure_delivered(q, qrows, truth, valid)
+            log.info("ivf tune: delivered recall %.4f < target %.3f -> "
+                     "cand width x%d (re-measured %s)", delivered,
+                     self._target_recall, self._cand_boost, re_meas)
+            if re_meas is None or re_meas <= delivered + 1e-9:
+                self._cand_boost //= 2        # not candidate-bound
+                break
+            delivered = re_meas
+        self._delivered_recall = delivered
+
+    def _measure_delivered(self, q: np.ndarray, qrows: np.ndarray,
+                           truth: np.ndarray,
+                           valid: np.ndarray) -> Optional[float]:
+        """Delivered recall@10 on the tuner's sample through the real
+        search: _dispatch_search at the tuned nprobe and candidate width,
+        then the exact fp32 re-rank on the host mirror, the query's own
+        row excluded as in the truth. Named deviation from the reference
+        (cortex_tpu/vector/ivf.py:1290-1292): a query's candidates are its
+        valid entries (score > -1e29), and a query with none counts its
+        truth rows as misses; the reference reads rows >= 0 (an invalid
+        entry comes back as row 0) and skips a query with none, which
+        lifts the reading. Returns None when the search fails; the tuner
+        then keeps the probe-hit pick."""
+        try:
+            s = q.shape[0]
+            ak, aa, ex, hb = self._filter_codes(None, None, None)
+            _, kb = self._k_bucket(TUNE_TRUTH_K)
+            v, rows, _ = self._dispatch_search(q, ak, aa, ex, kb,
+                                               host_bias=hb)
+            v_h, rows_h = v.cpu().numpy()[:s], rows.cpu().numpy()[:s]
+            hits = total = 0
+            for i in range(s):
+                t = truth[i][valid[i]]
+                total += len(t)
+                cand = np.unique(rows_h[i][v_h[i] > -1e29])
+                if cand.size == 0:
+                    continue                  # every truth row missed
+                sc = self._emb_h[cand] @ q[i]
+                sc = np.where(cand == int(qrows[i]), -np.inf, sc)
+                top = set(cand[np.argsort(-sc)[:TUNE_TRUTH_K]].tolist())
+                hits += sum(1 for r_ in t if int(r_) in top)
+            return hits / total if total else None
+        except Exception:  # noqa: BLE001 — keep the probe-hit pick
+            log.warning("ivf tune: delivered-recall measurement failed; "
+                        "keeping the probe-hit pick", exc_info=True)
+            return None
+
+    def _spawn_graph_build(self, emb_i8: np.ndarray, rinv_sl: np.ndarray,
+                           slot_rows: np.ndarray, rows: np.ndarray) -> None:
+        """Build the kNN graph off the lock on a background thread, for
+        serving-scale layouts. It reads the host planes _build_ivf made
+        (the device planes take in-place writes from _apply_dirty; these
+        arrays nothing writes again) and copies of the per-row placement
+        maps, uploads them a chunk at a time and runs N1 on a CUDA stream
+        of its own, so searches do not queue behind it. The table is
+        swapped in under the lock unless a rebuild superseded it (seq
+        check); rows mutated meanwhile lose their out-edges at the swap.
+        A build that fails is logged with its error and leaves the graph
+        off until the next rebuild: refinement only adds recall.
+        index_info() publishes the swap (graph_built) or the error
+        (graph_error). Callers hold the corpus lock."""
+        seq = self._graph_seq
+        self._graph_inflight = True
+        self._graph_stale = set()
+        mu, cap, deg, dev = (self._quant_mu, self._cap, self._graph_degree,
+                             self._device)
+        maps = dict(cluster_of=self._cluster_of.copy(),
+                    slot_of=self._slot_of.copy(),
+                    cluster_of2=self._cluster_of2.copy(),
+                    slot_of2=self._slot_of2.copy())
+
+        def build(stats):
+            return knn_graph.build_knn_graph(
+                emb_i8, rinv_sl, slot_rows, mu, degree=deg, cap=cap,
+                rows=rows, device=dev, stats=stats, **maps)
+
+        def run():
+            t0 = time.monotonic()
+            stats: dict = {}
+            error = None
+            try:
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev), torch.cuda.stream(
+                            torch.cuda.Stream(dev)):
+                        out = build(stats)
+                else:
+                    out = build(stats)
+            except Exception as e:  # noqa: BLE001 — logged and published
+                log.exception("background knn-graph build failed; the "
+                              "graph stays off until the next rebuild")
+                out, error = None, f"{type(e).__name__}: {e}"
+            with self._lock:
+                if seq != self._graph_seq:
+                    return                    # superseded: discard
+                self._graph_inflight = False
+                if out is None:
+                    self._graph_error = error
+                    self._publish_info()
+                    return
+                for r in self._graph_stale:
+                    if 0 <= r < len(out):
+                        out[r] = -1
+                if len(out) < self._cap:      # the corpus grew meanwhile
+                    out = np.concatenate([out, np.full(
+                        (self._cap - len(out), out.shape[1]), -1, np.int32)])
+                self._nbrs_h = out
+                self._graph_stats = dict(stats, background=True,
+                                         wall_s=time.monotonic() - t0)
+                self._publish_info()
+                log.info("knn graph swapped in (background build, %d stale "
+                         "rows masked)", len(self._graph_stale))
+
+        threading.Thread(target=run, daemon=True,
+                         name="ivf-graph-build").start()
 
     def _grow_slots(self) -> bool:
         """Extend the slot axis to the next shape rung on the device when
@@ -557,6 +985,63 @@ class IvfCorpus(DeviceCorpus):
             self._dirty.clear()
 
     # ------------------------------------------------------------- search
+    def _expand_candidates(self, i, valid, q_np, flt):
+        """Graph refinement: widen the fetched candidate list with the
+        kNN-graph neighbours of its top REFINE_FRONTIER entries before the
+        exact re-rank, so a true top-k row whose cluster ranks low is
+        reached through a found neighbour's edge. Expanded rows are
+        checked against the host mirrors (liveness, kind, agent,
+        exclusions: the device never saw them) and deduplicated, the
+        device's own candidate first; the exact re-rank then scores
+        everything fp32-true, so refinement can only add recall.
+        REFINE_HOPS >= 2 re-expands from the exact-scored top of each
+        hop's additions. Runs under the corpus lock."""
+        nbrs = self._nbrs_h
+        if nbrs is None or REFINE_FRONTIER <= 0 or REFINE_HOPS <= 0:
+            return i, valid
+        kinds, agent, exclude_ids = flt if flt else (None, None, None)
+        codes = acode = ex_rows = None
+        if kinds is not None:
+            codes = np.asarray([self.kinds.lookup(kk) for kk in kinds],
+                               np.int32)
+        if agent is not None:
+            acode = self.agents.lookup(agent)
+        if exclude_ids:
+            ex_rows = np.asarray(
+                [self._row_of[x] for x in exclude_ids
+                 if x in self._row_of], np.int32)
+        b = i.shape[0]
+        e = min(REFINE_FRONTIER, i.shape[1])
+        r = nbrs.shape[1]
+        # the device's candidates arrive in descending int8 score
+        front_i, front_v = i[:, :e], valid[:, :e]
+        parts_i, parts_v = [i], [valid]
+        for hop in range(REFINE_HOPS):
+            ext = nbrs[np.where(front_v, front_i, 0)].reshape(b, -1)
+            ok = np.repeat(front_v, r, axis=1) & (ext >= 0)
+            ext = np.where(ok, ext, 0)
+            ok &= self._live_h[ext]
+            if codes is not None:
+                ok &= np.isin(self._kind_h[ext], codes)
+            if acode is not None:
+                ok &= self._agent_h[ext] == acode
+            if ex_rows is not None and len(ex_rows):
+                ok &= ~np.isin(ext, ex_rows)
+            parts_i.append(ext)
+            parts_v.append(ok)
+            if hop + 1 < REFINE_HOPS:
+                # next frontier: the exact top-e of this hop's additions
+                g = self._emb_h[ext.reshape(-1)].reshape(b, -1, self.dim)
+                sc = np.matmul(g, q_np[:, :, None])[:, :, 0]
+                sc = np.where(ok, sc, NEG_INF)
+                sel = np.argsort(-sc, axis=1)[:, :e]
+                front_i = np.take_along_axis(ext, sel, axis=1)
+                front_v = (np.take_along_axis(ok, sel, axis=1)
+                           & (np.take_along_axis(sc, sel, axis=1) > -1e29))
+        i2 = np.concatenate(parts_i, axis=1)
+        v2 = np.concatenate(parts_v, axis=1)
+        return i2, knn_graph.dedup_keep_first(i2, v2)
+
     def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
                          host_bias: Optional[np.ndarray] = None):
         """Enqueue the IVF search; returns (values, GLOBAL rows, True) so
@@ -569,7 +1054,8 @@ class IvfCorpus(DeviceCorpus):
                     torch.zeros((b, k_bucket), dtype=torch.int32), False)
         c = self._ivf_dev[0].shape[0]
         p = self._nprobe(c)
-        cand = min(self._cand_count(k_bucket), p * self._slot_cap)
+        cand = min(self._cand_count(k_bucket) * self._cand_boost,
+                   p * self._slot_cap)
         q = torch.from_numpy(q_np).to(dev)
         hb = None
         if host_bias is not None:
@@ -599,14 +1085,33 @@ class IvfCorpus(DeviceCorpus):
 class TorchIvfIndex(TorchFlatIndex):
     """VectorIndex over IvfCorpus, selected with [embedding] index =
     "ivf". `device` is "cuda" (the default; raises when CUDA is absent),
-    "cpu", or a torch.device."""
+    "cpu", or a torch.device. retrain() forces a full k-means rebuild."""
 
     def __init__(self, dim: int, *, nlist: int = 0, nprobe: int = 0,
-                 spill: float = 1.0, device="cuda"):
+                 spill: float = 1.0, graph_degree: int = 32,
+                 target_recall: float = 0.0, device="cuda"):
         self.dim = dim
         self._corpus = IvfCorpus(dim, nlist=nlist, nprobe=nprobe,
-                                 spill=spill, device=resolve_device(device))
+                                 spill=spill, graph_degree=graph_degree,
+                                 target_recall=target_recall,
+                                 device=resolve_device(device))
 
-    # the flat index's description does not fit; the IVF's own (clustering
-    # and nprobe state) is not ported yet (ROADMAP queue A, IVF remainder)
-    index_info = VectorIndex.index_info
+    def retrain(self) -> None:
+        co = self._corpus
+        with co._lock:
+            co._full_resync = True
+            co._boot_cent = None              # force a real k-means
+            co._boot_cluster = None
+            co._boot_cluster2 = None
+            co._boot_nbrs = None              # and a fresh graph
+            co.sync()
+
+    def index_info(self) -> dict:
+        """The index's published state (_publish_info), read without the
+        corpus lock: a reader never queues behind a retrain, and gets the
+        whole state of one build."""
+        co = self._corpus
+        info = {"kind": "ivf", "size": len(co._row_of),
+                "capacity": int(co._cap), "device": str(co._device)}
+        info.update(co._info_pub)
+        return info

@@ -552,29 +552,32 @@ class DeviceCorpus:
             return torch.cat(vs), torch.cat(rs), rescore, kk, gen, mu
         return vs[0], rs[0], rescore, kk, gen, mu
 
-    def _collect(self, dispatched, q_np: np.ndarray, k: int):
+    def _collect(self, dispatched, q_np: np.ndarray, k: int, flt=None,
+                 refine: bool = True):
         """Fetch a dispatched search (outside the lock: the copy waits
         for the device) and finish it; None when rows were reassigned
-        since the dispatch."""
+        since the dispatch. flt and refine go to _finish_topk."""
         b = q_np.shape[0]
         if dispatched is None:
             return (np.full((b, k), NEG_INF, np.float32),
                     [[None] * k for _ in range(b)])
         v, i, rescore, kk, gen, mu = dispatched
         return self._finish_topk(v.cpu().numpy(), i.cpu().numpy(), k, kk,
-                                 gen, q_np, rescore, mu)
+                                 gen, q_np, rescore, mu, flt=flt,
+                                 refine=refine)
 
-    def _resolve(self, first, redispatch, q_np: np.ndarray, k: int):
+    def _resolve(self, first, redispatch, q_np: np.ndarray, k: int,
+                 flt=None, refine: bool = True):
         """Collect `first`; while rows were reassigned under it, re-issue
         (bounded), the last time holding the lock so nothing can move."""
-        out = self._collect(first, q_np, k)
+        out = self._collect(first, q_np, k, flt, refine)
         for _ in range(_RETRIES):
             if out is not None:
                 return out
-            out = self._collect(redispatch(), q_np, k)
+            out = self._collect(redispatch(), q_np, k, flt, refine)
         if out is None:
             with self._lock:
-                out = self._collect(redispatch(), q_np, k)
+                out = self._collect(redispatch(), q_np, k, flt, refine)
         if out is None:
             raise RuntimeError("corpus generation changed under its lock")
         return out
@@ -582,15 +585,18 @@ class DeviceCorpus:
     def topk_async(self, queries: np.ndarray, k: int, *,
                    kinds: Optional[Sequence[str]] = None,
                    agent: Optional[str] = None,
-                   exclude_ids: Optional[Sequence[str]] = None):
+                   exclude_ids: Optional[Sequence[str]] = None,
+                   refine: bool = True):
         """Dispatch a batched search without fetching it; returns a
         zero-arg callable that blocks for (scores [B, k], ids [B][k]).
-        Dead or padded hits have score <= -1e29 and id None."""
+        Dead or padded hits have score <= -1e29 and id None. refine=False
+        skips _expand_candidates."""
         q_np = normalize_rows(np.asarray(queries, np.float32))
         flt = (kinds, agent, exclude_ids)
         first = self._dispatch(q_np, k, flt)
         return lambda: self._resolve(
-            first, lambda: self._dispatch(q_np, k, flt), q_np, k)
+            first, lambda: self._dispatch(q_np, k, flt), q_np, k, flt,
+            refine)
 
     def topk(self, queries: np.ndarray, k: int, *,
              kinds: Optional[Sequence[str]] = None,
@@ -606,7 +612,8 @@ class DeviceCorpus:
                     batch: int = 512,
                     kinds: Optional[Sequence[str]] = None,
                     agent: Optional[str] = None,
-                    exclude_ids: Optional[Sequence[str]] = None):
+                    exclude_ids: Optional[Sequence[str]] = None,
+                    refine: bool = True):
         """Bulk search over a query stream: every chunk of `batch`
         queries is enqueued on one layout, the results are concatenated
         on the device and fetched once. The same results as topk over
@@ -621,17 +628,30 @@ class DeviceCorpus:
 
         def dispatch():
             return self._dispatch(q_np, k, flt, chunk=max(1, int(batch)))
-        return self._resolve(dispatch(), dispatch, q_np, k)
+        return self._resolve(dispatch(), dispatch, q_np, k, flt, refine)
+
+    def _expand_candidates(self, i, valid, q_np, flt):
+        """Hook: widen the candidate list between the fetch and the exact
+        re-rank (the graph-refined IVF index overrides it). Runs under
+        the corpus lock. flt is the host-form (kinds, agent, exclude_ids)
+        triple, so expanded rows can be filter-checked against the host
+        mirrors; q_np feeds multi-hop frontier selection. Returns (i,
+        valid), possibly wider; the exact re-rank scores whatever is
+        valid, so expansion can only add candidates."""
+        return i, valid
 
     def _finish_topk(self, v: np.ndarray, i: np.ndarray, k: int, kk: int,
                      generation: int, q_np: np.ndarray, rescore: bool,
-                     bf16_mu: Optional[np.ndarray] = None):
+                     bf16_mu: Optional[np.ndarray] = None, flt=None,
+                     refine: bool = True):
         """Map fetched rows to ids. rescore=True: the device returned an
-        int8-scored candidate list; re-rank it exactly against the fp32
-        host mirror. Otherwise the device scores are final, and bf16_mu
-        (the centering shift of the DISPATCHED layout, not the current
-        one) puts the per-query q.mu back onto them. Returns None when
-        rows were reassigned since the dispatch (the caller re-issues)."""
+        int8-scored candidate list; with refine, _expand_candidates may
+        widen it (flt: the host-form filters); then it is re-ranked
+        exactly against the fp32 host mirror. Otherwise the device scores
+        are final, and bf16_mu (the centering shift of the DISPATCHED
+        layout, not the current one) puts the per-query q.mu back onto
+        them. Returns None when rows were reassigned since the dispatch
+        (the caller re-issues)."""
         with self._lock:
             if generation != self._generation:
                 return None
@@ -641,6 +661,13 @@ class DeviceCorpus:
             # rows so they surface as (<= -1e29, None)
             valid &= self._live_h[np.where(valid, i, 0)]
             if rescore:
+                if refine:
+                    # refinement is a serving-recall feature; the bulk
+                    # scans (auto-linker, dedup) pass refine=False: their
+                    # similarity thresholds sit far above the structural
+                    # miss band, and the extra host re-rank rows would
+                    # tax every cycle
+                    i, valid = self._expand_candidates(i, valid, q_np, flt)
                 nat = (rerank_topk_native(self._emb_h, q_np, i, valid, kk)
                        if _USE_NATIVE_RERANK else None)
                 if nat is not None:

@@ -49,7 +49,6 @@ def configs():
     out = []
     for cfg in (JaxConfig(), CortexConfig()):
         cfg.embedding.index = "ivf"
-        cfg.embedding.ivf_graph_degree = 0
         cfg.embedding.model = "hash-64"
         cfg.embedding.ivf_nlist = 8
         out.append(cfg)

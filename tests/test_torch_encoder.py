@@ -496,7 +496,6 @@ def test_cortex_with_the_encoder_matches_reference(tmp_path, index):
         cfg.embedding.model = f"flax:{npz}"
         cfg.embedding.dimension = 32
         cfg.embedding.index = index
-        cfg.embedding.ivf_graph_degree = 0
         cfg.embedding.ivf_nlist = 4
     ref = JaxCortex(JaxMemory(), jcfg)
     port = Cortex(MemoryStorage(), tcfg, device="cpu")

@@ -63,7 +63,6 @@ def configs(index):
         cfg.embedding.model = "hash-64"
         if index == "ivf":
             cfg.embedding.index = "ivf"
-            cfg.embedding.ivf_graph_degree = 0
             cfg.embedding.ivf_nlist = 8
         out.append(cfg)
     return out

@@ -2,7 +2,9 @@
 `search_batch`, `search_batch_async` and `search_stream` take the
 reference's parameters (names, kinds, defaults; `refine` keyword-only,
 default True), and `refine=False` gives the same hits as `refine=True` on
-the flat and IVF indexes (neither has a kNN-graph refinement to skip).
+the flat index and on an IVF index without the kNN graph (neither has a
+refinement to skip); with the graph, `refine=False` serves exactly the
+unrefined index's hits.
 """
 
 import inspect
@@ -45,11 +47,12 @@ def unit_rows(n, d, seed):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def index(kind):
+def index(kind, graph_degree=0):
     n, d = 300, 32
     ix = (TorchFlatIndex(d, search_path="quant", device="cpu")
           if kind == "flat" else
-          TorchIvfIndex(d, nlist=8, nprobe=3, device="cpu"))
+          TorchIvfIndex(d, nlist=8, nprobe=3, graph_degree=graph_degree,
+                        device="cpu"))
     ix.insert_batch([f"n{i}" for i in range(n)], unit_rows(n, d, 1),
                     kinds=[f"k{i % 3}" for i in range(n)])
     return ix
@@ -72,3 +75,17 @@ def test_refine_false_gives_the_same_hits(kind):
         assert ix.search(q[0], 7, f, refine=False) == ix.search(q[0], 7, f)
     with pytest.raises(TypeError):            # keyword-only, as in the reference
         ix.search_batch(q, 7, None, False)
+
+
+def test_refine_false_skips_the_graph():
+    """With the kNN graph (the default degree 32), refine=False serves the
+    hits of the same layout without a graph; refine=True may add rows."""
+    plain, graph = index("ivf"), index("ivf", graph_degree=32)
+    q = unit_rows(9, 32, 2)
+    for f in (None, VectorFilter(kinds=["k1"])):
+        want = plain.search_batch(q, 7, f)
+        assert graph.search_batch(q, 7, f, refine=False) == want
+        assert graph.search_stream(q, 7, f, batch=4, refine=False) == \
+            plain.search_stream(q, 7, f, batch=4)
+    assert graph._corpus._nbrs_h is not None
+    assert plain._corpus._nbrs_h is None

@@ -51,7 +51,8 @@ def meta_of(n):
 
 def carried_pair(tmp_path, n=240, nlist=8, nprobe=3):
     """(JAX index loaded from a snapshot of a trained JAX index, port
-    index loaded from the same state) — the same layout in both."""
+    index loaded from the same state) — the same layout in both, both
+    without the kNN graph (tests/test_torch_ivf_graph.py holds it)."""
     vecs = clustered(n)
     kinds, agents = meta_of(n)
     ids = [f"n{i}" for i in range(n)]
@@ -63,7 +64,8 @@ def carried_pair(tmp_path, n=240, nlist=8, nprobe=3):
     trained.write_snapshot(path, st)
     ref = TpuIvfIndex(DIM, nlist=nlist, nprobe=nprobe, graph_degree=0)
     ref.load(path)
-    port = TorchIvfIndex(DIM, nlist=nlist, nprobe=nprobe, device="cpu")
+    port = TorchIvfIndex(DIM, nlist=nlist, nprobe=nprobe, graph_degree=0,
+                         device="cpu")
     port._corpus.load_jax_state(st)
     ref._corpus.sync()
     port._corpus.sync()

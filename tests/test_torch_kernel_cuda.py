@@ -3,8 +3,9 @@ the IVF probed-block scan, the flat index's int8 candidate scan (K1)
 and exact re-rank (K2), the graph mirror's frontier walk (G1) and
 min-plus relaxation (G2), the edge decay sweep (D1), and the text
 encoder's residual + LayerNorm (E1) and masked attention (E2), with the
-encoder's forward against the CPU's. Marked `cuda`: skipped without a
-GPU.
+encoder's forward against the CPU's, and the IVF graph build's block
+kernel (N1) with K1 at the nprobe tuner's shape. Marked `cuda`: skipped
+without a GPU.
 This file imports no jax (the card's machine has none); run it there
 with
 
@@ -22,7 +23,7 @@ import torch
 
 from cortex_tpu_torch.models.encoder import (BertEncoder, BertEncoderConfig,
                                              bert_encode, init_params)
-from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather
+from cortex_tpu_torch.ops import decay, graph_bfs, ivf_gather, knn_graph
 from cortex_tpu_torch.ops import encoder as enc
 from cortex_tpu_torch.ops import similarity as sim
 from cortex_tpu_torch.vector.shard import build_bias
@@ -1195,3 +1196,149 @@ def test_encoder_forward_equals_cpu(dev, cfg):
     alone = bert_encode(card, ids[3:4, :mask[3].sum()],
                         mask[3:4, :mask[3].sum()])
     assert float(np.abs(alone[0] - got[3]).max()) <= ENCODER_ATOL
+
+
+# ------------------------------------------------------------------ N1
+# block_knn against block_knn_plain, bit for bit: the int8 self-product
+# is exact in both (int32 on the tensor cores; an f32 product with TF32
+# off, exact for d <= 1040), the descale runs in the same order with
+# single roundings, and both order by (score desc, slot asc).
+
+
+def _knn_inputs(dev, ch, l, d, seed=0, dead=0.2, dup=False):
+    rng = np.random.default_rng(seed)
+    emb = rng.integers(-127, 128, (ch, l, d)).astype(np.int8)
+    sr = rng.permutation(ch * l).astype(np.int32).reshape(ch, l)
+    sr[rng.random((ch, l)) < dead] = -1
+    if ch > 1:
+        sr[-1, 3:] = -1                   # a cluster with 3 live slots
+    if dup:
+        emb[:, 1::2] = emb[:, 0::2][:, :l // 2]   # exact score ties
+    emb[sr < 0] = 0
+    ri = (rng.random((ch, l)) * 0.01 + 0.001).astype(np.float32)
+    if dup:
+        ri[:, 1::2] = ri[:, 0::2][:, :l // 2]
+    ri[sr < 0] = 0.0
+    t = [torch.from_numpy(a).to(dev) for a in (emb, ri, sr)]
+    mu = torch.from_numpy(rng.normal(size=d).astype(np.float32) * 0.01)
+    return (*t, knn_graph.slot_mu_dot(t[0], t[1], mu.to(dev)))
+
+
+def _check_knn(args, r):
+    before = knn_graph.block_knn.launches
+    got = knn_graph.block_knn(*args, r)
+    torch.cuda.synchronize()
+    assert knn_graph.block_knn.launches == before + 1
+    want = knn_graph.block_knn_plain(*args, r)
+    assert got.dtype == want.dtype == torch.int32
+    assert got.shape == want.shape == (args[0].shape[0], args[0].shape[1], r)
+    assert torch.equal(got, want)
+
+
+# (ch, L, d, r): odd L and d, r past a cluster's live count, L not a
+# multiple of the 64-slot tile, the row tile of 64 / 32 / 16 / 8 rows,
+# phase 4's 384-d layout, the 1M layout's 1,280 x 768 at r 32 and L - 1,
+# d 1040, the 10M auto layout's L 4,096 at d 768 (8 rows a block) at r 32
+# and the largest degree, 1,024, and L 4,001 (not a multiple of 16)
+KNN_SHAPES = [(3, 37, 100, 12), (2, 13, 37, 12), (4, 65, 16, 64),
+              (3, 100, 128, 32), (4, 192, 384, 32), (2, 1280, 768, 32),
+              (2, 1280, 768, 1279), (2, 2000, 384, 32), (2, 200, 1040, 40),
+              (1, 2, 8, 1), (2, 4096, 768, 32), (1, 4096, 768, 1024),
+              (1, 4001, 100, 33)]
+
+
+@pytest.mark.parametrize("shape", KNN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_block_knn_equals_plain(dev, shape):
+    ch, l, d, r = shape
+    _check_knn(_knn_inputs(dev, ch, l, d), r)
+
+
+@pytest.mark.parametrize("r", [1, 8, 31])
+def test_block_knn_exact_ties_go_to_the_lower_slot(dev, r):
+    _check_knn(_knn_inputs(dev, 3, 64, 96, seed=3, dup=True), r)
+
+
+def test_block_knn_every_slot_dead(dev):
+    args = _knn_inputs(dev, 2, 40, 64, dead=1.0)
+    _check_knn(args, 16)
+    assert (knn_graph.block_knn(*args, 16) == -1).all()
+
+
+def test_block_knn_chunk_views(dev):
+    """A chunk sliced from a larger layout (as build_knn_graph passes it)
+    gives the same lists as the chunk alone."""
+    emb, ri, sr, mud = _knn_inputs(dev, 6, 96, 128, seed=4)
+    whole = knn_graph.block_knn(emb, ri, sr, mud, 24)
+    part = knn_graph.block_knn(emb[2:5], ri[2:5], sr[2:5], mud[2:5], 24)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[2:5])
+
+
+@pytest.mark.parametrize("bad", ["r_zero", "r_past", "too_wide", "dtype",
+                                 "shape"])
+def test_block_knn_limits_raise_value_error(dev, bad):
+    """Outside its limits the kernel refuses with ValueError: r in
+    [1, L - 1]; the strip of 8 rows' scores against all L slots beside
+    the row tile and ring must fit a block's shared memory (L 8,192 at d
+    768 does not; L 4,096, the 10M auto layout, does)."""
+    emb, ri, sr, mud = _knn_inputs(dev, 1, 64, 32)
+    r = 8
+    if bad == "r_zero":
+        r = 0
+    elif bad == "r_past":
+        r = 64
+    elif bad == "too_wide":
+        emb, ri, sr, mud = _knn_inputs(dev, 1, 8192, 768)
+    elif bad == "dtype":
+        ri = ri.double()
+    else:
+        mud = mud[:, :10].contiguous()
+    with pytest.raises(ValueError):
+        knn_graph.block_knn(emb, ri, sr, mud, r)
+
+
+def test_build_knn_graph_on_the_card_equals_the_cpu(dev):
+    """The host side through N1 on the card: device planes and uploaded
+    host planes give the same [cap, degree] table, spilled rows merged;
+    against the plain version on the CPU the tables agree but where mud
+    (an f32 matrix-vector product, summed in another order on the CPU)
+    swaps a near-tie."""
+    from cortex_tpu_torch.vector.ivf import TorchIvfIndex
+    from cortex_tpu_torch.vector.knn_graph import build_knn_graph
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3000, 64)).astype(np.float32)
+    idx = TorchIvfIndex(64, nlist=16, graph_degree=16, device="cpu")
+    idx.insert_batch([f"n{i}" for i in range(len(x))], x)
+    idx._corpus.sync()
+    co = idx._corpus
+    _, emb, ri, sr, _, _ = co._ivf_dev
+    live = np.where(co._live_h)[0].astype(np.int32)
+    kw = dict(degree=16, cap=co._cap, rows=live, cluster_of=co._cluster_of,
+              slot_of=co._slot_of, cluster_of2=co._cluster_of2,
+              slot_of2=co._slot_of2)
+    want = build_knn_graph(emb, ri, sr, co._quant_mu, **kw)
+    got = build_knn_graph(emb.to(dev), ri.to(dev), sr.to(dev),
+                          co._quant_mu, **kw)
+    host = build_knn_graph(emb.numpy(), ri.numpy(), sr.numpy(),
+                           co._quant_mu, device=dev, **kw)
+    np.testing.assert_array_equal(host, got)
+    assert (got[live] == want[live]).all(axis=1).mean() > 0.99
+
+
+def test_quant_candidates_at_the_tuner_shape(dev):
+    """K1 as the nprobe tuner runs it: 256 sampled queries, cand 32, over
+    a chunk of the flattened [C * L, d] layout with dead slots biased to
+    NEG_INF."""
+    rng = np.random.default_rng(7)
+    c, l, d = 40, 128, 768
+    emb = torch.from_numpy(rng.integers(-127, 128, (c * l, d)).astype(
+        np.int8)).to(dev)
+    sr = torch.from_numpy(rng.permutation(c * l).astype(np.int32)).to(dev)
+    sr[torch.rand(c * l, device=dev) < 0.25] = -1
+    rinv = (torch.rand(c * l, device=dev) * 0.01 + 0.001)
+    q = torch.randn((256, d), device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    qi8, qs = sim.quantize_queries(q)
+    bias = torch.where(sr >= 0, 0.0, sim.NEG_INF).to(torch.float32)
+    _check_k1((emb, rinv, qi8, qs, bias), 32)

@@ -42,7 +42,6 @@ SCRIPT = textwrap.dedent("""
     def cfg(**kw):
         c = CortexConfig()
         c.embedding.index = "ivf"
-        c.embedding.ivf_graph_degree = 0
         c.embedding.model = "hash-64"
         for k, v in kw.items():
             setattr(c.embedding, k, v)
@@ -60,6 +59,14 @@ SCRIPT = textwrap.dedent("""
         return cx, {"top1": hits[0][1].id == nodes[3].id,
                     "filtered_kinds": sorted({n.kind for _, n in flt}),
                     "index": cx.index.index_info()["kind"]}
+
+    def ivf_state(cx):
+        info = cx.index.index_info()
+        co = cx.index._corpus
+        return {"graph_degree": info["graph_degree"],
+                "graph_built": co._nbrs_h is not None,
+                "target_recall": info["target_recall"],
+                "tuned": info["nprobe_tuned"] > 0}
 
     out = {}
     out["modules"] = sorted(
@@ -145,10 +152,16 @@ SCRIPT = textwrap.dedent("""
             lambda: Cortex.in_memory(cfg()), DeviceUnavailable)
     unported = {
         "flat": dict(index="flat", sharded=True),
-        "graph": dict(ivf_graph_degree=32),
-        "tuner": dict(ivf_target_recall=0.9),
         "sharded": dict(sharded=True),
     }
+    # the kNN-graph refinement and the nprobe tuner (ivf_nlist 8 so the
+    # 40 nodes make more than the tuner's 8 lists)
+    out["ivf_options"] = {}
+    for name, kw in {"graph": dict(ivf_graph_degree=32),
+                     "tuner": dict(ivf_target_recall=0.9, ivf_nlist=9)
+                     }.items():
+        cx_o, got = store_search(cfg(**kw))
+        out["ivf_options"][name] = dict(got, **ivf_state(cx_o))
     out["config_errors"] = {
         name: raises(lambda kw=kw: Cortex.in_memory(cfg(**kw),
                                                     device="cpu"),
@@ -182,8 +195,8 @@ SCRIPT = textwrap.dedent("""
     ivf_defaults = CortexConfig()
     ivf_defaults.embedding.index = "ivf"
     ivf_defaults.embedding.model = "hash-64"
-    out["ivf_default_config_error"] = raises(
-        lambda: Cortex.in_memory(ivf_defaults, device="cpu"), ConfigError)
+    cx_d, got = store_search(ivf_defaults)
+    out["ivf_defaults"] = dict(got, **ivf_state(cx_d))
     out["gate_error"] = raises(
         lambda: cx.store(Node.new("fact", "gated title here", "gated body",
                                   Source(agent="a")), gate=True),
@@ -212,7 +225,8 @@ def test_every_module_imports_without_jax(report):
                  "linker.decay_worker", "linker.dedup", "linker.metrics",
                  "linker.rules", "ops.decay", "utils.tracing",
                  "vector.config", "models.encoder", "models.tokenizer",
-                 "models.convert", "ops.encoder"):
+                 "models.convert", "ops.encoder", "ops.knn_graph",
+                 "vector.knn_graph"):
         assert f"cortex_tpu_torch.{name}" in mods
 
 
@@ -330,8 +344,19 @@ def test_cuda_absent_raises(report):
 @pytest.mark.parametrize("name", ["flat", "graph", "tuner", "sharded",
                                   "local_weights"])
 def test_unported_config_raises_config_error(report, name):
-    # flat: the sharded flat index; graph and tuner: ivf_graph_degree /
-    # ivf_target_recall with index = "ivf", the only index that reads them
+    # flat: the sharded flat index
+    if name in ("graph", "tuner"):
+        # ported: ivf_graph_degree / ivf_target_recall with index = "ivf"
+        # (the only index that reads them) open, store and search without
+        # jax: the graph is built, the tuner picks an nprobe
+        got = report["ivf_options"][name]
+        assert got["top1"] is True and got["index"] == "ivf"
+        assert got["filtered_kinds"] == ["event"]
+        if name == "graph":
+            assert got["graph_degree"] == 32 and got["graph_built"]
+        else:
+            assert got["target_recall"] == 0.9 and got["tuned"]
+        return
     if name == "local_weights":
         # the text encoder is ported: nothing refuses a model with
         # weights. An empty local model dir falls back to hashing, as in
@@ -345,9 +370,13 @@ def test_unported_config_raises_config_error(report, name):
 
 
 def test_reference_defaults_are_refused(report):
-    # with index = "ivf", the reference's other defaults are refused:
-    # ivf_graph_degree = 32 asks for the unported kNN-graph refinement
-    assert "ivf_graph_degree" in report["ivf_default_config_error"]
+    # no longer refused: with index = "ivf", the reference's other
+    # defaults (ivf_graph_degree = 32, the kNN-graph refinement) open,
+    # store and search without jax, with the graph built
+    assert report["ivf_defaults"] == {
+        "top1": True, "filtered_kinds": ["event"], "index": "ivf",
+        "graph_degree": 32, "graph_built": True, "target_recall": 0.0,
+        "tuned": False}
 
 
 @pytest.mark.parametrize("name", ["flat", "default", "flat_ivf_settings"])
