@@ -79,9 +79,10 @@ Phases, each printing its results on its own line:
      3 TF32 products per fp32 product at 495 TFLOP/s). The kNN-graph
      block kernel (N1) against its plain version, list for list: small
      and odd (L 37, d 100, a list with 3 live slots, r 1, 12 and 36),
-     phase 4's 384-d layout (144 lists of 192 slots, r 32) and the 10M
-     auto layout's lists (4 of 4,096 x 768, r 32: a block of 8 rows); at
-     phase 3's
+     phase 4's 384-d layout (144 lists of 192 slots, r 32), the 10M
+     auto layout's lists (4 of 4,096 x 768, r 32) and lists past the
+     first design's shared-memory limit (2 of 8,192 x 768, r 32), the
+     last two timed beside their bounds; at phase 3's
      1M layout, on its first 64 lists at r 32 and r = L - 1, with their
      and the plain version's times beside the bound (operations: the
      L (L - 1) / 2 distinct dots of a list's symmetric self-product,
@@ -93,8 +94,9 @@ Phases, each printing its results on its own line:
      dead slots biased to NEG_INF), checked and timed as above;
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows), with
      the kNN graph at the default degree 32, built on its background
-     thread (the build's wall split into device work, fetch and host
-     merge, and N1's launches): at nprobe = nlist the top-10 of 64
+     thread (the build's wall split into device work, the merge on the
+     device and the table's fetch, and N1's launches): at nprobe = nlist
+     the top-10 of 64
      queries equals the exact fp32 oracle (near-ties of 1e-6 may swap);
      at the default nprobe the recall@10, batch-64 throughput (median of
      5 runs of 30 batches) and batch-1 latency (p50 and p99 over 1,000
@@ -220,8 +222,9 @@ times K1's kernel whole and cut short after each of its parts, and K2
 with its largest warp sort of 64, 256 and 1,024 entries, each from
 csrc/flat_scan.cu built alone with a compile-time switch
 (CORTEX_K1_PARTS, CORTEX_K2_WARP_SORT_MAX); before that, on the IVF
-index's layout, N1 on 64 lists whole, cut after its product and without
-it (CORTEX_KNN_PARTS, csrc/block_knn.cu). Then it traces
+index's layout, N1 on 64 lists whole, cut after its product and after
+its epilogue (CORTEX_KNN_PARTS), and whole with one consumer warpgroup
+a block (CORTEX_KNN_WG, csrc/block_knn.cu). Then it traces
 PROFILE_ROUNDS hybrid searches of phase 7's device tier (host ms per
 leg, device ms per kernel, idle share), and times G2 from
 csrc/graph_bfs.cu built alone, whole and cut after its table read
@@ -310,6 +313,9 @@ GRAPH_DEGREE = 32         # [embedding] ivf_graph_degree's default
 GRAPH_WAIT_S = 600        # the background graph build must swap in by then
 KNN_CHUNK = 64            # lists a chunk at the 1M layout (_chunk_clusters)
 L_10M = 4096              # slots a list of the auto layout at 10M rows
+# past the first N1 design's shared-memory strip (L <= 6,224 at d 768):
+# lists of nlist's cap at ~40M rows and more
+L_WIDE, WIDE_LISTS = 8192, 2
 REFINE_NPROBES = (128, 16, 4, 1)   # recall with and without the graph
 HARD_SPREAD = 1.0         # phase 3's hard queries: a row + 1.0 * noise
 TUNE_TARGET = 0.95
@@ -613,15 +619,28 @@ def knn_inputs(dev, gen, c, l, d):
     return emb, rinv, rows, slot_mu_dot(emb, rinv, mu)
 
 
-def check_knn_synthetic(knc, dev, gen):
-    """Phase 2's N1 shapes: small and odd (L not a multiple of the 64-slot
-    tile, d not of 16, a list with 3 live slots so r passes its live
-    count), phase 4's 384-d layout at the default degree, and the 10M
-    auto layout's lists (L 4,096 at d 768, 8 rows a block; from a
-    generator of its own, so that the shared one draws as before), timed
-    beside its bound; returns that timing."""
-    import torch
+def knn_timing(args, r):
+    """N1 and its plain version timed on one chunk, beside the bound (the
+    chunk's rows, rinv, slot_rows and mud read once, the lists written
+    once; a list's L (L - 1) / 2 distinct dots of 2 d operations)."""
     from cortex_tpu_torch.ops.knn_graph import block_knn, block_knn_plain
+    lists, slots, d = args[0].shape
+    return timing(time_ms(lambda: block_knn(*args, r), 5),
+                  time_ms(lambda: block_knn_plain(*args, r), 1),
+                  bound_ms(lists * slots * (d + 12 + 4 * r),
+                           lists * slots * (slots - 1) * d,
+                           INT8_OPS_PER_S), lists=lists, slots=slots, r=r)
+
+
+def check_knn_synthetic(knc, dev, gen):
+    """Phase 2's N1 shapes: small and odd (L not a multiple of the 128-slot
+    tile, d not of 16, a list with 3 live slots so r passes its live
+    count), phase 4's 384-d layout at the default degree, the 10M auto
+    layout's lists (L 4,096 at d 768) and WIDE_LISTS lists of L_WIDE at d
+    768, past the first design's shared-memory limit (each from a
+    generator of its own, so that the shared one draws as before), each
+    timed beside its bound; returns the two timings."""
+    import torch
     emb, rinv, rows, mud = knn_inputs(dev, gen, 5, 37, 100)
     rows[4, 3:] = -1
     emb[4, 3:] = 0
@@ -629,16 +648,16 @@ def check_knn_synthetic(knc, dev, gen):
     for r in (1, 12, 36):
         knc.compare(emb, rinv, rows, mud, r)
     knc.compare(*knn_inputs(dev, gen, 144, 192, DIM_NODES), GRAPH_DEGREE)
-    wide = torch.Generator(device=dev)
-    wide.manual_seed(2)
-    args = knn_inputs(dev, wide, 4, L_10M, D_BIG)
-    knc.compare(*args, GRAPH_DEGREE)
-    lists, r = args[0].shape[0], GRAPH_DEGREE
-    return timing(time_ms(lambda: block_knn(*args, r), 5),
-                  time_ms(lambda: block_knn_plain(*args, r), 1),
-                  bound_ms(lists * L_10M * (D_BIG + 12 + 4 * r),
-                           lists * L_10M * (L_10M - 1) * D_BIG,
-                           INT8_OPS_PER_S), lists=lists, slots=L_10M, r=r)
+    out = {}
+    for name, seed, lists, slots in (("l4096", 2, 4, L_10M),
+                                     ("l8192", 3, WIDE_LISTS, L_WIDE)):
+        own = torch.Generator(device=dev)
+        own.manual_seed(seed)
+        args = knn_inputs(dev, own, lists, slots, D_BIG)
+        knc.compare(*args, GRAPH_DEGREE)
+        out[name] = knn_timing(args, GRAPH_DEGREE)
+        del args
+    return out
 
 
 def check_knn_real(knc, fc, index):
@@ -3674,37 +3693,51 @@ def profile_k2_sorts(index, q_np, card):
 def profile_knn_parts(index, card):
     """N1 alone (csrc/block_knn.cu) on the first KNN_CHUNK lists of phase
     3's layout at r = the default degree: whole (CORTEX_KNN_PARTS = 0,
-    whose lists must equal the op's), cut after the product (1), and
-    without the product (2: the selection over whatever the strip
-    holds, the last block's scores on that SM)."""
+    whose lists must equal the op's), cut after the product (1: no
+    epilogue, no selection), and after the epilogue's threshold tests
+    (2: nothing staged or selected); then whole with one consumer
+    warpgroup a block (CORTEX_KNN_WG = 1: 64-row tiles, two blocks an
+    SM) against the ops' two (128-row tiles)."""
     import ctypes
     import torch
     from cortex_tpu_torch.ops.knn_graph import block_knn, slot_mu_dot
     parts, secs = build_variants("CORTEX_KNN_PARTS", (0, 1, 2),
                                  "block_knn.cu")
+    wgs, wg_secs = build_variants("CORTEX_KNN_WG", (1,), "block_knn.cu")
     co = index._corpus
     _, emb, rinv, rows, _, _ = co._ivf_dev
     blk, ri, sr = emb[:KNN_CHUNK], rinv[:KNN_CHUNK], rows[:KNN_CHUNK]
     mud = slot_mu_dot(blk, ri, torch.from_numpy(co._quant_mu).to(emb.device))
     c, l, d = blk.shape
-    want = block_knn(blk, ri, sr, mud, GRAPH_DEGREE)
+    r = GRAPH_DEGREE
+    want = block_knn(blk, ri, sr, mud, r)
     out = torch.empty_like(want)
     ptr = ctypes.c_void_p
     stream = ptr(torch.cuda.current_stream().cuda_stream)
     res = {}
-    for n, name in ((0, "whole"), (1, "product_only"), (2, "selection_only")):
-        def run(lib=parts[n]):
+    for lib, name in ((parts[0], "whole"), (parts[1], "product_only"),
+                      (parts[2], "product_epilogue"),
+                      (wgs[1], "whole_one_warpgroup")):
+        lib.cortex_block_knn_scratch.restype = ctypes.c_longlong
+        nb = lib.cortex_block_knn_scratch(c, l, d, r, 1)
+        check(nb >= 0, "N1 variants: device query failed")
+        scratch = torch.empty(max(nb, 1), dtype=torch.uint8,
+                              device=emb.device)
+
+        def run(lib=lib, nb=nb, scratch=scratch):
             check(lib.cortex_block_knn_launch(
                 ptr(blk.data_ptr()), ptr(ri.data_ptr()), ptr(sr.data_ptr()),
-                ptr(mud.data_ptr()), ptr(out.data_ptr()), c, l, d,
-                GRAPH_DEGREE, 1, stream) == 0, "N1 variants: launch failed")
-        if n == 0:
+                ptr(mud.data_ptr()), ptr(out.data_ptr()),
+                ptr(scratch.data_ptr() if nb > 0 else 0), c, l, d, r, 1,
+                stream) == 0, "N1 variants: launch failed")
+        if name.startswith("whole"):
             run()
             torch.cuda.synchronize()
-            check(torch.equal(out, want), "N1 variant 0 differs from the op")
+            check(torch.equal(out, want), f"N1 variant {name} differs from "
+                  f"the op")
         res[f"{name}_ms"] = time_ms(run, 5)
-    say("profile-knn-parts", card=card, lists=c, slots=l, dim=d,
-        r=GRAPH_DEGREE, nvcc_s=secs, **res)
+    say("profile-knn-parts", card=card, lists=c, slots=l, dim=d, r=r,
+        nvcc_s={**secs, "wg1": wg_secs[1]}, **res)
 
 
 def profile_relax_variants(dev, gen, card):
@@ -4176,13 +4209,14 @@ def main(argv) -> int:
     check_flat_synthetic(fc, dev, gen, 32768, 384, BATCH)    # phase 6's
     gc = GraphKernelCheck()
     check_graph_small(gc, dev, gen)
-    knn_10m = check_knn_synthetic(knc, dev, gen)
+    knn_lists = check_knn_synthetic(knc, dev, gen)
     say("2-kernel-small", cases=kc.cases, max_abs_err=kc.max_abs_err,
         flat_cases=fc.cases, k1_max_abs_err=fc.k1_err,
         k2_max_abs_err=fc.k2_err, graph_cases=gc.cases,
         graph_overflows=gc.overflows, graph_max_abs_err=gc.max_abs_err,
         knn_cases=knc.cases, knn_max_abs_err=knc.max_abs_err)
-    say("2-kernel-knn-10M-lists", **knn_10m, card=card)
+    say("2-kernel-knn-10M-lists", **knn_lists["l4096"], card=card)
+    say("2-kernel-knn-wide-lists", **knn_lists["l8192"], card=card)
     dc = DecayCheck()
     perf = {"decay_sweep": check_decay(dc, dev, gen, card)}
     ec = EncoderKernelCheck()

@@ -13,8 +13,10 @@ index (device_dtype and search_path take effect there); index = "ivf"
 takes every IVF key, the kNN-graph refinement (ivf_graph_degree, 32 by
 default) and the nprobe tuner (ivf_target_recall) included.
 `check_ported` raises ConfigError for every setting whose code path is
-not ported yet and names the ROADMAP item that will port it: the
-sharded index.
+not ported yet and names the ROADMAP item that will port it (the
+sharded index), and for a dimension past the card's scan kernels
+(KERNEL_MAX_DIM), so that no index opens and then fails at its first
+search.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ from .vector.scoring import ScoreDecayConfig
 #: ROADMAP items that port what this slice refuses
 MESH_ITEM = "ROADMAP queue A, 'Multi-GPU'"
 GATE_ITEM = "ROADMAP queue A, 'Write gate'"
+#: the widest rows the card's int8 scans take: K1 (csrc/flat_scan_op.cpp)
+#: and the IVF scan (csrc/ivf_gather_op.cpp) keep a chunk's queries in
+#: shared memory
+KERNEL_MAX_DIM = 4096
 
 
 @dataclass
@@ -178,6 +184,13 @@ def check_ported(cfg: CortexConfig) -> None:
     the port does not have yet."""
     cfg.validate()
     e = cfg.embedding
+    scans = e.index == "ivf" or e.search_path in ("auto", "quant")
+    if scans and e.dimension > KERNEL_MAX_DIM:
+        what = ("the IVF index's scan" if e.index == "ivf"
+                else f"search_path = {e.search_path!r}'s int8 scan")
+        raise ConfigError(
+            f"[embedding] dimension={e.dimension}: {what} takes rows of "
+            f"at most {KERNEL_MAX_DIM} on the card")
     if e.sharded:
         raise ConfigError(
             f"[embedding] sharded=true: the sharded index is not ported "

@@ -29,52 +29,62 @@
 // (its self-product is symmetric), L (L - 1) d operations: 1.29 T at
 // that layout, 0.65 ms at 1,979 TOP/s, against 0.35 ms of bytes at
 // 3.35 TB/s. This kernel does all L^2 dots (twice the bound's).
-// So no score plane leaves the SM:
-//  1. a block takes kRows rows of one cluster (8, 16, 32 or 64: the most
-//     whose strip fits in shared memory), loads them once into shared
-//     memory, and streams the cluster's slots past them in tiles of 64
-//     slots through a kStages-deep cp.async ring of 128-byte K slices
-//     (XOR-swizzled as in ivf_gather.cu, so ldmatrix reads are free of
-//     bank conflicts; other d are assembled from bytes, zero-padded);
-//  2. mma.sync m16n8k32 s8 x s8 -> s32 puts 16 slots a warp on M and the
-//     block's rows on N (4 warps on the tile's slots, 2 on its rows; at
-//     kRows 8, one fragment of rows, the 2 split each slice's K, and the
-//     epilogue adds the halves' int32 sums, exactly);
-//  3. each tile's epilogue descales in the reference's order (__fmul_rn,
-//     __fadd_rn: nvcc would contract a*b + c into an FMA and change the
-//     rounding), masks, and writes the scores into the block's
-//     [kRows, L] strip in shared memory (80 KB at kRows 16, L 1,280);
-//  4. then a warp a row selects the row's exact top r from the strip: a
-//     radix select over order-preserving 32-bit keys (4 passes of 8 bits,
-//     a 256-bin histogram a warp) finds the r-th largest key T; the
-//     elements above T and the lowest-slot elements equal to T are
-//     compacted as 64-bit (key, ~slot) words, which a bitonic sort in the
-//     warp's shared memory puts in (score desc, slot asc) order.
-//     -0.0 keys as +0.0, so the two tie as the reference's compare ties
-//     them. Every output is written once; nothing else goes out.
-// The cluster is re-read from L2 for every kRows rows (L / kRows times,
-// 40 GB of L2 reads at 1M with kRows 32), and with one block an SM the
-// selection does not overlap the product: on an H100 the two take about
-// half each of 2.7 ms a chunk of 64 lists (CORTEX_KNN_PARTS below), far
-// from the 0.041 ms bound. Limits: the strip, the row tile and the ring, or
-// the histograms and the sort buffers (r rounded up to a power of two,
-// 8 bytes an entry, a warp), must fit the card's opt-in shared memory
-// (cortex_block_knn_rows returns 0 when no kRows fits; the binding
-// raises ValueError). On an H100 (227 KB a block), at d 768 and r 32:
-// L <= 6,224 (kRows 32 up to L 1,424, 16 up to 3,040, then 8); at
-// r 1,024: L <= 4,880. The auto layout has L 1,280 at 1M rows and
-// 4,096 at 10M; past about 40M rows (nlist at its cap of 8,192) L
-// outgrows the strip.
+//
+// Design. A work item is (cluster, tile of 128 rows); a persistent grid
+// walks the items, one block an SM. A block is two consumer warpgroups
+// (64 rows each, the wgmma M) and one producer warp:
+//  1. the producer streams the item's column tiles (128 slots) past its
+//     rows in K slices of 128 bytes: each ring stage holds the rows'
+//     slice and the tile's slice, 128-byte swizzled, loaded by TMA
+//     (cp.async.bulk.tensor on two tensor maps of [ch L, d], full and
+//     empty mbarriers). For d % 16 != 0 (TMA needs 16-byte strides) the
+//     producer warp assembles the same swizzled stage from bytes;
+//  2. the consumers multiply each slice with wgmma m64n128k32 s8 x s8 ->
+//     s32, both operands K-major from shared memory; a stage is released
+//     once every consumer warp's wgmma on it has completed. L2 reads are
+//     one pass of both operands for each (row tile, column tile) pair;
+//  3. each column tile's epilogue descales in the reference's order
+//     (__fmul_rn, __fadd_rn: nvcc would contract a*b + c into an FMA and
+//     change the rounding) and masks, and compares every score with its
+//     row's running threshold, the r-th (score, slot) kept so far, as
+//     64-bit (order-preserving key, ~slot) words: descending words are
+//     score desc, slot asc, and -0.0 keys as +0.0, so the two tie as the
+//     reference's compare ties them. Scores <= -1e29 never enter a list:
+//     they write -1 wherever they would rank. A warp owns 16 rows and a
+//     quad (4 threads) one row per half (the accumulator's layout), so
+//     the rest is the warp's alone: rows with a candidate stage their
+//     scores in shared memory;
+//  4. r <= 32: each row's 32 best words live sorted across its quad's
+//     registers. Each thread queues its candidates (8 a row, in shared
+//     memory, re-tested against the threshold as they are queued); when
+//     a queue is full, and after the last column tile, the warp sorts
+//     every quad's 32 queued words with a bitonic network across the
+//     quad and merges them into the set (the elementwise max with the
+//     set reversed, then a bitonic merge), and the threshold becomes the
+//     r-th word. r > 32: a warp a row merges its survivors into a sorted
+//     list in shared memory or, past what fits, in a device scratch of
+//     the wrapper's (128 r words a block): with at most 32 survivors
+//     and 32 kept, by ranks from shuffles; else the survivors are
+//     bitonic-sorted and each word finds its place by binary search.
+//     After the last column tile each row's list goes out once.
+// No [rows, L] score plane exists, so L has no shared-memory limit, and
+// any r in [1, L - 1] is taken. The selection, not the product, bounds
+// the time: PERF.md has the split.
 //
 // The PyTorch op binding lives in block_knn_op.cpp, so this file never
-// includes PyTorch's headers. CORTEX_KNN_PARTS cuts the kernel for
-// profiling builds of this file alone (chip_smoke.py --profile): 1 stops
-// after the product (the strip written, nothing selected), 2 skips the
-// product (the selection over whatever the strip holds).
+// includes PyTorch's headers. Compile-time switches for profiling builds
+// of this file alone (chip_smoke.py --profile): CORTEX_KNN_PARTS = 1
+// stops after the product (no epilogue, no selection, no output), 2
+// after the epilogue's threshold tests (nothing staged or selected);
+// CORTEX_KNN_WG = 1 makes a block one consumer warpgroup over a tile of
+// 64 rows (two blocks an SM).
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
+#include <mutex>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "device_common.cuh"
@@ -82,48 +92,68 @@
 #ifndef CORTEX_KNN_PARTS
 #define CORTEX_KNN_PARTS 0
 #endif
+#ifndef CORTEX_KNN_WG
+#define CORTEX_KNN_WG 2
+#endif
 
 namespace {
 
 using namespace cortex_dev;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlotWarps = 4;               // warps on a tile's slots
-constexpr int kTileSlots = 16 * kSlotWarps;  // slots a ring stage
-constexpr int kSlice = 128;                 // bytes of K a ring stage
-constexpr int kStages = 3;
-constexpr int kBins = 256;
-constexpr float kNegInf = -1e30f;
+constexpr int kWG = CORTEX_KNN_WG;          // consumer warpgroups a block
+constexpr int kRowsWG = 64;                 // rows a warpgroup (wgmma M)
+constexpr int kTileRows = kWG * kRowsWG;
+constexpr int kCols = 128;                  // slots a column tile (wgmma N)
+constexpr int kSlice = 128;                 // K bytes a stage: one swizzle atom
+constexpr int kConsumers = kWG * 128;
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+// Registers a thread after the split (setmaxnreg): the producer
+// warpgroup gives its share to the consumers
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = kWG == 1 ? 216 : 232;
+constexpr int kMaxStages = 4;
+constexpr int kStgStride = kCols + 8;       // staging row stride, floats
 constexpr float kDeadScore = -1e29f;        // scores <= this are masked
 
-// Strip row stride in floats: L rounded up to 16, plus 4, so the epilogue's
-// four row groups of a warp (rows 2 apart) land on disjoint banks.
-__host__ __device__ inline int strip_stride(int l_count) {
-  return (l_count + 15) / 16 * 16 + 4;
-}
+// Where a row's running top r lives: r <= 32 as a set in the registers
+// of the four threads that own the row; else a sorted list in shared
+// memory, or, past what fits, in the device scratch.
+constexpr int kSetMax = 32;
+enum Lists { kListsSet = 0, kListsShared = 1, kListsDevice = 2 };
 
-__host__ __device__ inline int padded_d(int d) {
-  return (d + kSlice - 1) / kSlice * kSlice;
-}
+// Byte offsets of a block's dynamic shared memory (from a 1024-aligned
+// base: the swizzled stages need it), for `stages` ring stages and the
+// lists' place.
+struct Layout {
+  int a_bytes, stage_bytes, stg, colb, sortb, theta, nt, bars;
+  long long t, total;
+};
 
-// entries of a warp's sort buffer: r rounded up to a power of two
-__host__ __device__ inline int sort_len(int r) {
-  int p = 1;
-  while (p < r) p <<= 1;
-  return p;
-}
-
-// Dynamic shared memory of a launch with kRows rows a block: the strip,
-// then a region used first for the row tile and the ring, then for each
-// warp's histogram and compacted list.
-size_t smem_bytes(int rows, int l_count, int d, int r) {
-  const size_t strip = static_cast<size_t>(rows) * strip_stride(l_count) * 4;
-  const size_t product = static_cast<size_t>(rows) * padded_d(d) +
-                         static_cast<size_t>(kStages) * kTileSlots * kSlice;
-  const size_t select = static_cast<size_t>(kWarps) *
-                        (kBins * 4 + static_cast<size_t>(sort_len(r)) * 8);
-  return (strip + 127) / 128 * 128 + std::max(product, select);
+__host__ __device__ inline Layout knn_layout(int stages, int r, int lists) {
+  Layout o;
+  constexpr int warps = kConsumers / 32;
+  const bool sorted = lists != kListsSet;
+  o.a_bytes = kTileRows * kSlice;
+  o.stage_bytes = o.a_bytes + kCols * kSlice;
+  int at = stages * o.stage_bytes;
+  o.stg = at;
+  at += warps * 16 * kStgStride * 4;         // a warp's 16 rows of scores
+  o.colb = at;
+  at += warps * kCols * 8;                   // (rinv, mud) of the tile's slots
+  o.sortb = at;                              // a warp's survivors, or
+  at += warps * (sorted ? kCols : 32 * 16) * 8;  // its threads' queues
+  o.theta = at;
+  at += sorted ? kTileRows * 8 : 0;          // each row's threshold word
+  o.nt = at;
+  at += sorted ? kTileRows * 4 : 0;          // each row's list length
+  o.bars = at;
+  at += 2 * kMaxStages * 8;
+  o.t = at;
+  o.total = o.t +
+            (lists == kListsShared ? static_cast<long long>(kTileRows) * r * 8
+                                   : 0) +
+            1024;
+  return o;
 }
 
 // Sorts like the float (larger key, larger score); -0.0 keys as +0.0.
@@ -133,424 +163,968 @@ __device__ __forceinline__ uint32_t order_key(float s) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// The float a key came from (+0.0 for -0.0).
+__device__ __forceinline__ float key_score(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (x bytes of K, row y) of `map` into `dst`, completing
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
+// wgmma operand descriptor: K-major rows of 128 bytes, 128-byte swizzle,
+// 8-row groups 1024 bytes apart (the TMA box's layout).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
+         (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous product.
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 32 s8, K-major) * B (128 x 32 s8, K-major)^T, s32;
+// d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A * B for the first K step of a tile: d is only written, so the
+// previous tile's accumulators need not stay live across the selection.
+__device__ __forceinline__ void wgmma_m64n128k32_first(int (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]),
+        "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]),
+        "=r"(d[15]), "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]), "=r"(d[24]),
+        "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]),
+        "=r"(d[30]), "=r"(d[31]), "=r"(d[32]), "=r"(d[33]), "=r"(d[34]),
+        "=r"(d[35]), "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]), "=r"(d[44]),
+        "=r"(d[45]), "=r"(d[46]), "=r"(d[47]), "=r"(d[48]), "=r"(d[49]),
+        "=r"(d[50]), "=r"(d[51]), "=r"(d[52]), "=r"(d[53]), "=r"(d[54]),
+        "=r"(d[55]), "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(da), "l"(db));
+}
+
+// Entries of the descending list t[0, n) greater than w.
+__device__ __forceinline__ int count_greater(
+    const unsigned long long* t, int n, unsigned long long w) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (t[mid] > w) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Compare-exchange in a thread: afterwards a >= b when `desc`, else
+// a <= b (a holds the lower position).
+__device__ __forceinline__ void cx_pair(unsigned long long& a,
+                                        unsigned long long& b, bool desc) {
+  const bool swap = desc ? a < b : a > b;
+  const unsigned long long x = swap ? b : a;
+  b = swap ? a : b;
+  a = x;
+}
+
+// One bitonic step across a quad whose four threads hold 32 words, word
+// p = 8 t4 + i in v[i] of thread t4: positions p and p ^ stride compared,
+// the pair in order `desc` where (p & size) == 0, reversed elsewhere.
+template <int kSize, int kStride>
+__device__ __forceinline__ void quad_step(unsigned long long (&v)[8],
+                                          int t4) {
+  if constexpr (kStride >= 8) {
+    constexpr int lx = kStride / 8;
+    const bool lower = (t4 & lx) == 0;
+    const bool desc = ((8 * t4) & kSize) == 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const unsigned long long o = __shfl_xor_sync(kFull, v[i], lx);
+      const bool keep_max = lower == desc;
+      v[i] = keep_max ? (o > v[i] ? o : v[i]) : (o < v[i] ? o : v[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if ((i & kStride) == 0) {
+        cx_pair(v[i], v[i + kStride], ((8 * t4 + i) & kSize) == 0);
+      }
+    }
+  }
+}
+
+template <int kSize>
+__device__ __forceinline__ void quad_merge_steps(unsigned long long (&v)[8],
+                                                 int t4) {
+  if constexpr (kSize >= 32) quad_step<kSize, 16>(v, t4);
+  if constexpr (kSize >= 16) quad_step<kSize, 8>(v, t4);
+  if constexpr (kSize >= 8) quad_step<kSize, 4>(v, t4);
+  if constexpr (kSize >= 4) quad_step<kSize, 2>(v, t4);
+  quad_step<kSize, 1>(v, t4);
+}
+
+// The quad's 32 words sorted descending (bitonic sort).
+__device__ __forceinline__ void quad_sort(unsigned long long (&v)[8],
+                                          int t4) {
+  quad_merge_steps<2>(v, t4);
+  quad_merge_steps<4>(v, t4);
+  quad_merge_steps<8>(v, t4);
+  quad_merge_steps<16>(v, t4);
+  quad_merge_steps<32>(v, t4);
+}
+
+// s (descending) becomes the 32 largest of s and c (both descending): the
+// elementwise max of s and c reversed holds them as a bitonic sequence,
+// which a bitonic merge sorts.
+__device__ __forceinline__ void quad_merge(unsigned long long (&s)[8],
+                                           const unsigned long long (&c)[8],
+                                           int t4) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned long long o = __shfl_xor_sync(kFull, c[7 - i], 3);
+    s[i] = o > s[i] ? o : s[i];
+  }
+  quad_merge_steps<64>(s, t4);
+}
+
+// A thread's share of one row's running top r (kSet): the row's 32 best
+// words so far, sorted descending across the quad (word 8 t4 + i in
+// s[i]; 0 where there is none yet), its threshold word max(theta0, the
+// r-th), and how many words this thread has queued for it.
+struct RowSet {
+  unsigned long long s[8];
+  unsigned long long th;
+  int nq;
+
+  __device__ __forceinline__ void clear(unsigned long long theta0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0ull;
+    th = theta0;
+    nq = 0;
+  }
+};
+
+// One round for every quad of the warp: each thread's queued words q[0,
+// nq) (kConsumers words apart) sorted across the quad and merged into
+// the set; the queue emptied; then the threshold becomes max(theta0, the
+// set's r-th word).
+__device__ __forceinline__ void merge_queue(RowSet& rs,
+                                            const unsigned long long* q,
+                                            int r, unsigned long long theta0,
+                                            int lane) {
+  const int t4 = lane & 3;
+  unsigned long long c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = i < rs.nq ? q[i * kConsumers] : 0ull;
+  rs.nq = 0;
+  quad_sort(c, t4);
+  quad_merge(rs.s, c, t4);
+  // the r-th word: thread (r - 1) / 8 of the quad, entry (r - 1) % 8
+  unsigned long long v = 0ull;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i == ((r - 1) & 7)) v = rs.s[i];
+  }
+  v = __shfl_sync(kFull, v, (lane & ~3) | ((r - 1) >> 3));
+  rs.th = v > theta0 ? v : theta0;
+}
+
+// A column tile's candidates for one row (kSet): this thread's passing
+// slots `m` (bit 2 j8 + e: column 8 j8 + 2 t4 + e of the staged row
+// srow) queued, each re-tested against the threshold; whenever a thread
+// of the warp still has candidates and a full queue, a merge round.
+__device__ __forceinline__ void select_row(RowSet& rs, unsigned m,
+                                           const float* srow,
+                                           unsigned long long* qrow, int j0,
+                                           int r, unsigned long long theta0,
+                                           int lane) {
+  const int t4 = lane & 3;
+  while (true) {
+    while (m != 0u && rs.nq < 8) {
+      const int bit = __ffs(m) - 1;
+      m &= m - 1u;
+      const int cl = 8 * (bit >> 1) + 2 * t4 + (bit & 1);
+      const unsigned long long w =
+          (static_cast<unsigned long long>(order_key(srow[cl])) << 32) |
+          static_cast<uint32_t>(~(j0 + cl));
+      if (w > rs.th) qrow[rs.nq++ * kConsumers] = w;
+    }
+    if (!__any_sync(kFull, m != 0u)) break;
+    merge_queue(rs, qrow, r, theta0, lane);
+  }
+}
+
+// A row's list out (kSet): the queues merged, the sorted set's first r
+// words as global rows, -1 where no real word is.
+__device__ __forceinline__ void out_row(RowSet& rs, unsigned long long* qrow,
+                                        bool in, int32_t* o,
+                                        const int32_t* slot_rows, int r,
+                                        unsigned long long theta0,
+                                        int lane) {
+  if (__any_sync(kFull, rs.nq > 0)) merge_queue(rs, qrow, r, theta0, lane);
+  if (!in) return;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int pos = 8 * (lane & 3) + k;
+    const unsigned long long v = rs.s[k];
+    if (pos < r) {
+      o[pos] = v > theta0 ? __ldg(slot_rows + static_cast<int>(
+                                                  ~static_cast<uint32_t>(v)))
+                          : -1;
+    }
+  }
+}
+
 struct KnnArgs {
   const int8_t* emb;
   const float* rinv;
   const int32_t* slot_rows;
   const float* mud;
   int32_t* out;
-  int l_count, d, r, n_slices, n_tiles, row_tiles;
+  unsigned long long* tg;   // running lists in device memory (null: shared)
+  long long total_rows;     // ch * L
+  int l_count, d, r, n_slices, n_ctiles, n_rtiles, n_items, stages, lists;
 };
 
-template <int kRows, bool kAligned>
-__global__ void __launch_bounds__(kThreads, 1)
-    block_knn_kernel(const KnnArgs a) {
-  // row fragments (of 8) a warp; at kRows 8 the one fragment, each
-  // half of the warps on half of a slice's K
-  constexpr int kFpw = kRows >= 16 ? kRows / 16 : 1;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float rri[kRows];          // rinv of the block's rows
-  // kRows 8: the K half of warps 4-7, [slot warp][e][lane]
-  __shared__ int xacc[kRows == 8 ? kSlotWarps * 4 * 32 : 1];
+// Merges the warp's sorted survivor words sb[0, s_n) (s_n <= kCols) into
+// the descending list t[0, n) of capacity r; returns the new length.
+// Every word is distinct (slots differ), so ranks are exact.
+__device__ int merge_general(unsigned long long* t, int n, int r,
+                             unsigned long long* sb, int s_n, int lane) {
+  int p = 1;
+  while (p < s_n) p <<= 1;
+  for (int e = s_n + lane; e < p; e += 32) sb[e] = 0ull;
+  __syncwarp();
+  // bitonic sort, descending, of the warp's p words (0 pads sort last)
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int e = lane; e < p; e += 32) {
+        const int o = e ^ stride;
+        if (o > e) {
+          const unsigned long long x = sb[e], y = sb[o];
+          if ((e & size) == 0 ? x < y : x > y) {
+            sb[e] = y;
+            sb[o] = x;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+  // each survivor's place: its rank among the survivors plus the list's
+  // entries above it
+  int pos[kCols / 32];
+#pragma unroll
+  for (int m = 0; m < kCols / 32; ++m) {
+    const int k = lane + 32 * m;
+    pos[m] = k < s_n ? k + count_greater(t, n, sb[k]) : r;
+  }
+  const int p0 = __shfl_sync(0xffffffffu, pos[0], 0);   // survivor 0's
+  __syncwarp();
+  // the list's entries from p0 on move down by the survivors above them;
+  // a top chunk first, each read whole before any of it is written
+  for (int hi = n; hi > p0; hi -= 32) {
+    const int i = hi - 1 - lane;
+    const bool valid = i >= p0;
+    const unsigned long long w = valid ? t[i] : 0ull;
+    const int dst = valid ? i + count_greater(sb, s_n, w) : r;
+    __syncwarp();
+    if (dst < r) t[dst] = w;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int m = 0; m < kCols / 32; ++m) {
+    if (pos[m] < r) t[pos[m]] = sb[lane + 32 * m];
+  }
+  __syncwarp();
+  return min(r, n + s_n);
+}
+
+// The same merge for n <= 32 and s_n <= 32 survivors (unsorted), a word
+// a lane: both ranks by shuffles.
+__device__ __forceinline__ int merge_small(unsigned long long* t, int n,
+                                           int r,
+                                           const unsigned long long* sb,
+                                           int s_n, int lane) {
+  const unsigned long long xs = lane < s_n ? sb[lane] : 0ull;
+  const unsigned long long xt = lane < n ? t[lane] : 0ull;
+  int above_s = 0, above_t = 0;     // survivors above xs, above xt
+  for (int k = 0; k < s_n; ++k) {
+    const unsigned long long y = __shfl_sync(0xffffffffu, xs, k);
+    above_s += y > xs;
+    above_t += y > xt;
+  }
+  int in_t = 0;                     // list entries above xs
+#pragma unroll
+  for (int step = 32; step >= 1; step >>= 1) {
+    const int probe = in_t + step - 1;
+    const unsigned long long y = __shfl_sync(0xffffffffu, xt, probe & 31);
+    if (probe < n && y > xs) in_t += step;
+  }
+  __syncwarp();
+  if (lane < n && lane + above_t < r) t[lane + above_t] = xt;
+  if (lane < s_n && above_s + in_t < r) t[above_s + in_t] = xs;
+  __syncwarp();
+  return min(r, n + s_n);
+}
+
+template <bool kAligned, bool kSet>
+__global__ void __launch_bounds__(kThreads, kWG == 1 ? 2 : 1)
+    block_knn_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const KnnArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const Layout lay = knn_layout(a.stages, a.r, a.lists);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  uint64_t* empty = full + kMaxStages;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int sw = warp % kSlotWarps;     // 16-slot group of the tile
-  const int g = warp / kSlotWarps;      // row half
-  const int c = blockIdx.x / a.row_tiles;
-  const int i0 = (blockIdx.x - c * a.row_tiles) * kRows;
   const int L = a.l_count;
-  const int dpad = a.n_slices * kSlice;
-  const int sstride = strip_stride(L);
-  const int64_t cbase = static_cast<int64_t>(c) * L;
-  const int8_t* emb = a.emb + cbase * a.d;
-  float* strip = reinterpret_cast<float*>(smem);
-  unsigned char* region =
-      smem + (static_cast<size_t>(kRows) * sstride * 4 + 127) / 128 * 128;
-  unsigned char* rsm = region;                        // [kRows][dpad]
-  unsigned char* ring = region + kRows * dpad;  // [kStages][64][kSlice]
-  const int steps = CORTEX_KNN_PARTS == 2 ? 0 : a.n_tiles * a.n_slices;
-
-  // one pipeline step: slice `step % n_slices` of slot tile
-  // `step / n_slices` into ring stage `step % kStages`
-  auto load_step = [&](int step) {
-    const int tile = step / a.n_slices;
-    const int slice = step - tile * a.n_slices;
-    unsigned char* st = ring + (step % kStages) * (kTileSlots * kSlice);
-#pragma unroll
-    for (int u8 = 0; u8 < (kTileSlots * 8) / kThreads; ++u8) {
-      const int u = tid + u8 * kThreads;
-      const int rr = u >> 3;
-      const int cc = u & 7;
-      const int slot = tile * kTileSlots + rr;
-      const bool in = slot < L;
-      const int k0 = slice * kSlice + cc * 16;
-      unsigned char* dst = st + swz(rr, cc, kSlice);
-      if (kAligned) {
-        const bool ok = in && k0 < a.d;
-        cp_async16(dst, ok ? emb + static_cast<int64_t>(slot) * a.d + k0 : emb,
-                   ok ? 16 : 0);
-      } else {
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-        if (in) {
-          const int8_t* rp = emb + static_cast<int64_t>(slot) * a.d + k0;
-          for (int x = 0; x < 16 && k0 + x < a.d; ++x) {
-            w[x >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(rp[x]))
-                         << (8 * (x & 3));
-          }
-        }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, kAligned ? 1 : 32);
+      mbar_init(empty + s, kConsumers / 32);
     }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load_step(s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the block's rows, zero past L and past d, and their rinv
-  if (tid < kRows) {
-    rri[tid] = i0 + tid < L ? __ldg(a.rinv + cbase + i0 + tid) : 0.0f;
-  }
-  {
-    const int qchunks = dpad / 16;
-    for (int u = tid; u < kRows * qchunks; u += kThreads) {
-      const int q = u / qchunks;
-      const int cc = u - q * qchunks;
-      const int k0 = cc * 16;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (i0 + q < L) {
-        const int8_t* rp = emb + static_cast<int64_t>(i0 + q) * a.d + k0;
-        if (kAligned) {
-          if (k0 < a.d) {
-            const int4 x = __ldg(reinterpret_cast<const int4*>(rp));
-            w[0] = x.x;
-            w[1] = x.y;
-            w[2] = x.z;
-            w[3] = x.w;
-          }
-        } else {
-          for (int x = 0; x < 16 && k0 + x < a.d; ++x) {
-            w[x >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(rp[x]))
-                         << (8 * (x & 3));
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(rsm + swz(q, cc, dpad)) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-
-  int acc[kFpw][4];
-#pragma unroll
-  for (int f = 0; f < kFpw; ++f)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[f][e] = 0;
-  // this thread's slots of the tile, 16 sw + lane / 4 (+ 8), and their
-  // planes, loaded at the tile's first slice and used in its epilogue
-  int ls[2];
-  bool live[2];
-  float ri[2], md[2];
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-
-  for (int step = 0; step < steps; ++step) {
-    const int tile = step / a.n_slices;
-    const int slice = step - tile * a.n_slices;
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (step + kStages - 1 < steps) load_step(step + kStages - 1);
-    cp_async_commit();
-    if (slice == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        ls[h] = tile * kTileSlots + 16 * sw + (lane >> 2) + 8 * h;
-        const bool in = ls[h] < L;
-        live[h] = in && __ldg(a.slot_rows + cbase + ls[h]) >= 0;
-        ri[h] = in ? __ldg(a.rinv + cbase + ls[h]) : 0.0f;
-        md[h] = in ? __ldg(a.mud + cbase + ls[h]) : 0.0f;
-      }
-    }
-    // the product: A = this warp's 16 slots, B = the block's rows
-    const unsigned char* st = ring + (step % kStages) * (kTileSlots * kSlice);
-    if constexpr (kRows == 8) {
-      // this half's two K steps of the slice, 2 g and 2 g + 1; B: rows
-      // mr, K chunks 4 g + mi (both steps' fragments in one load)
-      uint32_t bq[4];
-      ldmatrix_x4(bq, rsm + swz(mr, 8 * slice + 4 * g + mi, dpad));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t af[4];
-        ldmatrix_x4(af, st + swz(16 * sw + 8 * (mi & 1) + mr,
-                                 2 * (2 * g + h) + (mi >> 1), kSlice));
-        mma_s8(acc[0], af, bq[2 * h], bq[2 * h + 1]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kSlice / 32; ++kk) {
-        // A: slots 16 sw + 8 (mi % 2) + mr, K chunk 2 kk + mi / 2
-        uint32_t af[4];
-        ldmatrix_x4(af, st + swz(16 * sw + 8 * (mi & 1) + mr,
-                                 2 * kk + (mi >> 1), kSlice));
-        uint32_t bq[4];
-        if constexpr (kFpw == 1) {
-          // both halves' rows in one load; this warp multiplies its own
-          ldmatrix_x4(bq, rsm + swz(8 * (mi >> 1) + mr,
-                                    8 * slice + 2 * kk + (mi & 1), dpad));
-          mma_s8(acc[0], af, g ? bq[2] : bq[0], g ? bq[3] : bq[1]);
-        } else {
-#pragma unroll
-          for (int f = 0; f < kFpw; f += 2) {
-            // B: rows 8 (F + mi / 2) + mr, K chunk 2 kk + mi % 2
-            const int fr = g * kFpw + f;
-            ldmatrix_x4(bq, rsm + swz(8 * (fr + (mi >> 1)) + mr,
-                                      8 * slice + 2 * kk + (mi & 1), dpad));
-            mma_s8(acc[f], af, bq[0], bq[1]);
-            mma_s8(acc[f + 1], af, bq[2], bq[3]);
-          }
-        }
-      }
-    }
-    if (slice != a.n_slices - 1) continue;
-
-    // ---- epilogue of the tile: descale, mask, into the strip
-    bool writes = true;
-    if constexpr (kRows == 8) {
-      // warps 4-7 hand their K half to warps 0-3 (int32: exact in any
-      // order); xacc is rewritten only after the next step's barrier
-      int* xs = xacc + sw * 4 * 32;
-      if (g == 1) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xs[e * 32 + lane] = acc[0][e];
-      }
-      __syncthreads();
-      if (g == 0) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[0][e] += xs[e * 32 + lane];
-      }
-      writes = g == 0;
-    }
-#pragma unroll
-    for (int f = 0; f < kFpw; ++f) {
-#pragma unroll
-      for (int e = 0; e < 2 && writes; ++e) {
-        const int q = (kRows == 8 ? 0 : 8 * (g * kFpw + f)) +
-                      2 * (lane & 3) + e;
-        const float rq = rri[q];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (ls[h] < L) {
-            float s = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[f][2 * h + e]), rq),
-                          ri[h]),
-                md[h]);
-            if (!live[h] || ls[h] == i0 + q) s = kNegInf;
-            strip[q * sstride + ls[h]] = s;
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][e] = 0;
-    }
-  }
-  cp_async_wait<0>();
   __syncthreads();
-  if (CORTEX_KNN_PARTS == 1) {         // profiling: keep the strip live
-    if (tid == 0) a.out[blockIdx.x] = __float_as_int(strip[i0 % L]);
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: one warp streams every item's column
+    // tiles, slice by slice; the others only give their registers away
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid >= kConsumers + 32) return;
+    if (kAligned && lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+      const int c = item / a.n_rtiles;
+      const long long row_a = static_cast<long long>(c) * L +
+                              (item - c * a.n_rtiles) * kTileRows;
+      for (int ct = 0; ct < a.n_ctiles; ++ct) {
+        const long long row_b = static_cast<long long>(c) * L + ct * kCols;
+        for (int s = 0; s < a.n_slices; ++s) {
+          mbar_wait(empty + stage, phase ^ 1);
+          unsigned char* st = sm + stage * lay.stage_bytes;
+          if (kAligned) {
+            mbar_expect_tx(full + stage, lay.stage_bytes);
+            tma_load_2d(st, &map_a, full + stage, s * kSlice,
+                        static_cast<int>(row_a));
+            tma_load_2d(st + lay.a_bytes, &map_b, full + stage, s * kSlice,
+                        static_cast<int>(row_b));
+          } else {
+            // the stage's rows (tile rows, then the column tile's slots)
+            // from bytes, zero past d and past the layout, swizzled as
+            // the TMA box would be
+            for (int u = lane; u < (kTileRows + kCols) * 8; u += 32) {
+              const int rr = u >> 3;
+              const int cc = u & 7;
+              const long long g =
+                  rr < kTileRows ? row_a + rr : row_b + (rr - kTileRows);
+              const int k0 = s * kSlice + cc * 16;
+              uint32_t w[4] = {0u, 0u, 0u, 0u};
+              if (g < a.total_rows) {
+                const int8_t* rp = a.emb + g * a.d + k0;
+                for (int x = 0; x < 16 && k0 + x < a.d; ++x) {
+                  w[x >> 2] |=
+                      static_cast<uint32_t>(static_cast<uint8_t>(rp[x]))
+                      << (8 * (x & 3));
+                }
+              }
+              *reinterpret_cast<uint4*>(st + rr * kSlice +
+                                        ((cc ^ (rr & 7)) << 4)) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+            }
+            // generic-proxy writes, read by wgmma through the async proxy
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(full + stage);
+          }
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
     return;
   }
 
-  // ---- selection: a warp a row, over the strip
-  const int n_sort = sort_len(a.r);
-  const int per_warp = kBins * 4 + n_sort * 8;
-  uint32_t* hist = reinterpret_cast<uint32_t*>(region + warp * per_warp);
-  unsigned long long* buf =
-      reinterpret_cast<unsigned long long*>(region + warp * per_warp +
-                                            kBins * 4);
+  // ---- the consumers: warpgroup g; each warp owns tile rows rb..rb + 15
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int g = warp >> 2;
+  const int rb = g * kRowsWG + (warp & 3) * 16;
+  const int t4 = lane & 3;
+  const int q0 = lane >> 2;              // this thread's rows rb + q0 (+ 8)
   const unsigned lt_mask = (1u << lane) - 1u;
-  const uint32_t dead_key = order_key(kDeadScore);
-  for (int q = warp; q < kRows && i0 + q < L; q += kWarps) {
-    const float* srow = strip + q * sstride;
-    // radix select of the r-th largest key: `want` of the keys that
-    // match `prefix` under `pmask` are still to be taken
-    uint32_t prefix = 0u, pmask = 0u;
-    int want = a.r;
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int b = lane; b < kBins; b += 32) hist[b] = 0u;
+  float* stg = reinterpret_cast<float*>(sm + lay.stg) + warp * 16 * kStgStride;
+  float2* colb = reinterpret_cast<float2*>(sm + lay.colb) + warp * kCols;
+  unsigned long long* sb =
+      reinterpret_cast<unsigned long long*>(sm + lay.sortb) + warp * kCols;
+  unsigned long long* theta =
+      reinterpret_cast<unsigned long long*>(sm + lay.theta) + rb;
+  int* ntv = reinterpret_cast<int*>(sm + lay.nt) + rb;
+  unsigned long long* tl =
+      a.lists == kListsShared
+          ? reinterpret_cast<unsigned long long*>(sm + lay.t) +
+                static_cast<long long>(rb) * a.r
+          : a.tg + (static_cast<long long>(blockIdx.x) * kTileRows + rb) * a.r;
+  const unsigned long long theta0 =
+      (static_cast<unsigned long long>(order_key(kDeadScore)) << 32) |
+      0xffffffffull;
+  int stage = 0;
+  uint32_t phase = 0;
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  // kSet: this thread's share of its two rows' sets (set0: row rb + q0,
+  // set1: 8 rows on) and their queues (8 words a row in shared memory,
+  // word k of row h at (8 h + k) kConsumers + tid: free of bank
+  // conflicts). Two named structs, not an array: every index stays a
+  // compile-time one, so the sets stay in registers.
+  RowSet set0, set1;
+  unsigned long long* queue =
+      reinterpret_cast<unsigned long long*>(sm + lay.sortb) + tid;
+#if CORTEX_KNN_PARTS == 1
+  int sink = 0;
+#endif
+
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    const int c = item / a.n_rtiles;
+    const int i0 = (item - c * a.n_rtiles) * kTileRows;
+    const long long cbase = static_cast<long long>(c) * L;
+    if constexpr (kSet) {
+      set0.clear(theta0);
+      set1.clear(theta0);
+    } else if (lane < 16) {
+      theta[lane] = theta0;
+      ntv[lane] = 0;
+    }
+    int iq[2];
+    float ri[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      iq[h] = i0 + rb + q0 + 8 * h;
+      ri[h] = iq[h] < L ? __ldg(a.rinv + cbase + iq[h]) : 0.0f;
+    }
+    __syncwarp();
+
+    // the column planes of a tile, loaded a tile ahead: slot k of this
+    // thread is j0 + lane + 32 k
+    int pr[kCols / 32];
+    float pi[kCols / 32], pm[kCols / 32];
+    auto load_planes = [&](int j0) {
+#pragma unroll
+      for (int k = 0; k < kCols / 32; ++k) {
+        const int j = j0 + lane + 32 * k;
+        const bool in = j < L;
+        pr[k] = in ? __ldg(a.slot_rows + cbase + j) : -1;
+        pi[k] = in ? __ldg(a.rinv + cbase + j) : 0.0f;
+        pm[k] = in ? __ldg(a.mud + cbase + j) : 0.0f;
+      }
+    };
+    load_planes(0);
+
+    for (int ct = 0; ct < a.n_ctiles; ++ct) {
+      const int j0 = ct * kCols;
+      // the tile's slots: liveness bits, and (rinv, mud) for the epilogue
+      uint32_t live[kCols / 32];
       __syncwarp();
-      for (int j = lane; j < L; j += 32) {
-        const uint32_t k = order_key(srow[j]);
-        if ((k & pmask) == prefix) atomicAdd(hist + ((k >> shift) & 255u), 1u);
-      }
-      __syncwarp();
-      // lane covers bins 255 - 8 lane - t, t = 0..7 (the top bins first)
-      int cnt[8];
-      int cs = 0;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        cnt[t] = static_cast<int>(hist[255 - 8 * lane - t]);
-        cs += cnt[t];
+      for (int k = 0; k < kCols / 32; ++k) {
+        live[k] = __ballot_sync(kFull, pr[k] >= 0);
+        colb[lane + 32 * k] = make_float2(pi[k], pm[k]);
       }
-      int incl = cs;
+      if (ct + 1 < a.n_ctiles) load_planes(j0 + kCols);
+
+      // ---- the product over d, a 128-byte slice a stage; 32 bytes of K
+      // a wgmma (the descriptors' addresses move 2 x 16 bytes); one
+      // group in flight while the next slice is awaited
+      mbar_wait(full + stage, phase);
+      {
+        const unsigned char* st = sm + stage * lay.stage_bytes;
+        const uint64_t da = sw128_desc(st + g * kRowsWG * kSlice);
+        const uint64_t db = sw128_desc(st + lay.a_bytes);
+        wgmma_fence();
+        wgmma_m64n128k32_first(acc, da, db);
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
+        for (int kk = 1; kk < kSlice / 32; ++kk) {
+          wgmma_m64n128k32(acc, da + 2 * kk, db + 2 * kk, 1);
+        }
+        wgmma_commit();
       }
-      const int src = __ffs(__ballot_sync(0xffffffffu, incl >= want)) - 1;
-      int digit = 0, above = 0;
-      if (lane == src) {
-        int run = incl - cs;
-        bool found = false;
+      int prev = stage;
+      if (++stage == a.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      for (int s = 1; s < a.n_slices; ++s) {
+        mbar_wait(full + stage, phase);
+        const unsigned char* st = sm + stage * lay.stage_bytes;
+        const uint64_t da = sw128_desc(st + g * kRowsWG * kSlice);
+        const uint64_t db = sw128_desc(st + lay.a_bytes);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          if (!found && run + cnt[t] >= want) {
-            digit = 255 - 8 * lane - t;
-            above = run;
-            found = true;
-          }
-          run += cnt[t];
+        for (int kk = 0; kk < kSlice / 32; ++kk) {
+          wgmma_m64n128k32(acc, da + 2 * kk, db + 2 * kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (lane == 0) mbar_arrive(empty + prev);
+        prev = stage;
+        if (++stage == a.stages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      digit = __shfl_sync(0xffffffffu, digit, src);
-      above = __shfl_sync(0xffffffffu, above, src);
-      want -= above;
-      prefix |= static_cast<uint32_t>(digit) << shift;
-      pmask |= 0xffu << shift;
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + prev);
+#if CORTEX_KNN_PARTS == 1
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sink ^= acc[i];
+      continue;
+#endif
       __syncwarp();
-    }
-    // compact every key above T and the first `want` keys equal to T as
-    // (key << 32 | ~slot): descending words are (score desc, slot asc);
-    // the buffer's tail past r holds 0, which sorts last
-    const uint32_t kt = prefix;
-    int taken = 0, eq_seen = 0;
-    for (int base = 0; base < L; base += 32) {
-      const int j = base + lane;
-      const uint32_t k = j < L ? order_key(srow[j]) : 0u;
-      const bool eq = j < L && k == kt;
-      const unsigned eqb = __ballot_sync(0xffffffffu, eq);
-      const bool sel =
-          (j < L && k > kt) || (eq && eq_seen + __popc(eqb & lt_mask) < want);
-      const unsigned sb = __ballot_sync(0xffffffffu, sel);
-      if (sel) {
-        buf[taken + __popc(sb & lt_mask)] =
-            (static_cast<unsigned long long>(k) << 32) |
-            static_cast<unsigned>(~j);
+
+      // ---- epilogue: descale, mask, test against the rows' thresholds
+      float ths[2];
+      int thc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned long long w =
+            kSet ? (h == 0 ? set0.th : set1.th) : theta[q0 + 8 * h];
+        ths[h] = key_score(static_cast<uint32_t>(w >> 32));
+        thc[h] = static_cast<int>(~static_cast<uint32_t>(w));
       }
-      taken += __popc(sb);
-      eq_seen += __popc(eqb);
-    }
-    for (int e = a.r + lane; e < n_sort; e += 32) buf[e] = 0ull;
-    __syncwarp();
-    // bitonic sort, descending, of the warp's n_sort words
-    for (int size = 2; size <= n_sort; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int e = lane; e < n_sort; e += 32) {
-          const int o = e ^ stride;
-          if (o > e) {
-            const unsigned long long x = buf[e], y = buf[o];
-            if ((e & size) == 0 ? x < y : x > y) {
-              buf[e] = y;
-              buf[o] = x;
+      bool flag[2] = {false, false};
+      unsigned cm[2] = {0u, 0u};   // kSet: this thread's passing scores
+#pragma unroll
+      for (int j8 = 0; j8 < kCols / 8; ++j8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = 8 * j8 + 2 * t4 + e;
+          const int j = j0 + cl;
+          const float2 cb = colb[cl];
+          const bool okc = (live[j8 >> 2] >> (8 * (j8 & 3) + 2 * t4 + e)) & 1u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int& v = acc[4 * j8 + 2 * h + e];
+            float s = -INFINITY;
+            if (okc && j != iq[h]) {
+              s = __fadd_rn(
+                  __fmul_rn(__fmul_rn(__int2float_rn(v), ri[h]), cb.x), cb.y);
+            }
+            const bool pass = s > ths[h] || (s == ths[h] && j < thc[h]);
+            flag[h] = flag[h] || pass;
+            cm[h] |= static_cast<unsigned>(pass) << (2 * j8 + e);
+            v = __float_as_int(s);
+          }
+        }
+      }
+      unsigned rm = 0;     // the warp's rows with a survivor
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (iq[h] >= L) cm[h] = 0u;
+        int f = flag[h] && iq[h] < L;
+        f |= __shfl_xor_sync(0xffffffffu, f, 1);
+        f |= __shfl_xor_sync(0xffffffffu, f, 2);
+        flag[h] = f != 0;
+        const unsigned b = __ballot_sync(0xffffffffu, flag[h]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) rm |= ((b >> (4 * k)) & 1u) << (k + 8 * h);
+      }
+      if (rm != 0 && CORTEX_KNN_PARTS != 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (flag[h]) {
+            float* srow = stg + (q0 + 8 * h) * kStgStride + 2 * t4;
+#pragma unroll
+            for (int j8 = 0; j8 < kCols / 8; ++j8) {
+              *reinterpret_cast<float2*>(srow + 8 * j8) =
+                  make_float2(__int_as_float(acc[4 * j8 + 2 * h]),
+                              __int_as_float(acc[4 * j8 + 2 * h + 1]));
             }
           }
         }
         __syncwarp();
       }
+      if (rm == 0 || CORTEX_KNN_PARTS == 2) continue;
+
+      if constexpr (kSet) {
+        // ---- selection into the sets: each thread queues its row's
+        // candidates in shared memory (at most 8, each re-tested against
+        // the threshold as it is queued); when a thread's queue is full,
+        // and after the last column tile, the warp merges every quad's
+        // 32 queued words into its row's sorted set
+        select_row(set0, cm[0], stg + q0 * kStgStride, queue, j0, a.r,
+                   theta0, lane);
+        select_row(set1, cm[1], stg + (q0 + 8) * kStgStride,
+                   queue + 8 * kConsumers, j0, a.r, theta0, lane);
+        __syncwarp();
+      } else {
+        // ---- selection: a row at a time, the warp's flagged rows
+        while (rm != 0) {
+          const int q = __ffs(rm) - 1;
+          rm &= rm - 1;
+          const unsigned long long thr = theta[q];
+          const float* srow = stg + q * kStgStride;
+          int s_n = 0;
+#pragma unroll
+          for (int m = 0; m < kCols / 32; ++m) {
+            const int cl = lane + 32 * m;
+            const unsigned long long w =
+                (static_cast<unsigned long long>(order_key(srow[cl])) << 32) |
+                static_cast<uint32_t>(~(j0 + cl));
+            const bool sv = w > thr;
+            const unsigned b = __ballot_sync(0xffffffffu, sv);
+            if (sv) sb[s_n + __popc(b & lt_mask)] = w;
+            s_n += __popc(b);
+          }
+          __syncwarp();
+          unsigned long long* trow = tl + static_cast<long long>(q) * a.r;
+          int n = ntv[q];
+          if (s_n > 0) {
+            n = n <= 32 && s_n <= 32
+                    ? merge_small(trow, n, a.r, sb, s_n, lane)
+                    : merge_general(trow, n, a.r, sb, s_n, lane);
+          }
+          if (lane == 0) {
+            ntv[q] = n;
+            if (n == a.r) theta[q] = trow[a.r - 1];
+          }
+          __syncwarp();
+        }
+      }
     }
-    int32_t* out = a.out + (cbase + i0 + q) * a.r;
-    for (int e = lane; e < a.r; e += 32) {
-      const unsigned long long w = buf[e];
-      const uint32_t k = static_cast<uint32_t>(w >> 32);
-      const int slot = static_cast<int>(~static_cast<uint32_t>(w));
-      out[e] = k > dead_key ? __ldg(a.slot_rows + cbase + slot) : -1;
+
+#if CORTEX_KNN_PARTS != 1
+    if constexpr (kSet) {
+      // ---- out: a sorted set's first r words as global rows, -1 where
+      // no real word is
+      out_row(set0, queue, iq[0] < L, a.out + (cbase + iq[0]) * a.r,
+              a.slot_rows + cbase, a.r, theta0, lane);
+      out_row(set1, queue + 8 * kConsumers, iq[1] < L,
+              a.out + (cbase + iq[1]) * a.r, a.slot_rows + cbase, a.r, theta0,
+              lane);
+    } else {
+      // ---- out: each row's list as global rows, -1 past its length
+      for (int q = 0; q < 16 && i0 + rb + q < L; ++q) {
+        const unsigned long long* trow =
+            tl + static_cast<long long>(q) * a.r;
+        const int n = ntv[q];
+        int32_t* o = a.out + (cbase + i0 + rb + q) * a.r;
+        for (int e = lane; e < a.r; e += 32) {
+          o[e] = e < n ? __ldg(a.slot_rows + cbase +
+                               static_cast<int>(
+                                   ~static_cast<uint32_t>(trow[e])))
+                       : -1;
+        }
+      }
+      __syncwarp();
     }
-    __syncwarp();
+#endif
   }
+#if CORTEX_KNN_PARTS == 1
+  if (sink == 0x5a5a5a5a) a.out[blockIdx.x] = sink;   // keeps the product
+#endif
 }
 
-using KnnKernel = void (*)(KnnArgs);
+using KnnKernel = void (*)(CUtensorMap, CUtensorMap, KnnArgs);
 
-template <int kRows>
-KnnKernel knn_kernel(bool aligned) {
-  return aligned ? block_knn_kernel<kRows, true>
-                 : block_knn_kernel<kRows, false>;
+KnnKernel knn_kernel(bool aligned, bool set) {
+  if (set) {
+    return aligned ? block_knn_kernel<true, true>
+                   : block_knn_kernel<false, true>;
+  }
+  return aligned ? block_knn_kernel<true, false>
+                 : block_knn_kernel<false, false>;
 }
 
-KnnKernel knn_kernel_for(int rows, bool aligned) {
-  if (rows == 64) return knn_kernel<64>(aligned);
-  if (rows == 32) return knn_kernel<32>(aligned);
-  if (rows == 16) return knn_kernel<16>(aligned);
-  return knn_kernel<8>(aligned);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+cudaError_t encode_tiled(EncodeTiled* out) {
+  static std::once_flag once;
+  static EncodeTiled fn = nullptr;
+  static cudaError_t err = cudaSuccess;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                           12000, cudaEnableDefault, &q);
+#else
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                  cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q != cudaDriverEntryPointSuccess) {
+      err = cudaErrorSymbolNotFound;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  *out = fn;
+  return err;
 }
 
-// The most rows a block (64, 32, 16 or 8) whose shared memory fits the
-// current device next to the kernel's static shared memory; 0 if none.
-int pick_rows(int l_count, int d, int r, bool aligned, cudaError_t* err) {
+// [rows, d] int8 as a 2-D tensor map: boxes of 128 bytes x box_rows rows,
+// 128-byte swizzled, zero-filled past either edge.
+cudaError_t make_map(CUtensorMap* map, const void* emb, long long rows, int d,
+                     int box_rows) {
+  EncodeTiled fn = nullptr;
+  const cudaError_t err = encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d)};
+  const cuuint32_t box[2] = {kSlice, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(emb), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct KnnPlan {
+  int stages, lists, grid;
+  size_t smem;
+  long long scratch_bytes;
+};
+
+// Ring depth, where the running lists live, the dynamic shared memory and
+// the persistent grid of a launch on the current device. Two consumer
+// warpgroups a block take the card's opt-in shared memory, one a block
+// half an SM's (two blocks an SM). r <= 32 keeps sets in registers; else
+// the lists go to shared memory when they fit beside a ring of at least
+// two stages, or to the device scratch (kTileRows r words a block).
+cudaError_t plan_knn(int ch, int l_count, int r, bool aligned, KnnPlan* p) {
   DeviceLimits lim;
-  *err = device_limits(&lim);
-  if (*err != cudaSuccess) return 0;
-  for (int rows : {64, 32, 16, 8}) {
-    cudaFuncAttributes attr;
-    *err = cudaFuncGetAttributes(
-        &attr, reinterpret_cast<const void*>(knn_kernel_for(rows, aligned)));
-    if (*err != cudaSuccess) return 0;
-    if (smem_bytes(rows, l_count, d, r) + attr.sharedSizeBytes <=
-        static_cast<size_t>(lim.smem_optin)) {
-      return rows;
+  cudaError_t err = device_limits(&lim);
+  if (err != cudaSuccess) return err;
+  int per_sm_smem = 0, reserved = 0;
+  err = cudaDeviceGetAttribute(&per_sm_smem,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               lim.dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, lim.dev);
+  }
+  if (err != cudaSuccess) return err;
+  const long long budget =
+      kWG == 1 ? std::min<long long>(lim.smem_optin,
+                                     per_sm_smem / 2 - reserved)
+               : lim.smem_optin;
+  p->stages = 0;
+  const int first = r <= kSetMax ? kListsSet : kListsShared;
+  const int last = r <= kSetMax ? kListsSet : kListsDevice;
+  for (int lists = first; lists <= last && p->stages == 0; ++lists) {
+    for (int stages = kMaxStages; stages >= 2; --stages) {
+      if (knn_layout(stages, r, lists).total <= budget) {
+        p->stages = stages;
+        p->lists = lists;
+        break;
+      }
     }
   }
-  return 0;
+  if (p->stages == 0) return cudaErrorInvalidValue;
+  p->smem = static_cast<size_t>(knn_layout(p->stages, r, p->lists).total);
+  int per_sm = 0;
+  err = fit_kernel(reinterpret_cast<const void*>(
+                       knn_kernel(aligned, p->lists == kListsSet)),
+                   kThreads, p->smem, &lim, &per_sm);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(ch) *
+                          ((l_count + kTileRows - 1) / kTileRows);
+  p->grid = static_cast<int>(
+      std::min<long long>(items, static_cast<long long>(lim.sm_count) *
+                                     std::max(per_sm, 1)));
+  p->scratch_bytes = p->lists != kListsDevice
+                         ? 0
+                         : static_cast<long long>(p->grid) * kTileRows * r * 8;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Rows a block the launch would take at (L, d, r), 0 when no block fits
-// the current device's shared memory, or -(cudaError_t) on a runtime
-// error. The binding raises ValueError on 0.
-extern "C" int cortex_block_knn_rows(int l_count, int d, int r,
-                                     int aligned) {
-  cudaError_t err = cudaSuccess;
-  const int rows = pick_rows(l_count, d, r, aligned != 0, &err);
-  return err != cudaSuccess ? -static_cast<int>(err) : rows;
+// Bytes of device scratch a launch at (ch, L, r) needs for its running
+// lists (0 when they live in shared memory), or -(cudaError_t) on a
+// runtime error.
+extern "C" long long cortex_block_knn_scratch(int ch, int l_count, int d,
+                                              int r, int aligned) {
+  (void)d;
+  if (ch == 0 || l_count == 0 || r == 0) return 0;
+  KnnPlan p;
+  const cudaError_t err = plan_knn(ch, l_count, r, aligned != 0, &p);
+  return err != cudaSuccess ? -static_cast<long long>(err) : p.scratch_bytes;
 }
 
 // Enqueue N1 on `stream`; returns the cudaError_t of the launch (0 =
-// success). The caller has checked shapes, types, devices and that
-// cortex_block_knn_rows is positive; `aligned` = d % 16 == 0 with a
-// 16-byte aligned emb.
+// success). The caller has checked shapes, types and devices, and hands
+// over cortex_block_knn_scratch's bytes in `scratch`; `aligned` = d % 16
+// == 0 with a 16-byte aligned emb (the TMA route).
 extern "C" int cortex_block_knn_launch(const void* emb, const void* rinv,
                                        const void* slot_rows,
-                                       const void* mud, void* out, int ch,
-                                       int l_count, int d, int r,
-                                       int aligned, void* stream) {
+                                       const void* mud, void* out,
+                                       void* scratch, int ch, int l_count,
+                                       int d, int r, int aligned,
+                                       void* stream) {
   if (ch == 0 || l_count == 0 || r == 0) return 0;
-  cudaError_t err = cudaSuccess;
-  const int rows = pick_rows(l_count, d, r, aligned != 0, &err);
+  KnnPlan p;
+  cudaError_t err = plan_knn(ch, l_count, r, aligned != 0, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.lists == kListsDevice && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   KnnArgs a;
   a.emb = static_cast<const int8_t*>(emb);
   a.rinv = static_cast<const float*>(rinv);
   a.slot_rows = static_cast<const int32_t*>(slot_rows);
   a.mud = static_cast<const float*>(mud);
   a.out = static_cast<int32_t*>(out);
+  a.tg = static_cast<unsigned long long*>(scratch);
+  a.total_rows = static_cast<long long>(ch) * l_count;
   a.l_count = l_count;
   a.d = d;
   a.r = r;
   a.n_slices = (d + kSlice - 1) / kSlice;
-  a.n_tiles = (l_count + kTileSlots - 1) / kTileSlots;
-  a.row_tiles = (l_count + rows - 1) / rows;
-  const size_t smem = smem_bytes(rows, l_count, d, r);
-  const KnnKernel k = knn_kernel_for(rows, aligned != 0);
-  DeviceLimits lim;
-  int per_sm = 0;
-  err = fit_kernel(reinterpret_cast<const void*>(k), kThreads, smem, &lim,
-                   &per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t grid = static_cast<int64_t>(ch) * a.row_tiles;
-  k<<<static_cast<unsigned>(grid), kThreads, smem,
-      static_cast<cudaStream_t>(stream)>>>(a);
+  a.n_ctiles = (l_count + kCols - 1) / kCols;
+  a.n_rtiles = (l_count + kTileRows - 1) / kTileRows;
+  a.n_items = ch * a.n_rtiles;
+  a.stages = p.stages;
+  a.lists = p.lists;
+  CUtensorMap map_a, map_b;
+  std::fill(reinterpret_cast<char*>(&map_a),
+            reinterpret_cast<char*>(&map_a) + sizeof(map_a), 0);
+  std::fill(reinterpret_cast<char*>(&map_b),
+            reinterpret_cast<char*>(&map_b) + sizeof(map_b), 0);
+  if (aligned) {
+    err = make_map(&map_a, emb, a.total_rows, d, kTileRows);
+    if (err == cudaSuccess) err = make_map(&map_b, emb, a.total_rows, d, kCols);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const KnnKernel k = knn_kernel(aligned != 0, p.lists == kListsSet);
+  k<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 // PyTorch binding of the kNN-graph block kernel (block_knn.cu, N1):
 // registers torch.ops.cortex_tpu_torch.block_knn, checks every argument,
 // allocates the [ch, L, r] output and enqueues the kernel on the current
-// stream of the tensors' device (no host synchronisation). A shape the
-// kernel does not take raises ValueError; a launch the runtime refuses
-// raises RuntimeError; nothing here falls back to another implementation.
+// stream of the tensors' device (no host synchronisation), with the
+// device scratch its running lists need when they do not fit shared
+// memory. An argument the kernel does not take raises ValueError; a
+// launch the runtime refuses raises RuntimeError; nothing here falls
+// back to another implementation.
 
 #include <cstdint>
 
@@ -13,12 +15,14 @@
 #include <c10/core/impl/VirtualGuardImpl.h>
 #include <torch/library.h>
 
-extern "C" int cortex_block_knn_rows(int l_count, int d, int r, int aligned);
+extern "C" long long cortex_block_knn_scratch(int ch, int l_count, int d,
+                                              int r, int aligned);
 extern "C" int cortex_block_knn_launch(const void* emb, const void* rinv,
                                        const void* slot_rows,
-                                       const void* mud, void* out, int ch,
-                                       int l_count, int d, int r,
-                                       int aligned, void* stream);
+                                       const void* mud, void* out,
+                                       void* scratch, int ch, int l_count,
+                                       int d, int r, int aligned,
+                                       void* stream);
 extern "C" const char* cortex_cuda_error_string(int err);
 
 namespace {
@@ -57,7 +61,7 @@ at::Tensor block_knn_cuda(const at::Tensor& emb_i8, const at::Tensor& rinv,
   TORCH_CHECK_VALUE(r >= 1 && r < l, "block_knn: r=", r,
                     " out of range [1, L - 1 = ", l - 1, "]");
   TORCH_CHECK_VALUE(d >= 1, "block_knn: d must be positive");
-  // the grid has a block per (cluster, row tile) in one 32-bit dimension
+  // the tensor maps and the work items index ch * L rows in 32 bits
   TORCH_CHECK_VALUE(ch * l <= kMaxInt32,
                     "block_knn: ch * L = ", ch * l, " exceeds int32");
 
@@ -65,22 +69,21 @@ at::Tensor block_knn_cuda(const at::Tensor& emb_i8, const at::Tensor& rinv,
   const bool aligned =
       d % 16 == 0 &&
       reinterpret_cast<std::uintptr_t>(emb_i8.data_ptr()) % 16 == 0;
-  const int rows = cortex_block_knn_rows(static_cast<int>(l),
-                                         static_cast<int>(d),
-                                         static_cast<int>(r), aligned ? 1 : 0);
-  TORCH_CHECK(rows >= 0, "block_knn: device query failed: ",
-              cortex_cuda_error_string(-rows));
-  TORCH_CHECK_VALUE(rows > 0, "block_knn: L=", l, ", d=", d, ", r=", r,
-                    " needs more shared memory than a block of this card "
-                    "may use: the kernel keeps 8 rows' scores against all ",
-                    "L slots (32 L bytes) beside the row tile and the ring, ",
-                    "or 8 warps' sort buffers of r rounded up to a power of ",
-                    "two (8 bytes an entry)");
+  const long long scratch_bytes = cortex_block_knn_scratch(
+      static_cast<int>(ch), static_cast<int>(l), static_cast<int>(d),
+      static_cast<int>(r), aligned ? 1 : 0);
+  TORCH_CHECK(scratch_bytes >= 0, "block_knn: device query failed: ",
+              cortex_cuda_error_string(static_cast<int>(-scratch_bytes)));
   auto out = at::empty({ch, l, r}, emb_i8.options().dtype(at::kInt));
+  at::Tensor scratch;
+  if (scratch_bytes > 0) {
+    scratch = at::empty({scratch_bytes}, emb_i8.options().dtype(at::kByte));
+  }
   const c10::impl::VirtualGuardImpl impl(device.type());
   const int err = cortex_block_knn_launch(
       emb_i8.data_ptr(), rinv.data_ptr(), slot_rows.data_ptr(),
-      mud.data_ptr(), out.data_ptr(), static_cast<int>(ch),
+      mud.data_ptr(), out.data_ptr(),
+      scratch_bytes > 0 ? scratch.data_ptr() : nullptr, static_cast<int>(ch),
       static_cast<int>(l), static_cast<int>(d), static_cast<int>(r),
       aligned ? 1 : 0, impl.getStream(device).native_handle());
   TORCH_CHECK(err == 0, "block_knn: kernel launch failed: ",

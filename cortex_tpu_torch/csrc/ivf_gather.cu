@@ -43,7 +43,9 @@
 //     a row's 128 contiguous bytes, XOR-swizzled so that ldmatrix reads
 //     are free of bank conflicts; rows of any other d are assembled
 //     from bytes, zero-padded). Small batches get small chunks (qcap),
-//     so more blocks fit on an SM and more bytes are in flight.
+//     so more blocks fit on an SM and more bytes are in flight; wide
+//     rows get small chunks too, so that a chunk's queries stay within
+//     kQueryBytes of shared memory (32 queries at d 4096).
 //  3. mma.sync m16n8k32 s8 x s8 -> s32 puts the slots on M (16 a warp)
 //     and the chunk's queries on N (8 a fragment): a list that one query
 //     probes wastes 7 of 8 columns, not 15 of 16 rows.
@@ -51,11 +53,15 @@
 //     exclusion mask and rinv once, applies them to every query of the
 //     chunk, and writes scores[b, j*L + l] in 32-byte runs along l.
 //
-// Exactness: the int8 tensor cores' int32 sum is exact; it converts to
-// the same f32 value as the exact f32 sum of the plain version (|sum| <=
-// d * 127^2 < 2^24 for d <= 1040), and the same single rounded multiply
-// by rinv follows (__fmul_rn), so scores are bit-identical to
-// probed_scores_plain.
+// Exactness: the int8 tensor cores' int32 sum is exact (|sum| <= d *
+// 127^2 < 2^31 for any d the binding takes, <= 4096) and is rounded to
+// f32 once; the plain version's sum is the same exact integer (an f32
+// sum while d * 127^2 < 2^24, d <= 1040; past that an int32 product,
+// ops/similarity.py::int8_dot) rounded once, and the same single rounded
+// multiply by rinv follows (__fmul_rn), so scores are bit-identical to
+// probed_scores_plain. The reference sums in f32 past d 1040 too, so
+// there the port is the exact one; its scores stay within 1e-5 of the
+// reference's.
 //
 // The PyTorch op binding lives in ivf_gather_op.cpp, so this file never
 // includes PyTorch's headers and nvcc's device pass stays fast.
@@ -86,6 +92,7 @@ constexpr int kPlanThreads = 1024;
 constexpr int kPlanLoads = 8;           // probe ids a plan thread loads at once
 constexpr int kHeader = 4;              // plan ints before the chunk table
 constexpr int kPlanSmemLists = 32768;   // per-list counts in shared memory
+constexpr int kQueryBytes = 128 * 1024; // a chunk's queries, at most
 
 // Chunks the plan can make: every chunk but a list's last is full.
 int64_t max_chunks(int64_t n_pairs, int64_t n_clusters, int qcap) {
@@ -93,9 +100,12 @@ int64_t max_chunks(int64_t n_pairs, int64_t n_clusters, int qcap) {
 }
 
 // Queries per chunk: the batch rounded up to 16 (an ldmatrix.x4 reads
-// two fragments of 8), at most kMaxQ.
-int chunk_queries(int b) {
-  return std::min(kMaxQ, std::max(16, (b + 15) / 16 * 16));
+// two fragments of 8), at most kMaxQ, and at most what kQueryBytes holds
+// of d-byte rows padded to whole slices (16 at least: d <= 4096).
+int chunk_queries(int b, int d) {
+  const int dpad = (d + kSlice - 1) / kSlice * kSlice;
+  const int fit = std::max(16, kQueryBytes / (16 * dpad) * 16);
+  return std::min({kMaxQ, fit, std::max(16, (b + 15) / 16 * 16)});
 }
 
 // The plan, in one int32 buffer: [0] the number of chunks; from kHeader
@@ -461,9 +471,10 @@ ScanKernel scan_kernel(bool filtered, bool aligned) {
 // int32 scratch the launch needs for its plan (ivf_gather_op.cpp
 // allocates it; no zeroing: the plan kernel writes what it reads).
 extern "C" int64_t cortex_probed_scores_scratch(int b, int p,
-                                                int n_clusters) {
+                                                int n_clusters, int d) {
   const int64_t n_pairs = static_cast<int64_t>(b) * p;
-  return kHeader + 3 * max_chunks(n_pairs, n_clusters, chunk_queries(b)) +
+  return kHeader +
+         3 * max_chunks(n_pairs, n_clusters, chunk_queries(b, d)) +
          n_pairs + n_clusters;
 }
 
@@ -478,7 +489,7 @@ extern "C" int cortex_probed_scores_launch(
     int l_count, int d, int filtered, int aligned, void* stream) {
   if (b == 0 || p == 0 || l_count == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int qcap = chunk_queries(b);
+  const int qcap = chunk_queries(b, d);
   const int n_pairs = b * p;
   const int64_t n_table = max_chunks(n_pairs, n_clusters, qcap);
   int32_t* plan = static_cast<int32_t*>(scratch);

@@ -18,7 +18,7 @@
 #include <torch/library.h>
 
 extern "C" int64_t cortex_probed_scores_scratch(int b, int p,
-                                                int n_clusters);
+                                                int n_clusters, int d);
 extern "C" int cortex_probed_scores_launch(
     const void* emb, const void* rinv, const void* slot_rows,
     const void* kind_sl, const void* agent_sl, const void* probe,
@@ -31,10 +31,10 @@ namespace {
 
 constexpr int64_t kMaxKinds = 16;
 constexpr int64_t kMaxExclude = 64;
-// d * 127^2 < 2^24: the int32 dot converts to the same f32 value as the
-// exact f32 sum of the plain and Pallas versions only up to here. It also
-// keeps a chunk's 64 queries in shared memory (72 KiB at d = 1040).
-constexpr int64_t kMaxExactDim = 1040;
+// A chunk's queries stay in shared memory: 64 of them up to d 2048, 32 at
+// d 4096 (128 KiB). K1's limit too (flat_scan_op.cpp), and the port's
+// config refuses wider rows at open (config.py::KERNEL_MAX_DIM).
+constexpr int64_t kMaxDim = 4096;
 constexpr int64_t kMaxInt32 = (int64_t{1} << 31) - 1;
 
 void check_arg(const at::Tensor& t, const char* name, at::ScalarType dtype,
@@ -86,9 +86,8 @@ std::tuple<at::Tensor, at::Tensor> probed_scores_cuda(
   TORCH_CHECK(aa.size(0) == 1, "probed_scores: aa must hold 1 code");
   TORCH_CHECK(ex.size(0) == kMaxExclude, "probed_scores: ex must hold ",
               kMaxExclude, " rows");
-  TORCH_CHECK(d >= 1 && d <= kMaxExactDim, "probed_scores: d=", d,
-              " out of range [1, ", kMaxExactDim, "]: above it d * 127^2 ",
-              "reaches 2^24 and f32 sums are no longer exact");
+  TORCH_CHECK(d >= 1 && d <= kMaxDim, "probed_scores: d=", d,
+              " out of range [1, ", kMaxDim, "]");
   TORCH_CHECK(c * l <= kMaxInt32 && p * l <= kMaxInt32,
               "probed_scores: layout too large for int32 indexing");
   // the batch has no grid dimension of its own: only the (b, j) pairs,
@@ -101,7 +100,8 @@ std::tuple<at::Tensor, at::Tensor> probed_scores_cuda(
   auto rows = at::empty({b, p * l}, emb_i8.options().dtype(at::kInt));
   auto scratch = at::empty(
       {cortex_probed_scores_scratch(static_cast<int>(b), static_cast<int>(p),
-                                    static_cast<int>(c))},
+                                    static_cast<int>(c),
+                                    static_cast<int>(d))},
       emb_i8.options().dtype(at::kInt));
   const bool aligned =
       d % 16 == 0 &&

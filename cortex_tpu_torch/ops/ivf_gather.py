@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 
 from .build import load_ops
-from .similarity import NEG_INF, require_exact_f32
+from .similarity import F32_EXACT_DIM, NEG_INF, int8_dot, require_exact_f32
 
 NO_FILTER = -1          # filter list entry: filter off / pad (shard.py)
 PLAIN_BUDGET_BYTES = 1 << 30    # f32 gather per query chunk, plain version
@@ -64,15 +64,19 @@ probed_scores.launches = 0
 def probed_scores_plain(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
                         probe, qi8, ak, aa, ex, *, filtered: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`probed_scores` in plain torch: gather the probed blocks, f32
-    batched matmul (exact: int8 products summed below 2^24), times rinv,
+    """`probed_scores` in plain torch: gather the probed blocks, the
+    exact int8 dots (an f32 batched matmul while d <= F32_EXACT_DIM, the
+    int8 products summed below 2^24; past it int8_dot a query at a time,
+    an int32 sum rounded once, as the kernel rounds it), times rinv,
     then the masks. A probe id outside [0, C) scores its segment as
     empty (NEG_INF, row -1), as the kernel does. Materializes the
     [n, p*L, d] f32 gather, so queries run in chunks of at most
     PLAIN_BUDGET_BYTES each."""
-    require_exact_f32(emb_i8, "probed_scores_plain")
     b, p = probe.shape
     c, l, d = emb_i8.shape
+    exact_f32 = d <= F32_EXACT_DIM
+    if exact_f32:
+        require_exact_f32(emb_i8, "probed_scores_plain")
     if b == 0:
         return (torch.empty((0, p * l), dtype=torch.float32,
                             device=emb_i8.device),
@@ -85,9 +89,14 @@ def probed_scores_plain(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl,
         bad = ((pr < 0) | (pr >= c)).repeat_interleave(l, dim=1)
         pr = pr.clamp(0, max(c - 1, 0))
         n = pr.shape[0]
-        blk = emb_i8[pr].reshape(n, p * l, d).float()
-        q = qi8[s0:s0 + qc].float().unsqueeze(2)
-        s = torch.bmm(blk, q).squeeze(2) * rinv_sl[pr].reshape(n, p * l)
+        blk = emb_i8[pr].reshape(n, p * l, d)
+        if exact_f32:
+            dots = torch.bmm(blk.float(), qi8[s0:s0 + qc].float()
+                             .unsqueeze(2)).squeeze(2)
+        else:
+            dots = torch.cat([int8_dot(qi8[s0 + i:s0 + i + 1], blk[i])
+                              for i in range(n)])
+        s = dots * rinv_sl[pr].reshape(n, p * l)
         rows = torch.where(bad, -1, slot_rows[pr].reshape(n, p * l))
         ok = rows >= 0
         if filtered:

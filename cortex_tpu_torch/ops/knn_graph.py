@@ -8,10 +8,12 @@ two branches:
 
   * CUDA tensors run the hand-written kernel in csrc/block_knn.cu, bound
     as torch.ops.cortex_tpu_torch.block_knn and built at first use with
-    every other kernel of csrc/ (ops/build.py). A failed build or launch
-    raises; a chunk whose scores do not fit a block's shared memory
-    raises ValueError (csrc/block_knn.cu states the limits: on an H100,
-    L <= 6,224 at d 768, r 32; L <= 4,880 at r 1,024).
+    every other kernel of csrc/ (ops/build.py): a wgmma product fed by
+    TMA, each row's top r merged as the column tiles stream by, so any
+    L and d are taken (r in [1, L - 1], ch * L < 2^31; the binding
+    raises ValueError outside). The binding allocates a device scratch
+    for the running lists when r is too large for shared memory. A
+    failed build or launch raises.
   * CPU tensors run `block_knn_plain`, the same function in plain torch
     (the CPU tests use it, and chip_smoke.py holds the kernel against it
     on the card, bit for bit).

@@ -174,27 +174,27 @@ quant_candidates.launches = 0
 
 
 def int8_dot(qi8: torch.Tensor, emb_i8: torch.Tensor) -> torch.Tensor:
-    """Exact [B, cap] int8 dot products as f32 values: torch._int_mm
-    (int32) on the CPU and, where cuBLASLt's shape rules allow (more than
-    16 query rows, so queries pad to 32; d and cap multiples of 8), on
-    the card; elsewhere on the card an f32 product with TF32 off, exact
-    while d <= F32_EXACT_DIM."""
+    """Exact [B, cap] int8 dot products as f32 values (the int32 sum
+    rounded once): torch._int_mm (int32) on the CPU and on the card,
+    where cuBLASLt's shape rules (more than 16 query rows, d and cap
+    multiples of 8) are met by zero padding; on the card, d or cap not a
+    multiple of 8 with d <= F32_EXACT_DIM take an f32 product with TF32
+    off instead, exact there."""
     b, d = qi8.shape
     cap = emb_i8.shape[0]
     if not qi8.is_cuda:
         return torch._int_mm(qi8, emb_i8.T).float()
-    if d % 8 == 0 and cap % 8 == 0:
-        qp = qi8
-        if b <= 16:
-            qp = torch.nn.functional.pad(qi8, (0, 0, 0, 32 - b))
-        return torch._int_mm(qp, emb_i8.T)[:b].float()
-    if d > F32_EXACT_DIM:
-        raise RuntimeError(f"int8_dot: d={d} is neither a multiple of 8 "
-                           f"nor <= {F32_EXACT_DIM}")
-    require_exact_f32(qi8, "int8_dot")
-    q = qi8.float()
-    return torch.cat([q @ emb_i8[r:r + SCORE_CHUNK_ROWS].float().T
-                      for r in range(0, cap, SCORE_CHUNK_ROWS)], dim=1)
+    if (d % 8 or cap % 8) and d <= F32_EXACT_DIM:
+        require_exact_f32(qi8, "int8_dot")
+        q = qi8.float()
+        return torch.cat([q @ emb_i8[r:r + SCORE_CHUNK_ROWS].float().T
+                          for r in range(0, cap, SCORE_CHUNK_ROWS)], dim=1)
+    pad = torch.nn.functional.pad
+    qp = qi8 if b > 16 and d % 8 == 0 else pad(
+        qi8, (0, -d % 8, 0, max(0, 32 - b)))
+    ep = emb_i8 if d % 8 == 0 and cap % 8 == 0 else pad(
+        emb_i8, (0, -d % 8, 0, -cap % 8))
+    return torch._int_mm(qp, ep.T)[:b, :cap].float()
 
 
 def quant_candidates_plain(emb_i8, rinv, qi8, qs, bias, cand

@@ -12,14 +12,17 @@ Build (device): each chunk of clusters goes through N1
 scores every within-cluster pair from the int8 layout and keeps each
 slot's top r; spill packing already puts boundary rows in two clusters,
 so their two lists hold the cross-cluster edges. The chunks' lists are
-concatenated on the device and fetched once.
+concatenated and stay on the device.
 
-Merge (host): rows with one copy take their list as it is; spilled rows
-interleave their two score-ordered lists position by position, drop
-duplicates (keep first) and compact.
+Merge (device, `merge_lists`): rows with one copy take their list as it
+is; spilled rows interleave their two score-ordered lists position by
+position, drop duplicates (keep first: `dedup_keep_first_torch`, the
+same stable sort) and compact. Only the finished [cap, degree] table is
+fetched. The result equals the reference's host merge in numpy.
 
 `dedup_keep_first` and `_chunk_clusters` are the reference's, identical
-but for imports.
+but for imports (the search path's expansion dedups on the host with
+`dedup_keep_first`).
 """
 
 from __future__ import annotations
@@ -59,6 +62,60 @@ def dedup_keep_first(vals: np.ndarray, valid: np.ndarray
     return valid & ~dd
 
 
+def dedup_keep_first_torch(vals: torch.Tensor, valid: torch.Tensor
+                           ) -> torch.Tensor:
+    """`dedup_keep_first` on torch tensors of any device: the same
+    stable sort by key (ties by position), the same narrowed mask."""
+    key = torch.where(valid, vals, torch.full_like(vals, -1))
+    sk, o = torch.sort(key, dim=1, stable=True)
+    dup = torch.zeros_like(valid)
+    dup[:, 1:] = (sk[:, 1:] == sk[:, :-1]) & (sk[:, 1:] >= 0)
+    return valid & ~torch.zeros_like(valid).scatter_(1, o, dup)
+
+
+def merge_lists(lists: torch.Tensor, list_of: np.ndarray, *, degree: int,
+                cap: int, rows: np.ndarray, cluster_of: np.ndarray,
+                slot_of: np.ndarray, cluster_of2: np.ndarray,
+                slot_of2: np.ndarray) -> torch.Tensor:
+    """The [cap, degree] int32 neighbour table, on lists' device.
+
+    lists [n, L, r0] int32: N1's per-slot lists; list_of [C] int: the
+    index in lists of each cluster of the layout. Rows with one copy
+    take their slot's list; spilled rows interleave their two lists
+    position by position, drop themselves and duplicates (first kept)
+    and compact to `degree`. Rows outside `rows` stay -1."""
+    dev = lists.device
+    r0 = int(lists.shape[2])
+    out = torch.full((cap, degree), -1, dtype=torch.int32, device=dev)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    def at(cl, sl):
+        return lists[up(list_of[cl]), up(sl)]             # [k, r0]
+
+    has2 = cluster_of2[rows] >= 0
+    solo = rows[~has2]
+    if len(solo):
+        # within one block all slots are distinct rows, so self-edges
+        # are already masked by the kernel: copy straight through
+        out[up(solo), :r0] = at(cluster_of[solo], slot_of[solo])
+    rs = rows[has2]
+    if len(rs):
+        a = at(cluster_of[rs], slot_of[rs])
+        sec = at(cluster_of2[rs], slot_of2[rs])
+        # positional interleave of two desc-sorted lists
+        cand = torch.stack((a, sec), dim=2).reshape(len(rs), 2 * r0)
+        rs_d = up(rs)
+        valid = dedup_keep_first_torch(
+            cand, (cand >= 0) & (cand != rs_d[:, None]))
+        comp = torch.sort((~valid).to(torch.uint8), dim=1,
+                          stable=True).indices[:, :degree]
+        res = torch.gather(torch.where(valid, cand, -1), 1, comp)
+        out[rs_d, :res.shape[1]] = res
+    return out
+
+
 def _chunk_clusters(c: int, lcap: int) -> int:
     """Cluster-axis chunk size: power of two keeping the [CH, L, L]
     score planes (8 bytes/entry across the int32+fp32 stages) under
@@ -84,8 +141,8 @@ def build_knn_graph(emb_i8, rinv_sl, slot_rows, mu, *, degree: int,
     layout was quantized with. rows: live global rows; cluster_of /
     slot_of (+2: the spill copy, -1 when none) index the layout per row.
     stats, when given, receives the wall seconds of the device work
-    (uploads and launches until the lists are done), the fetch and the
-    host merge, and the number of chunks."""
+    (uploads and launches until the lists are done), the merge (on the
+    lists' device) and the table's fetch, and the number of chunks."""
     t0 = time.monotonic()
     c, lcap = int(emb_i8.shape[0]), int(emb_i8.shape[1])
     r0 = min(degree, lcap - 1)
@@ -97,7 +154,7 @@ def build_knn_graph(emb_i8, rinv_sl, slot_rows, mu, *, degree: int,
     mu_d = torch.from_numpy(np.asarray(mu, np.float32)).to(dev)
     # fixed chunk shape without padding the layout: the final chunk
     # clamps its start and overlaps the previous one; the overlapped
-    # clusters get identical lists, which the assembly below rewrites
+    # clusters get identical lists, and list_of below reads the later one
     starts = list(range(0, max(1, c - ch + 1), ch))
     if starts[-1] + ch < c:
         starts.append(c - ch)
@@ -112,42 +169,24 @@ def build_knn_graph(emb_i8, rinv_sl, slot_rows, mu, *, degree: int,
         chunks.append(block_knn(blk, ri, sr, slot_mu_dot(blk, ri, mu_d),
                                 r0))
     big = torch.cat(chunks)
-    if big.is_cuda:                 # time the device work apart from the fetch
-        torch.cuda.current_stream(big.device).synchronize()
+    sync = (torch.cuda.current_stream(big.device).synchronize
+            if big.is_cuda else (lambda: None))
+    sync()                  # time the device work apart from the merge
     t_dev = time.monotonic()
-    big = big.cpu().numpy()                   # one fetch
-    t_fetch = time.monotonic()
-    nl = np.empty((c, lcap, r0), np.int32)
+    # each cluster's index in the chunks' lists
+    list_of = np.empty(c, np.int64)
     for j, s in enumerate(starts):
-        nl[s:s + ch] = big[j * ch:(j + 1) * ch][:c - s]
-
-    out = np.full((cap, degree), -1, np.int32)
-    cl1, sl1 = cluster_of[rows], slot_of[rows]
-    prim = nl[cl1, sl1]                                   # [n, r0]
-    has2 = cluster_of2[rows] >= 0
-    solo = ~has2
-    if solo.any():
-        p = prim[solo]
-        # within one block all slots are distinct rows, so self-edges
-        # are already masked by the kernel: copy straight through
-        out[rows[solo], :p.shape[1]] = p[:, :degree]
-    if has2.any():
-        rs = rows[has2]
-        sec = nl[cluster_of2[rs], slot_of2[rs]]
-        a = prim[has2]
-        cand = np.empty((len(a), 2 * r0), np.int32)
-        cand[:, 0::2] = a                 # positional interleave of two
-        cand[:, 1::2] = sec               # desc-sorted lists
-        valid = dedup_keep_first(cand, (cand >= 0)
-                                 & (cand != rs[:, None]))
-        comp = np.argsort(~valid, axis=1, kind="stable")[:, :degree]
-        res = np.take_along_axis(np.where(valid, cand, -1), comp,
-                                 axis=1)
-        out[rs, :res.shape[1]] = res
+        list_of[s:s + ch] = j * ch + np.arange(min(ch, c - s))
+    out = merge_lists(big, list_of, degree=degree, cap=cap, rows=rows,
+                      cluster_of=cluster_of, slot_of=slot_of,
+                      cluster_of2=cluster_of2, slot_of2=slot_of2)
+    sync()
+    t_merge = time.monotonic()
+    out = out.cpu().numpy()                       # one fetch: the table
     t_end = time.monotonic()
     if stats is not None:
-        stats.update(device_s=t_dev - t0, fetch_s=t_fetch - t_dev,
-                     merge_s=t_end - t_fetch, chunks=len(starts),
+        stats.update(device_s=t_dev - t0, merge_s=t_merge - t_dev,
+                     fetch_s=t_end - t_merge, chunks=len(starts),
                      chunk_clusters=ch, r=r0)
     deg = float((out[rows] >= 0).mean()) * degree
     log.info("knn graph: %d rows, degree %d (mean filled %.1f), "

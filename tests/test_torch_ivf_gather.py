@@ -139,6 +139,68 @@ def test_plain_bit_equal_to_pallas_kernel_skewed_probes(case, shape,
     test_plain_bit_equal_to_pallas_kernel(case, shape, pattern)
 
 
+def _unit_layout(seed, c, l, d):
+    """_layout's planes with rows as an index holds them: unit Gaussian
+    rows quantized per row (int8, max |x| at 127), rinv their scale."""
+    emb, ri, sr, kc, ac = _layout(seed=seed, c=c, l=l, d=d)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal((c * l, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q8, ri8 = _quantize(x)
+    emb = q8.reshape(c, l, d)
+    ri = (1.0 / ri8).astype(np.float32).reshape(c, l)
+    emb[sr < 0] = 0
+    return emb, ri, sr, kc, ac
+
+
+@pytest.mark.parametrize("d", [1041, 1536])
+@pytest.mark.parametrize("case", ["none", "all"])
+def test_plain_past_f32_exact_dim(case, d):
+    """Past d 1040 an f32 sum of int8 products is no longer exact. The
+    plain version (and the kernel, held to it bit for bit on the card)
+    sums exactly in int32 and rounds once; the reference's Pallas
+    kernel sums in f32. Criterion against the reference: equal masks and
+    rows, scores / qs (cosine units) within 1e-5. Against the exact sum:
+    bit-equal, also for uniform int8 rows whose f32 sums round."""
+    c, l, b, p = 6, 20, 4, 3
+    emb, ri, sr, kc, ac = _unit_layout(d, c, l, d)
+    rng = np.random.default_rng(d)
+    probe = rng.integers(0, c, (b, p)).astype(np.int32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qi8, qs = _quantize(q)
+    ak, aa, ex = _filters(case)
+    filtered = case != "none"
+    got, rows = _plain(emb, ri, sr, kc, ac, probe, qi8, ak, aa, ex,
+                       filtered)
+    want, want_rows = jax_gather.probed_scores(
+        jnp.asarray(emb), jnp.asarray(_meta(ri, sr, kc, ac)),
+        jnp.asarray(probe), jnp.asarray(qi8), jnp.asarray(ak),
+        jnp.asarray(aa), jnp.asarray(ex), filtered=filtered)
+    want = np.asarray(want)[:, :p * l]
+    want_rows = np.asarray(want_rows)[:, :p * l]
+    mask = want > -1e29
+    assert mask.any()
+    np.testing.assert_array_equal(got > -1e29, mask)
+    np.testing.assert_array_equal(rows[mask], want_rows[mask])
+    scale = np.broadcast_to(qs[:, None], got.shape)[mask]
+    np.testing.assert_allclose(got[mask] / scale, want[mask] / scale,
+                               rtol=0, atol=1e-5)
+    # rows of +-127 and queries matching a probed row's signs: sums past
+    # 2^24, so f32 sums would round; the exact int64 sum, rounded to f32
+    # once, times rinv
+    emb_u = (rng.integers(0, 2, (c, l, d)) * 254 - 127).astype(np.int8)
+    emb_u[sr < 0] = 0
+    qi8_u = emb_u[probe[:, 0], 2].copy()
+    got_u, _ = _plain(emb_u, ri, sr, kc, ac, probe, qi8_u, ak, aa, ex,
+                      filtered)
+    blk = emb_u[probe].reshape(b, p * l, d).astype(np.int64)
+    exact = np.einsum("bkd,bd->bk", blk, qi8_u.astype(np.int64))
+    assert np.abs(exact).max() > 2 ** 24
+    want_u = exact.astype(np.float32) * ri[probe].reshape(b, p * l)
+    np.testing.assert_array_equal(got_u[mask], want_u[mask])
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_plain_matches_xla_reference(case):
     emb, ri, sr, kc, ac = _layout()

@@ -286,6 +286,108 @@ def test_build_knn_graph_matches_reference_spills_included():
     assert (got[live] >= 0).any(axis=1).all()
 
 
+def _numpy_merge(nl, *, degree, cap, rows, cluster_of, slot_of,
+                 cluster_of2, slot_of2):
+    """The reference's host merge (cortex_tpu/vector/knn_graph.py::
+    build_knn_graph after its fetch) over [C, L, r0] lists."""
+    out = np.full((cap, degree), -1, np.int32)
+    prim = nl[cluster_of[rows], slot_of[rows]]
+    has2 = cluster_of2[rows] >= 0
+    solo = ~has2
+    if solo.any():
+        p = prim[solo]
+        out[rows[solo], :p.shape[1]] = p[:, :degree]
+    if has2.any():
+        rs = rows[has2]
+        sec = nl[cluster_of2[rs], slot_of2[rs]]
+        a = prim[has2]
+        cand = np.empty((len(a), 2 * a.shape[1]), np.int32)
+        cand[:, 0::2] = a
+        cand[:, 1::2] = sec
+        valid = ref_kg.dedup_keep_first(cand, (cand >= 0)
+                                        & (cand != rs[:, None]))
+        comp = np.argsort(~valid, axis=1, kind="stable")[:, :degree]
+        res = np.take_along_axis(np.where(valid, cand, -1), comp, axis=1)
+        out[rs, :res.shape[1]] = res
+    return out
+
+
+def _merge_case(seed, c=7, lcap=12, r0=6, cap=90, n=50, spill=25):
+    """Seeded per-slot lists: n live rows in distinct slots, `spill` of
+    them with a second slot; -1 entries, a spilled row's own id in its
+    lists, and its two lists sharing entries (in order and not)."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(cap, n, replace=False)).astype(np.int32)
+    maps = {k: np.full(cap, -1, np.int32) for k in (
+        "cluster_of", "slot_of", "cluster_of2", "slot_of2")}
+    cells = rng.permutation(c * lcap)
+    maps["cluster_of"][rows], maps["slot_of"][rows] = divmod(cells[:n], lcap)
+    sp = rows[rng.permutation(n)[:spill]]
+    maps["cluster_of2"][sp], maps["slot_of2"][sp] = divmod(
+        cells[n:n + spill], lcap)
+    nl = rng.integers(0, cap, (c, lcap, r0)).astype(np.int32)
+    nl[rng.random(nl.shape) < 0.2] = -1
+    for k, row in enumerate(sp):
+        l1 = nl[maps["cluster_of"][row], maps["slot_of"][row]]
+        l2 = nl[maps["cluster_of2"][row], maps["slot_of2"][row]]
+        l2[k % r0] = l1[(k + 1) % r0]            # shared across the two
+        l2[(k + 2) % r0] = l1[(k + 2) % r0]      # at the same position
+        l1[(k + 3) % r0] = row                   # the row itself
+    return nl, rows, maps
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("degree", [6, 16])
+def test_device_merge_equals_the_numpy_merge(seed, degree):
+    """merge_lists (torch, here on the CPU) gives the reference's numpy
+    merge's table, also read through a list_of map whose final chunk
+    overlaps the one before (as build_knn_graph's chunks do). degree 16
+    > 2 r0: the spilled rows' table rows keep -1 past their 12 slots."""
+    nl, rows, maps = _merge_case(seed)
+    kw = dict(degree=degree, cap=90, rows=rows, **maps)
+    want = _numpy_merge(nl, **kw)
+    ident = np.arange(len(nl))
+    got = port_kg.merge_lists(torch.from_numpy(nl), ident, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # chunks of 4 clusters starting at 0 and 3: cluster 3 in both
+    big = torch.from_numpy(np.concatenate([nl[0:4], nl[3:7]]))
+    list_of = np.concatenate([np.arange(3), np.arange(4, 8)])
+    np.testing.assert_array_equal(
+        port_kg.merge_lists(big, list_of, **kw).numpy(), want)
+    spilled = rows[maps["cluster_of2"][rows] >= 0]
+    assert not (want[spilled] == spilled[:, None]).any()   # self dropped
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_dedup_keep_first_torch_equals_numpy(seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-1, 6, (40, 12)).astype(np.int32)
+    valid = (vals >= 0) & (rng.random(vals.shape) < 0.8)
+    want = ref_kg.dedup_keep_first(vals, valid)
+    np.testing.assert_array_equal(port_kg.dedup_keep_first(vals, valid),
+                                  want)
+    got = port_kg.dedup_keep_first_torch(torch.from_numpy(vals),
+                                         torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_build_knn_graph_stats_split():
+    """build_knn_graph reports its device, merge and fetch seconds."""
+    _, _, port, _, _ = carried(n=300, nc=8, nlist=4, degree=8)
+    co, emb, rinv, rows = layout_of(port)
+    live = np.where(co._live_h)[0].astype(np.int32)
+    stats = {}
+    out = port_kg.build_knn_graph(
+        emb, rinv, rows, co._quant_mu, degree=8, cap=co._cap, rows=live,
+        cluster_of=co._cluster_of, slot_of=co._slot_of,
+        cluster_of2=co._cluster_of2, slot_of2=co._slot_of2, stats=stats)
+    assert out.shape == (co._cap, 8) and out.dtype == np.int32
+    for k in ("device_s", "merge_s", "fetch_s"):
+        assert stats[k] >= 0.0
+    assert stats["chunks"] >= 1 and stats["r"] == 8
+
+
 # ------------------------------------ tests/test_ivf_graph.py, ported
 
 

@@ -152,12 +152,31 @@ def test_probed_scores_list_lengths(dev, l):
                   filtered=True)
 
 
-# d not a multiple of 16 (bytes assembled), 1040 (the exact limit: 9
-# slices, 64 queries a chunk in 72 KiB of shared memory)
-@pytest.mark.parametrize("d", [37, 100, 384, 768, 1040])
+# d not a multiple of 16 (bytes assembled), 1040 (the last width whose
+# f32 sums are exact: 9 slices, 64 queries a chunk in 72 KiB), 1536 and
+# 4096 (the limit: 32 queries a chunk in 128 KiB of shared memory, so the
+# batch of 64 makes two chunks a list)
+@pytest.mark.parametrize("d", [37, 100, 384, 768, 1040, 1536, 4096])
 def test_probed_scores_widths(dev, d):
     _check_probed(_inputs(dev, 10, 70, d, 64, 4, "kind", seed=d),
                   filtered=True)
+
+
+@pytest.mark.parametrize("d", [1536, 4096])
+def test_probed_scores_sums_past_f32_exact(dev, d):
+    """Rows of +-127 and each query a probed row's copy: dots of d * 127^2
+    > 2^24, which an f32 sum would round. Kernel and plain version both
+    sum exactly and round once, so they stay bit-equal."""
+    args = _inputs(dev, 10, 70, d, 40, 4, "none", seed=d + 1)
+    emb = args[0]
+    emb.copy_(torch.where(emb >= 0, 127, -127).to(torch.int8))
+    emb[args[2] < 0] = 0
+    probe = args[5]
+    rows = torch.arange(40, device=dev) % 70
+    args[6].copy_(emb[probe[:, 0].long(), rows])
+    exact = (emb[probe[:, 0].long(), rows].long() ** 2).sum(1)
+    assert int(exact.max()) > 2 ** 24
+    _check_probed(args, filtered=False)
 
 
 # the plan counts each list's probes in shared memory up to 32,768 lists,
@@ -172,7 +191,7 @@ def test_probed_scores_many_lists(dev, c):
 @pytest.mark.parametrize("bad", ["dtype", "noncontig", "device", "shape",
                                  "dim"])
 def test_argument_checks_raise(dev, bad):
-    args = _inputs(dev, 8, 16, 1041 if bad == "dim" else 64, 2, 3, "none")
+    args = _inputs(dev, 8, 16, 4097 if bad == "dim" else 64, 2, 3, "none")
     if bad == "dtype":
         args[1] = args[1].double()
     elif bad == "noncontig":
@@ -1235,16 +1254,20 @@ def _check_knn(args, r):
     assert torch.equal(got, want)
 
 
-# (ch, L, d, r): odd L and d, r past a cluster's live count, L not a
-# multiple of the 64-slot tile, the row tile of 64 / 32 / 16 / 8 rows,
+# (ch, L, d, r): odd L and d (the byte-assembled stages), r past a
+# cluster's live count, L not a multiple of the 64-row or 128-slot tile,
 # phase 4's 384-d layout, the 1M layout's 1,280 x 768 at r 32 and L - 1,
-# d 1040, the 10M auto layout's L 4,096 at d 768 (8 rows a block) at r 32
-# and the largest degree, 1,024, and L 4,001 (not a multiple of 16)
+# d 1040 (a partial last K slice), the 10M auto layout's L 4,096 at d 768
+# at r 32 and the largest degree, 1,024, L 4,001 (not a multiple of 16),
+# and past the old shared-memory strip's limit (L 6,224 at d 768): L
+# 8,192 at r 32 (lists in shared memory), 1,024 and L - 1 (lists in the
+# device scratch)
 KNN_SHAPES = [(3, 37, 100, 12), (2, 13, 37, 12), (4, 65, 16, 64),
               (3, 100, 128, 32), (4, 192, 384, 32), (2, 1280, 768, 32),
               (2, 1280, 768, 1279), (2, 2000, 384, 32), (2, 200, 1040, 40),
               (1, 2, 8, 1), (2, 4096, 768, 32), (1, 4096, 768, 1024),
-              (1, 4001, 100, 33)]
+              (1, 4001, 100, 33), (1, 8192, 768, 32), (1, 8192, 768, 1024),
+              (1, 8192, 768, 8191)]
 
 
 @pytest.mark.parametrize("shape", KNN_SHAPES,
@@ -1275,27 +1298,48 @@ def test_block_knn_chunk_views(dev):
     assert torch.equal(part, whole[2:5])
 
 
-@pytest.mark.parametrize("bad", ["r_zero", "r_past", "too_wide", "dtype",
-                                 "shape"])
+@pytest.mark.parametrize("bad", ["r_zero", "r_past", "dtype", "shape"])
 def test_block_knn_limits_raise_value_error(dev, bad):
     """Outside its limits the kernel refuses with ValueError: r in
-    [1, L - 1]; the strip of 8 rows' scores against all L slots beside
-    the row tile and ring must fit a block's shared memory (L 8,192 at d
-    768 does not; L 4,096, the 10M auto layout, does)."""
+    [1, L - 1], planes of the right type and shape. L itself has no
+    limit (test_block_knn_takes_any_l)."""
     emb, ri, sr, mud = _knn_inputs(dev, 1, 64, 32)
     r = 8
     if bad == "r_zero":
         r = 0
     elif bad == "r_past":
         r = 64
-    elif bad == "too_wide":
-        emb, ri, sr, mud = _knn_inputs(dev, 1, 8192, 768)
     elif bad == "dtype":
         ri = ri.double()
     else:
         mud = mud[:, :10].contiguous()
     with pytest.raises(ValueError):
         knn_graph.block_knn(emb, ri, sr, mud, r)
+
+
+def test_block_knn_takes_any_l(dev):
+    """L 8,192 at d 768, which the shared-memory score strip of the first
+    design refused with ValueError, runs and equals plain: two lists, so
+    that a block's running lists are reused across clusters."""
+    _check_knn(_knn_inputs(dev, 2, 8192, 768, seed=5), 32)
+
+
+def test_ivf_index_at_d_1536_stores_and_searches(dev):
+    """IVF past d 1040 on the card (before, the scan refused the width at
+    the first search): the index builds (its kNN graph through N1), each
+    stored row finds itself first at nprobe = nlist, and the search went
+    through the scan kernel."""
+    from cortex_tpu_torch.vector.ivf import TorchIvfIndex
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2000, 1536)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    ids = [f"n{i}" for i in range(len(x))]
+    idx = TorchIvfIndex(1536, nlist=16, nprobe=16, device=dev)
+    idx.insert_batch(ids, x)
+    before = ivf_gather.probed_scores.launches
+    got = idx.search_batch(x[:64], 5)
+    assert ivf_gather.probed_scores.launches > before
+    assert [h[0][0] for h in got] == ids[:64]
 
 
 def test_build_knn_graph_on_the_card_equals_the_cpu(dev):

@@ -167,6 +167,21 @@ SCRIPT = textwrap.dedent("""
                                                     device="cpu"),
                      ConfigError)
         for name, kw in unported.items()}
+    # widths: IVF past d 1040 opens, stores and searches; past the scan
+    # kernels' 4096 it is refused at open, as is the flat index's int8
+    # scan (search_path auto or quant), but not its exact product
+    out["ivf_1536"] = store_search(cfg(model="hash-1536",
+                                       dimension=1536))[1]
+    wide = dict(model="hash-4097", dimension=4097)
+    out["width_errors"] = {
+        name: raises(lambda kw=kw: Cortex.in_memory(cfg(**kw, **wide),
+                                                    device="cpu"),
+                     ConfigError)
+        for name, kw in {"ivf": {}, "flat": dict(index="flat"),
+                         "flat_quant": dict(index="flat",
+                                            search_path="quant"),
+                         "flat_exact": dict(index="flat",
+                                            search_path="exact")}.items()}
 
     def local_weights(weights_dir):
         # an empty model dir holds no weights: hashing, as in the
@@ -367,6 +382,21 @@ def test_unported_config_raises_config_error(report, name):
         return
     msg = report["config_errors"][name]
     assert msg is not None and "ROADMAP" in msg
+
+
+def test_ivf_past_d_1040_stores_and_searches(report):
+    assert report["ivf_1536"] == {"top1": True, "filtered_kinds": ["event"],
+                                  "index": "ivf"}
+
+
+@pytest.mark.parametrize("name", ["ivf", "flat", "flat_quant",
+                                  "flat_exact"])
+def test_dimension_past_the_scan_kernels_raises_at_open(report, name):
+    msg = report["width_errors"][name]
+    if name == "flat_exact":
+        assert msg is None          # the exact product has no such limit
+        return
+    assert msg is not None and "4096" in msg and "dimension=4097" in msg
 
 
 def test_reference_defaults_are_refused(report):
