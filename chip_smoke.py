@@ -91,7 +91,14 @@ Phases, each printing its results on its own line:
      over one list's
      block times C ("product only"); K1 at the nprobe tuner's shape (256
      queries, cand 32, over the tuner's chunk of the flattened layout,
-     dead slots biased to NEG_INF), checked and timed as above;
+     dead slots biased to NEG_INF), checked and timed as above.
+     Retention eligibility (R1) at 1, 31 and 65,537 nodes and at
+     10,000,000 (the reference's decay_scale_bench scale, made on the
+     card; rows exactly on the TTL, grace and score boundaries), with
+     the parameters broadcast and one a node: the mask bit-equal to the
+     plain version; its and the plain version's times at 10M and 1M
+     beside the bound in bytes (14 B a node, 31 with per-node
+     parameters);
   3. the IVF index at 1,000,000 x 768 (seeded clustered unit rows), with
      the kNN graph at the default degree 32, built on its background
      thread (the build's wall split into device work, the merge on the
@@ -191,19 +198,47 @@ Phases, each printing its results on its own line:
      torch.profiler trace of a forward at B 64, S 128, at the S 512
      chunk with every key kept and at the S 512 chunk with phase 11's
      lengths: the shares of the products, E1, E2 and GELU in its device
-     time.
+     time;
+ 12. the host services, in three parts. After phase 4, on its Cortex at
+     the IVF defaults: SVC_GATE_IVF gated stores (half re-submit a
+     stored node's text under a new id, planted duplicates; a sixth are
+     same-kind near copies by another agent; a twelfth fail substance
+     or specificity; the rest are fresh), each decision (check and
+     existing node) equal to WriteGate.check_all over the exact top 5 of
+     the rows the query's probed lists hold (near-ties within 1e-5 of a
+     threshold, or of each other past it, counted), every planted
+     duplicate rejected as a conflict unless no probed list holds its
+     original. After phase 10, on phase 8's store with a [retention]
+     section: SVC_AGENTS agents' briefing world and SVC_RET_NODES aged
+     nodes (ages 0-200 days, edges into a tenth) and backdated
+     tombstones; closed, byte-copied, reopened on the card and on the
+     CPU (device "cpu"): briefing_full and both renderings for every
+     agent, equal but for the clock and hybrid-score ties, the cache and
+     its invalidation; run_retention on both, equal swept and purged
+     ids, no swept node in the index or a search; R1 over the same
+     nodes, a launch per sweep pass and one with per-node parameters,
+     equal to the engine's decisions but within RET_BAND_S of a
+     boundary (counted); queries and stats equal to the CPU's; reindex
+     with the same hits before and after and the old index released;
+     prompts created, versioned, selected and rolled back. After phase
+     11, on its flat Cortex (BGE-small width): SVC_UNGATED ungated and
+     SVC_GATE_FLAT gated stores, held to an exact fp32 numpy top 5 over
+     the stored embeddings, every planted duplicate rejected; the store
+     times of both.
 
-Five main paths: phases 3-4 (IVF, from the index's build), 5-6 (flat),
-7-8 (graph, on the flat index), 9-10 (the linker) and 11 (the encoder).
-Every launch count is set to 0 just before each and read just after it:
-probed_scores from the first and fifth, block_knn from the first,
-quant_candidates from the first (the tuner's truth) to the fifth,
-quant_rerank from the second to fifth, frontier_bfs,
+Six main paths: phases 3-4 (IVF, from the index's build), 5-6 (flat),
+7-8 (graph, on the flat index), 9-10 (the linker), 11 (the encoder) and
+12 (the services). Every launch count is set to 0 just before each (and
+before each of phase 12's parts) and read just after it: probed_scores
+from the first, fifth and sixth, block_knn from the first,
+quant_candidates from the first (the tuner's truth) to the sixth,
+quant_rerank from the second to sixth, frontier_bfs,
 frontier_bfs_compact and bfs_relax from the third, decay_sweep from the
-fourth, add_layer_norm and masked_attention from the fifth; launches
-made in phase 2 (also its part at the 1M layout, inside phase 3), or to
-compare a kernel with its plain version (or to time the forward) in
-phases 7-9 and 11, do not count. The line
+fourth, add_layer_norm and masked_attention from the fifth and sixth,
+retention_eligibility from the sixth; launches made in phase 2 (also
+its part at the 1M layout, inside phase 3), or to compare a kernel with
+its plain version (or to time the forward or R1) in phases 7-9, 11 and
+12, do not count. The line
 before the last lists the kernels as JSON (launches per path beside
 their sum), the line before that the card's name and power limit; the
 last line is the device JSON. At the end the script fails if any
@@ -309,6 +344,22 @@ ENC_WORDS, ENC_TOPICS, ENC_LONG, ENC_SEED = 20_000, 500, 0.05, 8
 ENC_KINDS = ("fact", "event", "decision", "goal", "observation")
 ENC_SAMPLE = 24
 ENC_SPEED_BATCHES, ENC_SPEED_SEQS = (1, 64, 4096), (32, 128, 512)
+# R1 at the reference bench's 10M nodes (benches/decay_scale_bench.py) and
+# at 1M; 14 B a node: 13 in (3 f32 + a bool), 1 out (a bool); a per-node
+# parameter adds its 4 B (1 for protect_inbound)
+RET_NODES, RET_CHUNK = 10_000_000, 1_000_000
+RET_BYTES_PER_NODE, RET_PARAM_BYTES = 14, 4 * 4 + 1
+RET_OPS_PER_NODE = 10       # 2 f32 subtracts, 2 multiplies, 6 compares
+RET_NOW = 1.76e9            # epoch seconds: float32 ulp 128 s
+# phase 12: gated stores on phase 11's flat Cortex and phase 4's IVF one,
+# ungated ones beside them, briefings for SVC_AGENTS agents, retention
+# over SVC_RET_NODES aged nodes with SVC_TOMBSTONES backdated tombstones
+SVC_GATE_FLAT, SVC_GATE_IVF, SVC_UNGATED = 400, 200, 100
+SVC_AGENTS, SVC_RET_NODES, SVC_TOMBSTONES = 24, 20_000, 200
+SVC_SEARCHES = 20
+GATE_NEAR_TIE = 1e-5      # scores this close to a threshold may decide apart
+# R1's float32 epoch seconds against the engine's float64: 2 ulps of `now`
+RET_BAND_S = 256.0
 GRAPH_DEGREE = 32         # [embedding] ivf_graph_degree's default
 GRAPH_WAIT_S = 600        # the background graph build must swap in by then
 KNN_CHUNK = 64            # lists a chunk at the 1M layout (_chunk_clusters)
@@ -341,6 +392,9 @@ KERNELS = {               # name -> (source, what it replaces)
                          "cortex_tpu/models/encoder.py:216"),
     "block_knn": ("cortex_tpu_torch/csrc/block_knn.cu",
                   "cortex_tpu/vector/knn_graph.py:105"),
+    "retention_eligibility": (
+        "cortex_tpu_torch/csrc/retention_eligibility.cu",
+        "cortex_tpu/ops/decay.py:121"),
 }
 
 
@@ -365,7 +419,8 @@ def _wrappers():
             "decay_sweep": decay.decay_sweep,
             "add_layer_norm": encoder.add_layer_norm,
             "masked_attention": encoder.masked_attention,
-            "block_knn": knn_graph.block_knn}
+            "block_knn": knn_graph.block_knn,
+            "retention_eligibility": decay.retention_eligibility}
 
 
 def reset_launches(names=None):
@@ -1332,7 +1387,8 @@ def phase_cortex_defaults(dev):
     over the host mirror: every hit scores its exact cosine, and every
     oracle top-K row that a probed list holds is returned (the graph may
     add rows no probed list holds; they are counted); a node's own text
-    returns it first unless no probed list holds it."""
+    returns it first unless no probed list holds it. Returns the
+    Cortex at the defaults, open, for phase 12's gated writes."""
     import torch
     from cortex_tpu_torch import Cortex
     from cortex_tpu_torch.config import CortexConfig
@@ -1405,8 +1461,12 @@ def phase_cortex_defaults(dev):
                      "self_top1": top1, "stranded": stranded,
                      "oracle_rows_via_graph": via_graph,
                      "open_store_search_s": t_store}
-        cx.close()
+        if target > 0:
+            cx.close()
+        else:
+            defaults = cx
     say("4-cortex-defaults", nodes=N_NODES, searches=len(sample), **out)
+    return defaults
 
 
 # ------------------------------------------------------------ phase 5
@@ -2662,6 +2722,107 @@ def check_decay(dc, dev, gen, card):
     say("2-decay", cases=dc.cases, max_abs_err=dc.max_abs_err,
         edges=DECAY_EDGES, flags=flags, card=card, **perf)
     del args, got
+    torch.cuda.empty_cache()
+    return perf
+
+
+class RetentionCheck:
+    """R1 against retention_eligibility_plain on the same card: the masks
+    bit-equal (the kernel spells the plain version's float32 subtract
+    and multiply by float32(1 / 86400) with __fsub_rn / __fmul_rn).
+    max_abs_err (nodes whose mask differs) must stay 0."""
+
+    def __init__(self):
+        self.max_abs_err = 0.0
+        self.cases = 0
+
+    def compare(self, nodes, params):
+        import torch
+        from cortex_tpu_torch.ops import decay
+        got = decay.retention_eligibility(*nodes, *params)
+        want = decay.retention_eligibility_plain(
+            *decay._retention_args(*nodes, *params))
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        check(got.dtype == torch.bool and got.shape == want.shape
+              and diff == 0, f"R1 differs from plain on {diff} nodes")
+        self.cases += 1
+        return got
+
+
+def retention_kernel_inputs(dev, gen, n, per_node=False):
+    """Seeded node arrays on the card (ages 0-80 days, idle 0-40 days at
+    RET_NOW) with rows exactly on the TTL (30 days), grace (10 days) and
+    score (0.4) boundaries; the five parameters as 0-d tensors, or one a
+    node (ttl 0 and min_score < 0 on some rows)."""
+    import torch
+
+    def rand():
+        return torch.rand(n, device=dev, generator=gen)
+
+    now = torch.tensor(RET_NOW, dtype=torch.float32, device=dev)
+    created = now - rand() * (80 * 86400.0)
+    last = now - rand() * (40 * 86400.0)
+    score = rand()
+    inbound = rand() < 0.3
+    created[::97] = now - 30 * 86400.0
+    last[::89] = now - 10 * 86400.0
+    score[::83] = 0.4
+    nodes = [created, last, score, inbound]
+    if not per_node:
+        return nodes, [now] + [torch.tensor(v, device=dev) for v in (
+            30.0, 10.0, 0.4)] + [torch.tensor(True, device=dev)]
+
+    def pick(values):
+        v = torch.tensor(values, dtype=torch.float32, device=dev)
+        return v[torch.randint(0, len(values), (n,), device=dev,
+                               generator=gen)]
+
+    return nodes, [now.expand(n).contiguous(), pick([0.0, 20.0, 30.0, 60.0]),
+                   pick([0.0, 10.0, 30.0]), pick([-1.0, 0.2, 0.4, 0.7]),
+                   rand() < 0.5]
+
+
+def check_retention(rc, dev, gen, card):
+    """Phase 2 for R1: small odd sizes, then RET_NODES (the reference
+    bench's 10M) made on the card, each with the parameters broadcast
+    and one a node; the kernel's and plain version's times at 10M and
+    1M beside the bound in bytes (RET_BYTES_PER_NODE a node, plus
+    RET_PARAM_BYTES with per-node parameters). No single PyTorch call
+    computes this mask (library_ms null)."""
+    import torch
+    from cortex_tpu_torch.ops import decay
+    for n in (1, 31, 65_537):
+        for per_node in (False, True):
+            rc.compare(*retention_kernel_inputs(dev, gen, n, per_node))
+    perf, flags = {}, {}
+    for per_node in (False, True):
+        nodes, params = retention_kernel_inputs(dev, gen, RET_NODES,
+                                                per_node)
+        got = rc.compare(nodes, params)
+        key = "per_node" if per_node else "broadcast"
+        flags[key] = int(got.sum())
+        check(0 < flags[key] < RET_NODES,
+              f"the 10M {key} mask is all one value")
+        sizes = ((("n10M", RET_NODES), ("n1M", RET_CHUNK)) if not per_node
+                 else (("n10M_per_node", RET_NODES),))
+        for name, n in sizes:
+            a = [t[:n] for t in nodes]
+            pa = [t if t.dim() == 0 else t[:n] for t in params]
+            plain = decay._retention_args(*a, *pa)
+            nbytes = (RET_BYTES_PER_NODE
+                      + (RET_PARAM_BYTES if per_node else 0)) * n
+            perf[name] = timing(
+                time_ms(lambda: decay.retention_eligibility(*a, *pa), 20),
+                time_ms(lambda: decay.retention_eligibility_plain(*plain),
+                        5),
+                bound_ms(nbytes, RET_OPS_PER_NODE * n, F32_OPS_PER_S),
+                library_ms=None)
+        del nodes, params, got
+    say("2-retention", cases=rc.cases, max_abs_err=rc.max_abs_err,
+        nodes=RET_NODES, eligible=flags, card=card,
+        real_size="10M nodes: the reference's decay_scale_bench scale",
+        **perf)
     torch.cuda.empty_cache()
     return perf
 
@@ -4148,6 +4309,724 @@ def phase_encoder(dev, workdir, card):
         phase_s=time.monotonic() - t_phase, card=card, **out)
 
 
+# ------------------------------------------------------------ phase 12
+
+
+class ExactGateIndex:
+    """The gate's conflict search as an exact fp32 numpy top-k over the
+    stored embeddings (VectorIndex's `search` signature); `add` takes a
+    write the gate let through. last_scores holds the last search's."""
+
+    def __init__(self, ids, x):
+        self.ids = list(ids)
+        self.x = np.asarray(x, np.float32)
+        self.n = len(self.ids)
+        self.last_scores = np.zeros(0)
+        self.probe_tie = False
+
+    def add(self, nid, v):
+        if self.n == len(self.x):
+            self.x = np.concatenate([self.x, np.zeros_like(self.x)])
+        self.x[self.n] = v
+        self.ids.append(nid)
+        self.n += 1
+
+    def search(self, vector, k, flt=None, *, refine=True):
+        s = self.x[:self.n] @ np.asarray(vector, np.float32)
+        top = np.argsort(-s, kind="stable")[:k]
+        self.last_scores = s[top]
+        return [(self.ids[i], float(s[i])) for i in top]
+
+
+class ProbedGateIndex:
+    """The IVF gate's search as the index defines it: the exact fp32
+    scores (the corpus's host mirror) of every live row that the query's
+    nprobe lists hold, top k. probe_tie: the query's p-th and (p + 1)-th
+    centroid scores lie within GATE_NEAR_TIE, so the probed set itself
+    is ambiguous."""
+
+    def __init__(self, corpus):
+        self.co = corpus
+        self.last_scores = np.zeros(0)
+        self.probe_tie = False
+
+    def search(self, vector, k, flt=None, *, refine=True):
+        import torch
+        co = self.co
+        cent, slot_rows = co._ivf_dev[0], co._ivf_dev[3]
+        p = co._nprobe(int(cent.shape[0]))
+        v = np.asarray(vector, np.float32)
+        cs = cent @ torch.from_numpy(v).to(cent.device)
+        best = torch.topk(cs, min(p + 1, len(cs)))
+        top = best.values.cpu().numpy()
+        self.probe_tie = bool(len(top) > p
+                              and top[p - 1] - top[p] <= GATE_NEAR_TIE)
+        rows = slot_rows[best.indices[:p]].reshape(-1).cpu().numpy()
+        rows = np.unique(rows[rows >= 0])
+        rows = rows[co._live_h[rows]]
+        s = co._emb_h[rows] @ v
+        order = np.argsort(-s, kind="stable")[:k]
+        self.last_scores = s[order]
+        return [(co._id_of[int(rows[i])], float(s[i])) for i in order]
+
+
+def gate_near_tie(scores, cfg, kind):
+    """Whether a searched score lies within GATE_NEAR_TIE of a threshold
+    the conflict check compares it with, or two scores past the lower
+    threshold lie that close (the node it reports may then differ)."""
+    ov = cfg.overrides.get(kind)
+    conflict = (ov.conflict_threshold if ov and ov.conflict_threshold
+                is not None else cfg.conflict_threshold)
+    s = np.asarray(scores, np.float64)
+    if not len(s):
+        return False
+    for t in (cfg.duplicate_threshold, conflict):
+        if np.abs(s - t).min() <= GATE_NEAR_TIE:
+            return True
+    hot = np.sort(s[s > min(cfg.duplicate_threshold, conflict)])
+    return bool(len(hot) > 1 and np.diff(hot).min() <= GATE_NEAR_TIE)
+
+
+def gate_candidates(stored, fresh, n, seed):
+    """n gated writes in a seeded order: half re-submit a stored node's
+    text under a new id (another agent, importance 0.5): planted
+    duplicates, which the conflict check must reject; a sixth are
+    same-kind near copies by another agent (two body words taken from
+    another node: contradictions or duplicates); a twelfth fail
+    substance (a short title or body) or specificity (relative time, or
+    importance 0.9 without tags); the rest are fresh. Stored decisions
+    are not re-submitted: their made-up bodies lack the decision words,
+    so substance rejects them first."""
+    from cortex_tpu_torch.types import Node, Source
+    rng = np.random.default_rng(seed)
+    pool = [m for m in stored if m.kind not in ("decision", "pattern")]
+    picks = rng.choice(len(pool), n, replace=False)
+    n_dup, n_near, n_bad = n // 2, n // 6, n // 12
+    out, planted = [], set()
+    for j in range(n_dup):
+        m = pool[picks[j]]
+        node = Node.new(m.kind, m.title, m.body, Source(agent="resubmit"),
+                        0.5)
+        planted.add(node.id)
+        out.append(node)
+    for j in range(n_dup, n_dup + n_near):
+        m, o = pool[picks[j]], pool[picks[-1 - j]].body.split()
+        words = m.body.split()
+        for w in (1, 3):
+            words[w % len(words)] = o[w % len(o)]
+        out.append(Node.new(m.kind, m.title, " ".join(words),
+                            Source(agent="near-copy"), 0.5))
+    for j in range(n_bad):
+        m = pool[picks[n_dup + n_near + j]]
+        title, body, imp = m.title, m.body, 0.5
+        if j % 4 == 0:
+            title = "Short"
+        elif j % 4 == 1:
+            body = "tiny body"
+        elif j % 4 == 2:
+            title = f"What happened yesterday: {m.title}"
+        else:
+            imp = 0.9
+        out.append(Node.new(m.kind, title, body, Source(agent="bad"), imp))
+    fresh = [m for m in fresh if m.kind not in ("decision", "pattern")]
+    for m in fresh[:n - len(out)]:
+        out.append(Node.new(m.kind, m.title, m.body, Source(agent="fresh"),
+                            0.5))
+    check(len(out) == n, f"{len(out)} gate candidates, not {n}")
+    return [out[i] for i in rng.permutation(n)], planted
+
+
+def gate_pass(cx, candidates, planted, oracle, exact=None):
+    """Each candidate through cx.store(gate=True), timed; its decision
+    (check, existing node) against WriteGate.check_all with the same
+    embedding over `oracle` (and, for the IVF index, over the exact
+    index `exact`, counting where the probed lists decide otherwise).
+    Decisions may differ only at a near-tie (gate_near_tie, or an
+    ambiguous probe set), and those are counted. Every planted
+    duplicate must be rejected by the conflict check (on the IVF index,
+    every one whose original a probed list holds): the gate swallows
+    search errors, so this is what shows that its device search ran."""
+    from cortex_tpu_torch.errors import GateRejection
+    from cortex_tpu_torch.gate import WriteGate
+    counts = {"stored": 0, "conflict_duplicate": 0,
+              "conflict_contradiction": 0, "substance": 0,
+              "specificity": 0, "schema": 0, "near_ties": 0,
+              "differ_at_near_tie": 0, "planted_rejected": 0,
+              "planted_unprobed": 0, "differ_from_exact": 0}
+    ms = []
+    wg = cx.config.write_gate
+    for node in candidates:
+        t0 = time.perf_counter()
+        try:
+            cx.store(node, gate=True)
+            got, reason = None, ""
+        except GateRejection as e:
+            got, reason = (e.check, e.existing_node), e.reason
+        ms.append((time.perf_counter() - t0) * 1e3)
+        emb = np.asarray(node.embedding, np.float32)
+        oracle.last_scores, oracle.probe_tie = np.zeros(0), False
+        rej = WriteGate.check_all(node, emb, oracle, cx.storage, wg,
+                                  cx.schema_validator)
+        want = None if rej is None else (rej.check, rej.existing_node)
+        near = (gate_near_tie(oracle.last_scores, wg, node.kind)
+                or oracle.probe_tie)
+        counts["near_ties"] += near
+        if got != want:
+            check(near, f"gate decision {got} differs from the oracle's "
+                  f"{want} for {node.title!r}")
+            counts["differ_at_near_tie"] += 1
+        if exact is not None:
+            ex = WriteGate.check_all(node, emb, exact, cx.storage, wg,
+                                     cx.schema_validator)
+            counts["differ_from_exact"] += (
+                None if ex is None else (ex.check, ex.existing_node)) != got
+        if node.id in planted and got is not None and got[0] == "conflict":
+            counts["planted_rejected"] += 1
+        elif node.id in planted:
+            # on the IVF index, the original may lie in no list that its
+            # own vector probes (the capped packing's stranded rows):
+            # the probed lists' oracle then lets it through as well
+            check(isinstance(oracle, ProbedGateIndex) and got == want,
+                  f"planted duplicate {node.id} got {got}")
+            counts["planted_unprobed"] += 1
+        if got is None:
+            counts["stored"] += 1
+            for o in (oracle, exact):
+                if isinstance(o, ExactGateIndex):
+                    o.add(node.id, emb)
+        elif got[0] == "conflict":
+            counts["conflict_contradiction" if "contradiction" in reason
+                   else "conflict_duplicate"] += 1
+        else:
+            counts[got[0]] += 1
+    check(counts["planted_rejected"] + counts["planted_unprobed"]
+          == len(planted) and counts["planted_rejected"] > 0,
+          "the planted duplicates did not go through the gate")
+    return counts, ms
+
+
+def percentiles(ms):
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))}
+
+
+def phase_gate_ivf(cx, card):
+    """Phase 12, gated writes on phase 4's IVF Cortex at the reference's
+    defaults (hash-384, nprobe auto, the kNN graph at degree 32; the
+    gate searches with refine=False, so probed_scores and the exact
+    re-rank): SVC_GATE_IVF gated stores held to the probed lists' exact
+    top 5 (ProbedGateIndex), and counted against the exact top 5 over
+    every row."""
+    from cortex_tpu_torch.storage import NodeFilter
+    stored = cx.storage.list_nodes(NodeFilter())
+    check(cx.index.index_info()["kind"] == "ivf", "phase 4's Cortex is "
+          "not on the IVF index")
+    fresh = seeded_nodes(SVC_GATE_IVF, seed=9)
+    cands, planted = gate_candidates(stored, fresh, SVC_GATE_IVF, seed=12)
+    exact = ExactGateIndex([n.id for n in stored],
+                           [n.embedding for n in stored])
+    counts, ms = gate_pass(cx, cands, planted,
+                           ProbedGateIndex(cx.index._corpus), exact)
+    say("12-gate-ivf", writes=len(cands), planted=len(planted),
+        gated_store_ms=percentiles(ms), nlist=cx.index.index_info()[
+            "nlist"], nprobe=cx.index.index_info()["nprobe"], card=card,
+        **counts)
+
+
+def phase_gate_flat(dev, workdir, card):
+    """Phase 12, gated writes on phase 11's SQLite Cortex (model
+    "flax:<npz>" at BGE-small's width, the flat index over 20,200 nodes:
+    each write embeds through E1 and E2, then K1 and K2 search it):
+    SVC_UNGATED ungated stores, then SVC_GATE_FLAT gated ones held to an
+    exact fp32 numpy top-5 over the stored embeddings (ExactGateIndex);
+    the store times of both."""
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.storage import NodeFilter
+    cfg = CortexConfig()
+    cfg.embedding.model = f"flax:{os.path.join(workdir, 'bge_small_random.npz')}"
+    cfg.embedding.dimension = 384
+    cx = Cortex.open(os.path.join(workdir, "encoder_flat.db"), cfg,
+                     device=dev)
+    check(cx.index.index_info()["resolved_path"] == "quant",
+          "phase 11's Cortex does not search through K1 + K2")
+    stored = cx.storage.list_nodes(NodeFilter())
+    oracle = ExactGateIndex([n.id for n in stored],
+                            [n.embedding for n in stored])
+    words = encoder_words(ENC_SEED)[0]
+    fresh = encoder_nodes(SVC_GATE_FLAT + SVC_UNGATED, ENC_SEED + 7, words)
+    ungated = []
+    for node in fresh[SVC_GATE_FLAT:]:
+        t0 = time.perf_counter()
+        cx.store(node)
+        ungated.append((time.perf_counter() - t0) * 1e3)
+        oracle.add(node.id, np.asarray(node.embedding, np.float32))
+    cands, planted = gate_candidates(stored, fresh[:SVC_GATE_FLAT],
+                                     SVC_GATE_FLAT, seed=13)
+    counts, ms = gate_pass(cx, cands, planted, oracle)
+    cx.close()
+    say("12-gate-flat", writes=len(cands), planted=len(planted),
+        ungated_store_ms=percentiles(ungated),
+        gated_store_ms=percentiles(ms), nodes=len(stored), card=card,
+        **counts)
+
+
+def svc_config():
+    """CortexConfig() with a [retention] section: a default TTL of 90
+    days, observations 30 days, events 60 days with min_score 0.3, grace
+    14 days."""
+    from cortex_tpu_torch.config import CortexConfig
+    from cortex_tpu_torch.policies import KindRetention, RetentionConfig
+    cfg = CortexConfig()
+    cfg.retention = RetentionConfig(
+        default_ttl_days=90.0, grace_days=14.0,
+        by_kind={"observation": KindRetention(ttl_days=30.0),
+                 "event": KindRetention(ttl_days=60.0, min_score=0.3)})
+    return cfg
+
+
+def svc_words(rng, vocab, n):
+    return " ".join(rng.choice(vocab, n))
+
+
+def svc_briefing_world(cx, seed):
+    """SVC_AGENTS agents, every third with an agent node: preferences,
+    patterns and facts that apply to it, goals it depends on, recent
+    events, and a contradiction between two of its facts."""
+    from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"v{i}" for i in range(4000)])
+    nodes, edges, agents = [], [], []
+    for a in range(SVC_AGENTS):
+        agent = f"svc{a}"
+        agents.append(agent)
+        me = None
+        if a % 3 == 0:
+            me = Node.new("agent", f"Agent {agent} assistant",
+                          f"Agent {agent} handles {svc_words(rng, vocab, 8)}",
+                          Source(agent=agent), 0.8)
+            nodes.append(me)
+        own = [Node.new(kind, f"{kind} of {agent} {svc_words(rng, vocab, 3)}",
+                        f"{svc_words(rng, vocab, 14)} always",
+                        Source(agent=agent), float(rng.uniform(0.35, 0.95)))
+               for kind, k in (("preference", 3), ("pattern", 2),
+                               ("fact", 2), ("goal", 2), ("event", 3))
+               for _ in range(k)]
+        nodes += own
+        prov = EdgeProvenance.manual(agent)
+        facts = [n for n in own if n.kind == "fact"]
+        edges.append(Edge.new(facts[0].id, facts[1].id, "contradicts", 0.8,
+                              prov))
+        if me is not None:
+            edges.append(Edge.new(me.id, facts[0].id, "related_to", 0.8,
+                                  prov))
+            for n in own:
+                if n.kind in ("preference", "pattern", "fact"):
+                    edges.append(Edge.new(n.id, me.id, "applies_to", 0.9,
+                                          prov))
+                elif n.kind == "goal":
+                    edges.append(Edge.new(me.id, n.id, "depends_on", 0.9,
+                                          prov))
+    cx.store_batch(nodes)
+    for e in edges:
+        cx.create_edge(e)
+    return agents, nodes
+
+
+def svc_retention_world(cx, sources, seed, now):
+    """SVC_RET_NODES nodes through store_batch with seeded ages (0-200
+    days) and idle times (0-60 days, at most the age), across every TTL
+    and the grace window, access counts 0-40, and informed_by edges from
+    the live `sources` into a tenth of them; then SVC_TOMBSTONES more,
+    deleted and backdated 30 days (purged) or 5 days (kept)."""
+    from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"r{i}" for i in range(4000)])
+    kinds = ("fact", "event", "observation", "goal", "decision")
+    nodes = []
+    for i in range(SVC_RET_NODES + SVC_TOMBSTONES):
+        age = rng.uniform(0.0, 200.0)
+        idle = min(rng.uniform(0.0, 60.0), age)
+        n = Node.new(kinds[i % len(kinds)],
+                     f"aged record {i} {svc_words(rng, vocab, 3)}",
+                     svc_words(rng, vocab, 14), Source(agent=f"ret{i % 50}"),
+                     float(rng.uniform(0.2, 0.9)))
+        n.created_at = n.updated_at = now - age * 86400.0
+        n.last_accessed_at = now - idle * 86400.0
+        n.access_count = int(rng.integers(0, 40))
+        nodes.append(n)
+    cx.store_batch(nodes)
+    targets = rng.choice(SVC_RET_NODES, SVC_RET_NODES // 10, replace=False)
+    prov = EdgeProvenance.manual("retention")
+    cx.bulk_import([], edges=[
+        Edge.new(sources[j % len(sources)].id, nodes[t].id, "informed_by",
+                 0.7, prov) for j, t in enumerate(targets)])
+    for j, n in enumerate(nodes[SVC_RET_NODES:]):
+        cx.delete_node(n.id)
+        got = cx.storage.get_node(n.id)
+        got.updated_at = now - (30.0 if j % 2 else 5.0) * 86400.0
+        cx.storage.put_node(got)
+    return nodes
+
+
+def briefing_sections(b):
+    return [(s.title, [n.id for n in s.nodes]) for s in b.sections]
+
+
+def without_clock(text):
+    return "\n".join(line for line in text.splitlines()
+                     if "Generated" not in line)
+
+
+def spy_hybrid(cx, seen, errors):
+    """Record each hybrid search the briefing engine runs (its results)
+    and each error: the engine swallows them (its active context then
+    falls back to the recent list), so the phase fails on any."""
+    inner = cx.hybrid.search
+
+    def search(q):
+        try:
+            res = inner(q)
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+            raise
+        seen.append(res)
+        return res
+
+    cx.hybrid.search = search
+
+
+def hybrid_tied(want, got):
+    """Whether two hybrid result lists differ only where combined scores
+    tie within NEAR_TIE."""
+    if len(want) != len(got):
+        return False
+    ws = [r.combined_score for r in want]
+    if np.abs(np.asarray(ws) - [r.combined_score for r in got]).max(
+            initial=0.0) > NEAR_TIE:
+        return False
+    for rw, rg in zip(want, got):
+        if rw.node.id != rg.node.id:
+            near = [r.node.id for r in got
+                    if abs(r.combined_score - rw.combined_score) <= NEAR_TIE]
+            if rw.node.id not in near:
+                return False
+    return True
+
+
+def svc_briefings(cx, twin, agents):
+    """briefing_full and both renderings for every agent on the card and
+    on the CPU twin: the same sections with the same node ids (the
+    active context may differ only where hybrid scores tie within
+    NEAR_TIE, counted), the same text but the clock line; a second call
+    hits the cache; a store invalidates it."""
+    seen, errors = {"card": [], "cpu": []}, []
+    spy_hybrid(cx, seen["card"], errors)
+    spy_hybrid(twin, seen["cpu"], errors)
+    ms, ties, sections = [], 0, 0
+    for a in agents:
+        t0 = time.perf_counter()
+        b = cx.briefing_full(a)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        w = twin.briefing_full(a)
+        got, want = briefing_sections(b), briefing_sections(w)
+        sections += len(got)
+        if got != want:
+            check([t for t, _ in got] == [t for t, _ in want]
+                  and all(g == x for g, x in zip(got, want)
+                          if g[0] != "Active Context")
+                  and hybrid_tied(seen["cpu"][-1], seen["card"][-1]),
+                  f"{a}: the card's briefing differs from the CPU's")
+            ties += 1
+        else:
+            for compact in (False, True):
+                check(without_clock(cx.briefing(a, compact=compact))
+                      == without_clock(twin.briefing(a, compact=compact)),
+                      f"{a}: the renderings differ")
+        check(cx.briefing_full(a).cached, f"{a}: no cache hit")
+    check(not errors, f"hybrid search failed in a briefing: {errors[:3]}")
+    check(all(seen.values()), "no briefing ran a hybrid search")
+    from cortex_tpu_torch.types import Node, Source
+    n = Node.new("event", f"fresh event for {agents[0]}",
+                 "A fresh event that the next briefing must show",
+                 Source(agent=agents[0]), 0.9)
+    twin.store(Node.from_dict(n.to_dict()))
+    cx.store(n)
+    b, w = cx.briefing_full(agents[0]), twin.briefing_full(agents[0])
+    check(not b.cached and not w.cached
+          and n.id in {x.id for s in b.sections for x in s.nodes},
+          "a store did not invalidate the briefing cache")
+    return {"agents": len(agents), "sections": sections,
+            "active_context_ties": ties,
+            "briefing_ms": percentiles(ms),
+            "with_agent_node": sum(
+                cx.briefing_engine.find_agent_node(a) is not None
+                for a in agents)}
+
+
+def retention_passes(rc):
+    """The engine's sweep passes as (kinds, ttl_days, min_score): one per
+    configured kind with a TTL, then the default pass over every other
+    kind (kinds None)."""
+    out = [([k], kr.ttl_days, kr.min_score) for k, kr in rc.by_kind.items()
+           if kr.ttl_days != 0]
+    if rc.default_ttl_days > 0:
+        out.append((None, rc.default_ttl_days, None))
+    return out
+
+
+def r1_masks(cx, live, now, dev):
+    """R1 over the live nodes' packed arrays, one launch a pass as the
+    engine sweeps them (scalar parameters), and one launch over every
+    node with the parameters one a node; both give the same ids. score
+    is the engine's decayed score (apply_score_decay at recency 1.0);
+    has_inbound, a live inbound edge from an undeleted source. Returns
+    (eligible ids, each node's pass (ttl, min_score), per-pass device
+    ms)."""
+    import torch
+    from cortex_tpu_torch.ops import decay
+    from cortex_tpu_torch.vector.scoring import apply_score_decay_batch
+    rc = cx.config.retention
+    ids = {n.id for n in live}
+    inbound = {e.to_id for e in cx.storage.all_edges() if e.from_id in ids}
+
+    def dev_f32(vals):
+        return torch.from_numpy(np.asarray(vals, np.float64).astype(
+            np.float32)).to(dev)
+
+    created = dev_f32([n.created_at for n in live])
+    last = dev_f32([n.last_accessed_at for n in live])
+    score = torch.from_numpy(apply_score_decay_batch(
+        cx.config.score_decay, np.ones(len(live)), live, now=now,
+        recency_bias=1.0)).to(dev)
+    has_in = torch.tensor([n.id in inbound for n in live], device=dev)
+    configured = set(rc.by_kind)
+    eligible, param_of, dev_ms = set(), {}, 0.0
+    per_ttl = np.zeros(len(live), np.float32)
+    per_min = np.full(len(live), -1.0, np.float32)
+    for kinds, ttl, min_score in retention_passes(rc):
+        sel = np.array([i for i, n in enumerate(live) if (
+            n.kind in kinds if kinds else n.kind not in configured)])
+        if not len(sel):
+            continue
+        idx = torch.from_numpy(sel).to(dev)
+        args = [t[idx] for t in (created, last, score, has_in)]
+        params = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+            now, ttl, rc.grace_days,
+            -1.0 if min_score is None else min_score)] + [
+            torch.tensor(rc.protect_with_inbound_edges, device=dev)]
+        mask = decay.retention_eligibility(*args, *params).cpu().numpy()
+        with uncounted():
+            dev_ms += time_ms(
+                lambda: decay.retention_eligibility(*args, *params), 20)
+        eligible.update(live[i].id for i in sel[mask])
+        per_ttl[sel] = ttl
+        per_min[sel] = -1.0 if min_score is None else min_score
+        for i in sel:
+            param_of[live[i].id] = (ttl, min_score)
+    full = decay.retention_eligibility(
+        created, last, score, has_in, now, torch.from_numpy(per_ttl).to(dev),
+        rc.grace_days, torch.from_numpy(per_min).to(dev),
+        rc.protect_with_inbound_edges).cpu().numpy()
+    check({live[i].id for i in np.nonzero(full)[0]} == eligible,
+          "R1 with per-node parameters differs from its passes")
+    scores = dict(zip((n.id for n in live), score.cpu().numpy()))
+    return eligible, param_of, scores, dev_ms
+
+
+def in_retention_band(node, now, ttl, grace, min_score, score):
+    """Whether the node lies within RET_BAND_S of the TTL or grace
+    boundary (float32 epoch seconds are 128 s apart near `now`), or its
+    float32 score within an ulp of min_score."""
+    age = now - node.created_at - ttl * 86400.0
+    idle = now - node.last_accessed_at - grace * 86400.0
+    if min(abs(age), abs(idle)) <= RET_BAND_S:
+        return True
+    return (min_score is not None and abs(float(score) - min_score)
+            <= float(np.spacing(np.float32(min_score))))
+
+
+def deleted_ids(cx):
+    from cortex_tpu_torch.storage import NodeFilter
+    return {n.id for n in cx.storage.list_nodes(NodeFilter(
+        deleted_only=True))}
+
+
+def svc_retention(cx, twin, dev):
+    """run_retention on the card and on the CPU twin: equal swept and
+    purged ids; no swept node in the index or in a search for its own
+    text; R1's mask over the same nodes equal to the engine's decisions
+    but within the float32 band (counted)."""
+    from cortex_tpu_torch.storage import NodeFilter
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    live = cx.storage.list_nodes(NodeFilter())
+    stones = deleted_ids(cx)
+    now = time.time()
+    eligible, param_of, scores, r1_ms = r1_masks(cx, live, now, dev)
+    t0 = time.perf_counter()
+    got = cx.run_retention()
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = twin.run_retention()
+    twin_s = time.perf_counter() - t0
+    check(got == want, f"run_retention {got} on the card, {want} on the CPU")
+    after = deleted_ids(cx)
+    check(after == deleted_ids(twin), "the swept ids differ from the CPU's")
+    swept = after - stones
+    purged = {i for i in stones if cx.storage.get_node(i) is None}
+    check(purged == {i for i in stones if twin.storage.get_node(i) is None},
+          "the purged ids differ from the CPU's")
+    check(len(swept) == got[0] and len(purged) == got[1] > 0,
+          f"swept {len(swept)} / purged {len(purged)} against {got}")
+    check(not any(i in cx.index for i in swept), "a swept node is indexed")
+    by_id = {n.id: n for n in live}
+    for nid in sorted(swept)[:200]:
+        hits = cx.search(embedding_input(by_id[nid]), 10,
+                         record_access=False)
+        check(nid not in {n.id for _, n in hits},
+              "a swept node came back from search")
+    band = 0
+    grace = cx.config.retention.grace_days
+    for nid in eligible ^ swept:
+        ttl, min_score = param_of.get(nid, (0.0, None))
+        check(nid in by_id and in_retention_band(
+            by_id[nid], now, ttl, grace, min_score, scores[nid]),
+            f"R1 and the engine disagree on {nid} outside the band")
+        band += 1
+    return {"live_before": len(live), "swept": got[0], "purged": got[1],
+            "r1_eligible": len(eligible), "r1_engine_differ_in_band": band,
+            "sweep_s": sweep_s, "cpu_twin_sweep_s": twin_s,
+            "r1_device_ms": r1_ms}
+
+
+SVC_QUERIES = ["kind:fact", "kind:event,goal AND importance>0.5",
+               "agent:svc3", "agent:ret7 AND kind:observation",
+               "created_after:7d AND kind:pattern",
+               "(kind:decision OR kind:goal) AND importance<=0.4",
+               "NOT deleted:true AND limit:50"]
+
+
+def svc_prompts(cx):
+    """Prompt create, version, branch, select and rollback through
+    cx.prompts and cx.rollback_monitor."""
+    import random
+    from cortex_tpu_torch.prompt import (ContextSignals, PromptContent,
+                                         epsilon_greedy_pick, score_variant)
+    from cortex_tpu_torch.types import Node, Source
+    res = cx.prompts
+
+    def content(v, weights=None):
+        return PromptContent(slug="svc-helper", prompt_type="persona",
+                             sections={"v": v},
+                             context_weights=weights or {})
+
+    v1 = res.create_prompt(content(1))
+    v2 = res.create_version("svc-helper", "main", content(
+        2, {"user_pleased": 1.0}))
+    res.create_branch("svc-helper", "main", "terse", base_version=1)
+    heads = {b: res.find_head("svc-helper", b) for b in ("main", "terse")}
+    check(heads["main"].id == v2, "the version did not become the head")
+    signals = ContextSignals(sentiment=0.9)
+    scored = {b: score_variant(0.5, h.metadata.get("context_weights"),
+                               signals) for b, h in heads.items()}
+    pick = epsilon_greedy_pick(scored, epsilon=0.0, rng=random.Random(0))
+    check(pick == "main", f"selection picked {pick} from {scored}")
+    mon = cx.rollback_monitor
+    mon.record_deployment("svc-helper", "main", 2, v2, "svc0",
+                          [(0.1, 0.8), (0.12, 0.75), (0.11, 0.82)])
+    result = None
+    for i in range(5):
+        obs = Node.new("observation", f"Interaction observation {i}",
+                       "Observed interaction outcome details here",
+                       Source(agent="svc0"), 0.5)
+        cx.store(obs)
+        result = result or mon.process_observation(obs.id, v2, 0.12, 0.75,
+                                                   0.2)
+    check(result is not None and result.to_node_id == v1,
+          "the rollback did not return to version 1")
+    status = mon.get_status("svc-helper", "main")
+    check(status.rollback_count == 1, f"rollback status {status}")
+    return {"versions": len(res.list_versions("svc-helper", "main")),
+            "picked": pick, "rollback_trigger": result.trigger.kind}
+
+
+def svc_reindex(cx, live):
+    """reindex() with SVC_SEARCHES searches before and after it: the
+    same hits (same_hits); every holder of the index re-pointed and the
+    old index released. Every live node is indexed before (nodes put
+    into storage directly, as the prompt subsystem's are, are indexed
+    only by a reindex), so the hits cannot change."""
+    from cortex_tpu_torch.errors import IndexError_
+    from cortex_tpu_torch.vector.embedding import embedding_input
+    check(all(n.id in cx.index for n in live),
+          "a live node is missing from the index before reindex")
+    texts = [embedding_input(n) for n in live[::max(1, len(live)
+                                                    // SVC_SEARCHES)]]
+    texts = texts[:SVC_SEARCHES]
+
+    def hits():
+        return [cx.search(t, K, decay=False, record_access=False)
+                for t in texts]
+
+    before, old = hits(), cx.index
+    t0 = time.perf_counter()
+    n = cx.reindex()
+    reindex_s = time.perf_counter() - t0
+    for b, a in zip(before, hits()):
+        same_hits(b, a)
+    check(cx.hybrid.index is cx.briefing_engine.index is cx.linker.index
+          is cx.index is not old, "reindex left a holder on the old index")
+    try:
+        old.search(np.ones(cx.embedder.dimension, np.float32), 1)
+        released = False
+    except IndexError_:
+        released = True
+    check(released, "the old index still searches after reindex")
+    return {"reindexed": n, "reindex_s": reindex_s,
+            "searches_equal": len(texts)}
+
+
+def phase_services_store(dev, workdir, card):
+    """Phase 12 on phase 8's SQLite store (CortexConfig() with svc_config's
+    [retention]): the briefing world and the retention world added,
+    closed and byte-copied; then the card's Cortex and a CPU twin
+    (device "cpu") on the copy: briefings, retention (and R1), queries
+    and stats held equal; prompts and reindex on the card."""
+    import shutil
+    from cortex_tpu_torch import Cortex
+    from cortex_tpu_torch.storage import NodeFilter
+    t_phase = time.monotonic()
+    path = os.path.join(workdir, "cortex_flat.db")
+    cfg = svc_config()
+    cx = Cortex.open(path, cfg, device=dev)
+    now = time.time()
+    agents, world = svc_briefing_world(cx, seed=31)
+    svc_retention_world(cx, world, seed=32, now=now)
+    cx.close()
+    twin_path = os.path.join(workdir, "cortex_twin.db")
+    shutil.copyfile(path, twin_path)
+    cx = Cortex.open(path, cfg, device=dev)
+    twin = Cortex.open(twin_path, svc_config(), device="cpu")
+    agents = agents + [f"agent{i}" for i in range(4)]     # phase 6's
+    out = {"briefings": svc_briefings(cx, twin, agents)}
+    out["retention"] = svc_retention(cx, twin, dev)
+    for q in SVC_QUERIES:
+        check([n.id for n in cx.query(q)] == [n.id for n in twin.query(q)],
+              f"query {q!r} differs from the CPU's")
+    got, want = cx.stats(), twin.stats()
+    for f in ("node_count", "edge_count", "deleted_node_count",
+              "nodes_by_kind", "edges_by_relation"):
+        check(getattr(got, f) == getattr(want, f), f"stats {f} differ")
+    out["queries"] = len(SVC_QUERIES)
+    out["stats"] = {"nodes": got.node_count, "edges": got.edge_count}
+    twin.close()
+    out["reindex"] = svc_reindex(cx, cx.storage.list_nodes(NodeFilter()))
+    out["prompts"] = svc_prompts(cx)
+    cx.close()
+    say("12-services", phase_s=time.monotonic() - t_phase, card=card, **out)
+
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4219,23 +5098,30 @@ def main(argv) -> int:
     say("2-kernel-knn-wide-lists", **knn_lists["l8192"], card=card)
     dc = DecayCheck()
     perf = {"decay_sweep": check_decay(dc, dev, gen, card)}
+    rc = RetentionCheck()
+    perf["retention_eligibility"] = check_retention(rc, dev, gen, card)
     ec = EncoderKernelCheck()
     perf.update(check_encoder_kernels(ec, dev, gen, card))
     perf.update(check_graph_big(gc, dev, gen, card))
     torch.cuda.empty_cache()
 
-    # five main paths, each read just after it: IVF (3-4, from the build:
+    # six main paths, each read just after it: IVF (3-4, from the build:
     # its kNN graph runs N1, the tuner K1), flat (5-6), graph (7-8),
-    # linker (9-10) and encoder (11); 9 runs between 7 and 6 because it
-    # needs phase 5's index and phase 7's storage
+    # linker (9-10), encoder (11) and services (12, in three parts: the
+    # IVF gate after phase 4, the store's services after phase 10, the
+    # flat gate after phase 11); 9 runs between 7 and 6 because it needs
+    # phase 5's index and phase 7's storage
     ivf = ("probed_scores", "block_knn", "quant_candidates")
     flat, graph = ("quant_candidates", "quant_rerank"), (
         "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
     linker = ("quant_candidates", "quant_rerank", "decay_sweep")
     encoder = ("add_layer_norm", "masked_attention", "quant_candidates",
                "quant_rerank", "probed_scores")
+    services = ("probed_scores", "quant_candidates", "quant_rerank",
+                "add_layer_norm", "masked_attention",
+                "retention_eligibility")
     launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {},
-                "encoder": {}}
+                "encoder": {}, "services": {}}
 
     def take(path, names):
         counts = launch_counts()
@@ -4255,8 +5141,13 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         phase_cortex(dev, workdir)
-    phase_cortex_defaults(dev)
+    defaults = phase_cortex_defaults(dev)
     take("ivf", ivf)
+    reset_launches(services)                  # the services path (12)
+    phase_gate_ivf(defaults, card)
+    take("services", services)
+    defaults.close()
+    del defaults
 
     index, flat_perf = phase_flat_build(dev, rows, fc)
     perf.update(flat_perf)
@@ -4287,11 +5178,17 @@ def main(argv) -> int:
         phase_decay_store(dev, workdir, card)
         phase_cortex_linker(dev, workdir, card)
         take("linker", linker)
+        reset_launches(services)
+        phase_services_store(dev, workdir, card)
+        take("services", services)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         reset_launches(encoder)
         phase_encoder(dev, workdir, card)
         take("encoder", encoder)
+        reset_launches(services)
+        phase_gate_flat(dev, workdir, card)
+        take("services", services)
     for path, counts in launches.items():
         for name, n in counts.items():
             check(n > 0, f"the {path} main path never launched {name}")
@@ -4299,7 +5196,8 @@ def main(argv) -> int:
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
             "quant_rerank": fc.k2_err, "decay_sweep": dc.max_abs_err,
             "add_layer_norm": ec.e1_err, "masked_attention": ec.e2_err,
-            "block_knn": knc.max_abs_err, **gc.max_abs_err}
+            "block_knn": knc.max_abs_err,
+            "retention_eligibility": rc.max_abs_err, **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
                    "quant_candidates": (f"b{BATCH}_cand{FLAT_CANDS[0]}",
                                         f"b1_cand{FLAT_CANDS[0]}"),
@@ -4310,7 +5208,8 @@ def main(argv) -> int:
                    "decay_sweep": ("e10M", None),
                    "add_layer_norm": ("b64_s128", "b1_s32"),
                    "masked_attention": ("b64_s128", "b1_s32"),
-                   "block_knn": (f"c{KNN_CHUNK}_r{GRAPH_DEGREE}", None)}
+                   "block_knn": (f"c{KNN_CHUNK}_r{GRAPH_DEGREE}", None),
+                   "retention_eligibility": ("n10M", None)}
     say("2-bounds", card=card, **{
         name: {shape: {k: t[k] for k in (
             "ms", "bound_ms", "bound_by", "share_of_bound", "tc_bound_ms",

@@ -15,13 +15,31 @@ the IVF index (`index = "ivf"`), with the probed-block scan as one
 (csrc/ivf_gather.cu); edges, the graph engine and hybrid search, whose
 proximity leg walks the device graph mirror with two more
 (csrc/graph_bfs.cu: the frontier walk and the min-plus relaxation); the
-auto-linker with edge decay (csrc/decay_sweep.cu); and the text encoder
+auto-linker with edge decay (csrc/decay_sweep.cu); the text encoder
 (models/: the BERT tower of BGE-small-en-v1.5, its WordPiece tokenizer
 and the npz of converted weights), whose residual + LayerNorm and masked
-attention are two more (csrc/encoder_rows.cu, csrc/encoder_attn.cu).
+attention are two more (csrc/encoder_rows.cu, csrc/encoder_attn.cu);
+and the host services, copies of the reference's modules: the write
+gate (`gate/`, its conflict check a search of the index on the device),
+briefings (`briefing/`), retention and the audit log (`policies/`), the
+prompt subsystem (`prompt/`), the query DSL (`query/`) and the `kinds`
+and `relations` names, with retention eligibility over packed node
+arrays as one more kernel (csrc/retention_eligibility.cu).
 """
 
-__all__ = ["Cortex"]
+from . import kinds, relations
+from .errors import (CortexError, DuplicateEdge, EdgeNotFound, GateRejection,
+                     InvalidEdge, NodeNotFound, QueryParseError,
+                     ValidationError)
+from .types import Edge, EdgeProvenance, Node, Source
+
+__all__ = [
+    "kinds", "relations",
+    "Node", "Edge", "EdgeProvenance", "Source",
+    "CortexError", "ValidationError", "NodeNotFound", "EdgeNotFound",
+    "DuplicateEdge", "InvalidEdge", "GateRejection", "QueryParseError",
+    "Cortex",
+]
 
 
 def __getattr__(name):

@@ -1,20 +1,26 @@
 """Embedded Cortex of the port: store -> search over the flat index
 (the default) or the IVF index, edges, the graph engine and hybrid
-search, and the auto-linker with edge decay; text is embedded by the
-configured model, the device text encoder for a model with weights on
-disk (`vector/embedding.py::default_embedder`).
+search, the auto-linker with edge decay, and the write gate, briefings,
+retention, the prompt subsystem and the query DSL; text is embedded by
+the configured model, the device text encoder for a model with weights
+on disk (`vector/embedding.py::default_embedder`).
 
 Counterpart of cortex_tpu/api.py::Cortex, limited to the slices this
-package ports: open / in_memory, store / store_batch / bulk_import /
-update_node / delete_node, get_node / list_nodes, search with the
+package ports: open / in_memory, store (gate= runs the four-check write
+gate under the admission lock, skip_quality= its bypass) / store_batch
+(both run the classifier hooks) / bulk_import / update_node /
+delete_node, get_node / list_nodes / query (the DSL), search with the
 score-decay re-rank and access recording, create_edge / delete_edge,
 search_hybrid (vector similarity x graph proximity), traverse /
-neighborhood / find_paths, run_linker_cycle, and close. Storage (SQLite
-or memory), node types, hooks, the graph engine and the auto-linker
-are the port's copies of the reference's modules; the text encoder
-(models/encoder.py) runs its forward, the device graph mirror
-(graph/csr.py) its hop depths, and the linker's decay engine its sweep
-(D1), on `device`.
+neighborhood / find_paths, briefing / briefing_full, stats,
+run_linker_cycle, run_retention, reindex, the typed constructors (fact,
+decision, ...) and close. Storage (SQLite or memory), node types, hooks,
+the graph engine, the auto-linker, the gate, the briefing engine, the
+retention engine and audit log, the prompt resolver and rollback monitor
+and the query DSL are the port's copies of the reference's modules; the
+text encoder (models/encoder.py) runs its forward, the device graph
+mirror (graph/csr.py) its hop depths, the linker's decay engine its
+sweep (D1), and the gate's conflict check its search, on `device`.
 
 At open the index is rebuilt from the stored embeddings (index
 snapshots are not ported). The device is an argument: "cuda" (the
@@ -30,14 +36,19 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .config import GATE_ITEM, CortexConfig, check_ported
-from .errors import ConfigError
+from .briefing import Briefing, BriefingEngine, GraphVersion
+from .config import CortexConfig, check_ported
+from .errors import GateRejection as GateRejectionError
+from .gate import SchemaValidator, WriteGate
 from .graph import (BOTH, DeviceGraphMirror, GraphEngine, PathRequest,
                     Subgraph, TraversalRequest)
 from .hooks import HookRegistry, MutationHook
 from .linker import AutoLinker
+from .policies import AuditLog, RetentionEngine
+from .prompt import PromptResolver, RollbackMonitor
+from .query import parse_and_compile
 from .storage import MemoryStorage, NodeFilter, SqliteStorage, Storage
-from .types import Edge, Node
+from .types import Edge, Node, Source
 from .utils.device import resolve_device
 from .vector.embedding import default_embedder
 from .vector.hybrid import HybridQuery, HybridResult, HybridSearch
@@ -66,15 +77,32 @@ class Cortex:
         self._rebuild_index()
         self.graph = GraphEngine(storage)
         self.mirror = DeviceGraphMirror(self.graph.cache, device=self.device)
+        self.graph_version = GraphVersion()
         self.hooks = HookRegistry()
         self.hybrid = HybridSearch(storage, self.embedder, self.index,
                                    self.mirror)
+        self.briefing_engine = BriefingEngine(
+            storage, self.graph, self.index, self.embedder, self.hybrid,
+            self.graph_version, self.config.briefing)
         self.linker = AutoLinker(
             storage, self.index, self.embedder, self.config.auto_linker,
             persist_lock=self._persist_lock,
             on_index_pair_failure=self._index_pair_failed)
         # the decay sweep (D1) runs on this engine's device
         self.linker.decay_engine.device = self.device
+        self.retention = RetentionEngine(self.config.retention,
+                                         self.config.score_decay)
+        self.audit = AuditLog(storage)
+        self.schema_validator = SchemaValidator(self.config.schemas)
+        self.prompts = PromptResolver(storage)
+        self.rollback_monitor = RollbackMonitor(storage,
+                                                self.config.prompt_rollback)
+        # classifier plugins: callables node -> Optional[str]
+        self.classifiers: List = []
+        # serializes gate check + store across callers, so that two
+        # concurrent near-duplicates cannot both pass the conflict check
+        # before either is stored
+        self.admission_lock = threading.Lock()
 
     # ------------------------------------------------------------------ boot
     @staticmethod
@@ -125,19 +153,45 @@ class Cortex:
         self.storage.close()
 
     # ------------------------------------------------------------ mutation
+    def _apply_classifiers(self, node: Node) -> None:
+        """Classifier plugins enrich metadata; their faults never block
+        a write (the reference's contract)."""
+        for clf in self.classifiers:
+            try:
+                label = clf(node)
+                if label:
+                    node.metadata.setdefault("classification", label)
+            except Exception:  # noqa: BLE001
+                pass
+
     def _on_write(self) -> None:
         self.graph.invalidate()
+        self.graph_version.bump()
 
     def store(self, node: Node, *, gate: bool = False,
-              actor: str = "library") -> str:
-        """Embed + persist + index + fire hooks."""
-        if gate:
-            raise ConfigError(
-                f"store(gate=True): the write gate is not ported yet "
-                f"({GATE_ITEM})")
+              skip_quality: bool = False, actor: str = "library") -> str:
+        """Embed + persist + index + fire hooks. With gate=True the
+        four-check write gate runs first (skip_quality: only the schema
+        check) and raises GateRejection on failure."""
+        self._apply_classifiers(node)
         if node.embedding is None:
             node.embedding = self.embedder.embed_node(node).tolist()
-        is_update = self._persist(node, actor)
+        if gate:
+            # gate + persist under the admission lock; hooks fire after
+            # its release, so a hook's own gated store cannot deadlock
+            with self.admission_lock:
+                rej = WriteGate.check_all(
+                    node, np.asarray(node.embedding, np.float32),
+                    self.index, self.storage, self.config.write_gate,
+                    self.schema_validator, skip_quality=skip_quality)
+                if rej is not None:
+                    raise GateRejectionError(
+                        rej.check, rej.reason, rej.suggestion,
+                        existing_node=rej.existing_node,
+                        existing_title=rej.existing_title)
+                is_update = self._persist(node, actor)
+        else:
+            is_update = self._persist(node, actor)
         self.hooks.notify_node("updated" if is_update else "created", node)
         return node.id
 
@@ -154,7 +208,7 @@ class Cortex:
             "reopen to rebuild the index from storage")
 
     def _persist(self, node: Node, actor: str) -> bool:
-        """Store + index (no hooks). Returns is_update."""
+        """Store + index + version bump (no hooks). Returns is_update."""
         with self._persist_lock:
             is_update = self.storage.get_node(node.id) is not None
             self.storage.put_node(node, actor=actor)
@@ -166,13 +220,17 @@ class Cortex:
             except BaseException:
                 self._index_pair_failed()
                 raise
+        self._on_write()
         return is_update
 
     def store_batch(self, nodes: Sequence[Node], *,
                     actor: str = "library") -> List[str]:
-        """Batch admission: one embed_batch + one index insert."""
+        """Batch admission: classifiers, one embed_batch + one index
+        insert."""
         if not nodes:
             return []
+        for n in nodes:
+            self._apply_classifiers(n)
         missing = [n for n in nodes if n.embedding is None]
         if missing:
             embs = self.embedder.embed_nodes(missing)
@@ -190,6 +248,7 @@ class Cortex:
             except BaseException:
                 self._index_pair_failed()
                 raise
+        self._on_write()
         for n in nodes:
             self.hooks.notify_node("created", n)
         return [n.id for n in nodes]
@@ -199,7 +258,8 @@ class Cortex:
                     actor: str = "bulk-import",
                     batch: int = 100_000,
                     advance_linker_cursor: bool = True) -> dict:
-        """Bulk-load path: bypasses hooks; embeds missing vectors in
+        """Bulk-load path: bypasses the write gate, classifiers and
+        hooks; embeds missing vectors in
         large batches; persists through the storage bulk path
         (additive: existing ids are left untouched, in storage and in
         the index); uploads embeddings via index.insert_batch; loads
@@ -310,6 +370,10 @@ class Cortex:
     def list_nodes(self, f: Optional[NodeFilter] = None) -> List[Node]:
         return self.storage.list_nodes(f)
 
+    def query(self, dsl: str) -> List[Node]:
+        """Query-DSL filtered listing."""
+        return self.storage.list_nodes(parse_and_compile(dsl))
+
     def overfetch_k(self, limit: int, decay: bool = True) -> int:
         """Candidate count for the device search before the decay
         re-rank: (limit*3).max(30) when decay is on."""
@@ -393,8 +457,106 @@ class Cortex:
     def find_paths(self, req: PathRequest):
         return self.graph.find_paths(req)
 
+    def briefing(self, agent_id: str, *, compact: bool = False) -> str:
+        b = self.briefing_engine.generate(agent_id)
+        return self.briefing_engine.render(b, compact=compact)
+
+    def briefing_full(self, agent_id: str) -> Briefing:
+        return self.briefing_engine.generate(agent_id)
+
+    def stats(self):
+        return self.storage.stats()
+
     # ------------------------------------------------------------ background
     def run_linker_cycle(self):
         m = self.linker.run_cycle()
         self._on_write()
         return m
+
+    def run_retention(self) -> Tuple[int, int]:
+        """The retention engine's sweep and purge; each deletion pairs
+        the store write with the index removal under the persist lock,
+        so a swept node leaves the live index (and the gate's conflict
+        check) at once."""
+        def soft(nid: str) -> bool:
+            with self._persist_lock:
+                ok = self.storage.delete_node(nid, actor="retention")
+                if ok:
+                    self.index.remove(nid)
+            return ok
+
+        def hard(nid: str) -> bool:
+            with self._persist_lock:
+                ok = self.storage.hard_delete_node(nid, actor="retention")
+                if ok:
+                    self.index.remove(nid)
+            return ok
+
+        swept = self.retention.sweep(self.storage, deleter=soft)
+        purged = self.retention.purge_expired(self.storage, deleter=hard)
+        if swept or purged:
+            self._on_write()
+        return swept, purged
+
+    def reindex(self) -> int:
+        """Re-embed every live node into a new index (after a model
+        change), under the admission lock so that no write lands between
+        the node snapshot and the swap. Every holder of the index is
+        re-pointed, then the old index is closed: its device memory
+        returns to the allocator and an IVF index's background graph
+        build is discarded and joined."""
+        with self.admission_lock:
+            nodes = self.storage.list_nodes(NodeFilter())
+            if not nodes:
+                return 0
+            embs = self.embedder.embed_nodes(nodes)
+            for j, n in enumerate(nodes):
+                n.embedding = embs[j].tolist()
+            with self._persist_lock:
+                self.storage.put_nodes_batch(nodes)
+                old, self.index = self.index, self._make_index()
+                self._rebuild_index()
+            self.hybrid.index = self.index
+            self.briefing_engine.index = self.index
+            self.linker.index = self.index
+            old.close()
+            self._on_write()
+            return len(nodes)
+
+    # --------------------------------------------- convenience constructors
+    @staticmethod
+    def _make(kind: str, title: str, body: str, importance: float) -> Node:
+        return Node.new(kind, title, body, Source(agent="library"),
+                        importance)
+
+    @staticmethod
+    def fact(title: str, importance: float = 0.5) -> Node:
+        return Cortex._make("fact", title, title, importance)
+
+    @staticmethod
+    def decision(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("decision", title, body, importance)
+
+    @staticmethod
+    def event(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("event", title, body, importance)
+
+    @staticmethod
+    def goal(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("goal", title, body, importance)
+
+    @staticmethod
+    def observation(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("observation", title, body, importance)
+
+    @staticmethod
+    def pattern(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("pattern", title, body, importance)
+
+    @staticmethod
+    def preference(title: str, body: str, importance: float = 0.5) -> Node:
+        return Cortex._make("preference", title, body, importance)
+
+    @staticmethod
+    def agent(title: str, body: str, importance: float = 0.8) -> Node:
+        return Cortex._make("agent", title, body, importance)

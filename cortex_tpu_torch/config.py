@@ -1,16 +1,26 @@
-"""Configuration of the port: the subset of cortex_tpu/config.py that the
-ported slices read, parsed from the same TOML keys with the same
-defaults.
+"""Configuration of the port: cortex_tpu/config.py's CortexConfig,
+parsed from the same TOML keys with the same defaults and checked by the
+same `validate`.
 
-  [server]                 sqlite_synchronous
+  [server]                 ServerConfig (data_dir, sqlite_synchronous, ...)
+  [schema]                 extra kinds and relations
   [embedding]              every key of the reference EmbeddingConfig
   [auto_linker]            AutoLinkerConfig, with [auto_linker.similarity],
                            [auto_linker.decay] and [[auto_linker.rules]]
+  [briefing]               BriefingConfig
+  [ingest.*], [observability], [security], [[webhooks]], [[plugins]]
+  [retention]              RetentionConfig
+  [prompt_rollback]        RollbackConfig
   [score_decay]            ScoreDecayConfig
+  [write_gate]             WriteGateConfig, with [write_gate.overrides.*]
+  [schemas.*]              KindSchema per kind
 
-The defaults are the reference's, so a default config opens the flat
-index (device_dtype and search_path take effect there); index = "ivf"
-takes every IVF key, the kNN-graph refinement (ivf_graph_degree, 32 by
+The server, ingest, observability, security, webhook and plugin
+sections are parsed for parity; the port has no server yet (ROADMAP
+queue A, 'HTTP/gRPC/MCP/CLI surfaces'), so nothing reads them. The
+defaults are the reference's, so a default config opens the flat index
+(device_dtype and search_path take effect there); index = "ivf" takes
+every IVF key, the kNN-graph refinement (ivf_graph_degree, 32 by
 default) and the nprobe tuner (ivf_target_recall) included.
 `check_ported` raises ConfigError for every setting whose code path is
 not ported yet and names the ROADMAP item that will port it (the
@@ -21,28 +31,47 @@ search.
 
 from __future__ import annotations
 
+import os
 import tomllib
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
+from .briefing.engine import BriefingConfig
 from .errors import ConfigError
+from .gate import KindOverrideConfig, WriteGateConfig
+from .gate.schema import KindSchema
 from .linker.config import AutoLinkerConfig, ConfigRule, DecayConfig
+from .policies.retention import RetentionConfig
+from .prompt.rollback import RollbackConfig
 from .vector.config import SimilarityConfig
 from .vector.scoring import ScoreDecayConfig
 
-#: ROADMAP items that port what this slice refuses
+#: the ROADMAP item that ports what this slice refuses
 MESH_ITEM = "ROADMAP queue A, 'Multi-GPU'"
-GATE_ITEM = "ROADMAP queue A, 'Write gate'"
 #: the widest rows the card's int8 scans take: K1 (csrc/flat_scan_op.cpp)
 #: and the IVF scan (csrc/ivf_gather_op.cpp) keep a chunk's queries in
 #: shared memory
 KERNEL_MAX_DIM = 4096
+ENV_AUTH_TOKEN = "CORTEX_AUTH_TOKEN"
 
 
 @dataclass
 class ServerConfig:
+    grpc_addr: str = "0.0.0.0:9090"
+    http_addr: str = "0.0.0.0:9091"
+    data_dir: str = "./data"
+    nats_url: Optional[str] = None
+    warmup: bool = True
+    search_batching: bool = True
+    compilation_cache_dir: str = ".jax-cache"
     # SQLite durability: "normal" (WAL) or "full" (fsync per commit)
     sqlite_synchronous: str = "normal"
+
+
+@dataclass
+class SchemaConfig:
+    kinds: List[str] = field(default_factory=list)       # extra allowed kinds
+    relations: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -70,23 +99,102 @@ class EmbeddingConfig:
 
 
 @dataclass
+class IngestFileConfig:
+    enabled: bool = False
+    watch_dir: str = "./ingest"
+    interval_secs: float = 10.0
+
+
+@dataclass
+class IngestConfig:
+    file: IngestFileConfig = field(default_factory=IngestFileConfig)
+    stdin_enabled: bool = False
+    webhook_enabled: bool = False
+
+
+@dataclass
+class ObservabilityConfig:
+    prometheus_enabled: bool = True
+    sse_enabled: bool = True
+    sse_buffer: int = 1024
+    metrics_auth_exempt: bool = True
+
+
+@dataclass
+class SecurityConfig:
+    auth_token: Optional[str] = None
+    encryption_at_rest: bool = False
+
+
+@dataclass
+class WebhookConfig:
+    url: str = ""
+    events: List[str] = field(default_factory=list)
+
+
+@dataclass
+class PluginConfig:
+    path: str = ""
+    type: str = ""   # ingest|linker_rule|briefing_section|export_format|classifier
+
+
+@dataclass
 class CortexConfig:
     server: ServerConfig = field(default_factory=ServerConfig)
+    schema: SchemaConfig = field(default_factory=SchemaConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     auto_linker: AutoLinkerConfig = field(default_factory=AutoLinkerConfig)
+    briefing: BriefingConfig = field(default_factory=BriefingConfig)
+    ingest: IngestConfig = field(default_factory=IngestConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig)
+    retention: RetentionConfig = field(default_factory=RetentionConfig)
+    security: SecurityConfig = field(default_factory=SecurityConfig)
+    webhooks: List[WebhookConfig] = field(default_factory=list)
+    plugins: List[PluginConfig] = field(default_factory=list)
+    prompt_rollback: RollbackConfig = field(default_factory=RollbackConfig)
     score_decay: ScoreDecayConfig = field(default_factory=ScoreDecayConfig)
+    write_gate: WriteGateConfig = field(default_factory=WriteGateConfig)
+    schemas: Dict[str, KindSchema] = field(default_factory=dict)
 
     @staticmethod
     def load(path: str) -> "CortexConfig":
+        """Parse a TOML file. A relative data_dir is relative to the
+        file, as in the reference."""
         with open(path, "rb") as f:
-            return CortexConfig.from_dict(tomllib.load(f))
+            cfg = CortexConfig.from_dict(tomllib.load(f))
+        if not os.path.isabs(cfg.server.data_dir):
+            cfg.server.data_dir = os.path.normpath(os.path.join(
+                os.path.dirname(os.path.abspath(path)),
+                cfg.server.data_dir))
+        return cfg
+
+    @staticmethod
+    def load_or_default(path: Optional[str]) -> "CortexConfig":
+        if path and os.path.exists(path):
+            cfg = CortexConfig.load(path)
+        else:
+            cfg = CortexConfig()
+        cfg.apply_env_overrides()
+        return cfg
 
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "CortexConfig":
         cfg = CortexConfig()
         s = raw.get("server", {})
         cfg.server = ServerConfig(
+            grpc_addr=s.get("grpc_addr", "0.0.0.0:9090"),
+            http_addr=s.get("http_addr", "0.0.0.0:9091"),
+            data_dir=s.get("data_dir", "./data"),
+            nats_url=s.get("nats_url"),
+            warmup=bool(s.get("warmup", True)),
+            search_batching=bool(s.get("search_batching", True)),
+            compilation_cache_dir=s.get("compilation_cache_dir",
+                                        ".jax-cache"),
             sqlite_synchronous=s.get("sqlite_synchronous", "normal"))
+        sc = raw.get("schema", {})
+        cfg.schema = SchemaConfig(kinds=list(sc.get("kinds", [])),
+                                  relations=list(sc.get("relations", [])))
         e = raw.get("embedding", {})
         cfg.embedding = EmbeddingConfig(
             model=e.get("model", "BAAI/bge-small-en-v1.5"),
@@ -136,6 +244,71 @@ class CortexConfig:
             exempt_manual=bool(dc.get("exempt_manual", True)))
         linker.rules = [ConfigRule.from_dict(r) for r in al.get("rules", [])]
         cfg.auto_linker = linker
+
+        b = raw.get("briefing", {})
+        cfg.briefing = BriefingConfig(
+            max_items_per_section=int(b.get("max_items_per_section", 10)),
+            max_total_items=int(b.get("max_total_items", 50)),
+            max_chars=int(b.get("max_chars", 8000)),
+            recent_window_secs=float(b.get("recent_window_hours", 48)) * 3600,
+            cache_ttl_secs=float(b.get("cache_ttl_secs", 300)),
+            include_contradictions=bool(
+                b.get("include_contradictions", True)),
+            min_importance=float(b.get("min_importance", 0.3)),
+            exclude_kinds=list(b.get("exclude_kinds", [])))
+
+        ing = raw.get("ingest", {})
+        fi = ing.get("file", {})
+        cfg.ingest = IngestConfig(
+            file=IngestFileConfig(
+                enabled=bool(fi.get("enabled", False)),
+                watch_dir=fi.get("watch_dir", "./ingest"),
+                interval_secs=float(fi.get("interval_secs", 10))),
+            stdin_enabled=bool(ing.get("stdin", {}).get("enabled", False)),
+            webhook_enabled=bool(
+                ing.get("webhook", {}).get("enabled", False)))
+
+        ob = raw.get("observability", {})
+        cfg.observability = ObservabilityConfig(
+            prometheus_enabled=bool(ob.get("prometheus_enabled", True)),
+            sse_enabled=bool(ob.get("sse_enabled", True)),
+            sse_buffer=int(ob.get("sse_buffer", 1024)),
+            metrics_auth_exempt=bool(ob.get("metrics_auth_exempt", True)))
+
+        cfg.retention = RetentionConfig.from_dict(raw.get("retention", {}))
+
+        sec = raw.get("security", {})
+        cfg.security = SecurityConfig(
+            auth_token=sec.get("auth_token"),
+            encryption_at_rest=bool(sec.get("encryption_at_rest", False)))
+
+        cfg.webhooks = [WebhookConfig(url=w.get("url", ""),
+                                      events=list(w.get("events", [])))
+                        for w in raw.get("webhooks", [])]
+        cfg.plugins = [PluginConfig(path=p.get("path", ""),
+                                    type=p.get("type", ""))
+                       for p in raw.get("plugins", [])]
+
+        pr = raw.get("prompt_rollback", {})
+        cfg.prompt_rollback = RollbackConfig(
+            enabled=bool(pr.get("enabled", True)),
+            monitoring_window=int(pr.get("monitoring_window", 20)),
+            min_samples_before_check=int(
+                pr.get("min_samples_before_check", 5)),
+            correction_rate_warning=float(
+                pr.get("correction_rate_warning", 2.0)),
+            correction_rate_rollback=float(
+                pr.get("correction_rate_rollback", 3.0)),
+            absolute_correction_increase=float(
+                pr.get("absolute_correction_increase", 0.25)),
+            sentiment_warning=float(pr.get("sentiment_warning", 1.5)),
+            sentiment_rollback=float(pr.get("sentiment_rollback", 2.0)),
+            consecutive_negative_limit=int(
+                pr.get("consecutive_negative_limit", 3)),
+            cooldown_base_hours=int(pr.get("cooldown_base_hours", 1)),
+            max_rollbacks_before_quarantine=int(
+                pr.get("max_rollbacks_before_quarantine", 3)))
+
         sd = raw.get("score_decay", {})
         decay = ScoreDecayConfig(
             enabled=bool(sd.get("enabled", True)),
@@ -148,11 +321,35 @@ class CortexConfig:
         if "by_kind" in sd:
             decay.by_kind = {k: float(v) for k, v in sd["by_kind"].items()}
         cfg.score_decay = decay
+
+        wg = raw.get("write_gate", {})
+        gate = WriteGateConfig(
+            enabled=bool(wg.get("enabled", True)),
+            conflict_threshold=float(wg.get("conflict_threshold", 0.85)),
+            duplicate_threshold=float(wg.get("duplicate_threshold", 0.92)),
+            min_title_length=int(wg.get("min_title_length", 10)),
+            min_body_length=int(wg.get("min_body_length", 20)),
+            require_tags_above_importance=float(
+                wg.get("require_tags_above_importance", 0.7)),
+            require_body_length_for_importance=bool(
+                wg.get("require_body_length_for_importance", True)))
+        for kind, ov in wg.get("overrides", {}).items():
+            gate.overrides[kind] = KindOverrideConfig(
+                min_body_length=ov.get("min_body_length"),
+                conflict_threshold=ov.get("conflict_threshold"))
+        cfg.write_gate = gate
+
+        cfg.schemas = {k: KindSchema.from_dict(v)
+                       for k, v in raw.get("schemas", {}).items()}
         return cfg
 
+    def apply_env_overrides(self) -> None:
+        tok = os.environ.get(ENV_AUTH_TOKEN)
+        if tok:
+            self.security.auth_token = tok
+
     def validate(self) -> None:
-        """The reference's [auto_linker] and [embedding] checks
-        (config.py:384-408)."""
+        """The reference's checks (cortex_tpu/config.py::validate)."""
         try:
             self.auto_linker.validate()
         except Exception as e:  # noqa: BLE001
@@ -177,6 +374,11 @@ class CortexConfig:
         if r < 1 or (r & (r - 1)) != 0:
             raise ConfigError(
                 "[embedding] mesh_replicas must be a power of two >= 1")
+        if self.briefing.max_total_items <= 0:
+            raise ConfigError("[briefing] max_total_items must be positive")
+        for w in self.webhooks:
+            if not w.url:
+                raise ConfigError("[[webhooks]] entries require a url")
 
 
 def check_ported(cfg: CortexConfig) -> None:

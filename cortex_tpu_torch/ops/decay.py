@@ -22,15 +22,28 @@ Counterpart of cortex_tpu/ops/decay.py:
     host pass. A CPU device crosses no link. A failing probe raises:
     a broken device is never hidden behind the host path.
 
-The reference's `retention_eligibility` has no caller in its package
-and waits for the retention engine (ROADMAP queue A, 'Write gate and
-host services').
+Retention eligibility, `expired & idle & unimportant & ~protected` over
+packed node arrays (reference line 121):
+
+  * `retention_eligibility` (R1) replaces the XLA program of that name:
+    csrc/retention_eligibility.cu on the card,
+    `retention_eligibility_plain` on the CPU, dispatched as D1 is. Its
+    inputs are converted to float32 and bool, as JAX does with x64 off;
+    each of the five parameters is one value or one a node.
+  * XLA divides by the constant 86400 by multiplying by its float32
+    reciprocal, so both versions multiply too: they equal the reference's
+    jitted program bit for bit, where the true quotient would differ in
+    the last bit on some rows.
+  * In float32, epoch seconds near 1.76e9 are 128 s apart, so near a TTL
+    or grace boundary the mask can differ from the retention engine's
+    float64 decisions (policies/retention.py, which the reference does
+    not vectorize); that is the reference op's own precision.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -169,3 +182,89 @@ def use_device_sweep(n_edges: int, device) -> bool:
     if device.type == "cpu":
         return True
     return device_transfer_bandwidth(device) >= MIN_LINK_BYTES_PER_S
+
+
+# ---------------------------------------------------------- retention
+
+Param = Union[torch.Tensor, float, bool, np.ndarray]
+
+#: float32(1 / 86400): XLA's spelling of the reference's `/ 86400.0`
+_INV_DAY = np.float32(1.0) / np.float32(86400.0)
+
+
+def _retention_args(created_at, last_accessed_at, score, has_inbound, now,
+                    ttl_days, grace_days, min_score, protect_inbound):
+    """The nine inputs as float32 / bool tensors on created_at's device:
+    the node arrays [N] (on that device already), each parameter 0-d or
+    [N] (moved there). Anything else raises ValueError."""
+    if not isinstance(created_at, torch.Tensor) or created_at.dim() != 1:
+        raise ValueError("retention_eligibility: created_at must be a "
+                         "1-d tensor")
+    dev, n = created_at.device, created_at.shape[0]
+
+    def conv(name, x, dtype, per_node_only):
+        if (per_node_only and isinstance(x, torch.Tensor)
+                and x.device != dev):
+            raise ValueError(f"retention_eligibility: {name} is on "
+                             f"{x.device}, created_at on {dev}")
+        t = torch.as_tensor(x, device=dev)
+        shape_ok = (t.dim() == 1 and t.shape[0] == n) or (
+            t.dim() == 0 and not per_node_only)
+        if not shape_ok:
+            want = f"[{n}]" if per_node_only else f"0-d or [{n}]"
+            raise ValueError(f"retention_eligibility: {name} must be "
+                             f"{want}, got {tuple(t.shape)}")
+        return t.to(dtype).contiguous()
+
+    f32, b = torch.float32, torch.bool
+    return (conv("created_at", created_at, f32, True),
+            conv("last_accessed_at", last_accessed_at, f32, True),
+            conv("score", score, f32, True),
+            conv("has_inbound", has_inbound, b, True),
+            conv("now", now, f32, False),
+            conv("ttl_days", ttl_days, f32, False),
+            conv("grace_days", grace_days, f32, False),
+            conv("min_score", min_score, f32, False),
+            conv("protect_inbound", protect_inbound, b, False))
+
+
+def retention_eligibility(created_at: torch.Tensor,
+                          last_accessed_at: Param, score: Param,
+                          has_inbound: Param, now: Param, ttl_days: Param,
+                          grace_days: Param, min_score: Param,
+                          protect_inbound: Param) -> torch.Tensor:
+    """R1: bool [N], True where a node may be swept. created_at,
+    last_accessed_at, score (the DECAYED score, as the engine's) and
+    has_inbound are [N]; now, ttl_days, grace_days, min_score (< 0: no
+    score floor) and protect_inbound are each one value or [N]."""
+    args = _retention_args(created_at, last_accessed_at, score, has_inbound,
+                           now, ttl_days, grace_days, min_score,
+                           protect_inbound)
+    dev = args[0].device
+    if dev.type == "cuda":
+        out = load_ops().retention_eligibility(*args)
+        retention_eligibility.launches += 1
+        return out
+    if dev.type == "cpu":
+        return retention_eligibility_plain(*args)
+    raise RuntimeError(
+        f"retention_eligibility has no kernel for device {dev}")
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it)
+retention_eligibility.launches = 0
+
+
+def retention_eligibility_plain(created_at, last_accessed_at, score,
+                                has_inbound, now, ttl_days, grace_days,
+                                min_score, protect_inbound):
+    """`retention_eligibility` in plain torch over converted inputs, one
+    float32 elementwise op at a time in the reference's order."""
+    inv_day = torch.tensor(_INV_DAY, device=created_at.device)
+    age_days = (now - created_at) * inv_day
+    idle_days = (now - last_accessed_at) * inv_day
+    expired = (ttl_days > 0) & (age_days > ttl_days)
+    idle = idle_days > grace_days
+    unimportant = (min_score < 0) | (score < min_score)
+    protected = protect_inbound & has_inbound
+    return expired & idle & unimportant & ~protected

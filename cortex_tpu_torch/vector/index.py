@@ -85,6 +85,10 @@ class VectorIndex:
         """Operational description of the serving index."""
         return {"kind": type(self).__name__, "size": len(self)}
 
+    def close(self) -> None:
+        """Release what the index holds on its device (Cortex.reindex
+        closes the index it replaces)."""
+
 
 class TorchFlatIndex(VectorIndex):
     """The flat index, selected with [embedding] index = "flat" (the
@@ -153,6 +157,9 @@ class TorchFlatIndex(VectorIndex):
             vectors, k, batch=batch, kinds=flt.kinds,
             agent=flt.source_agent, exclude_ids=flt.exclude_ids,
             refine=refine))
+
+    def close(self) -> None:
+        self._corpus.release()
 
     def __len__(self) -> int:
         return len(self._corpus)

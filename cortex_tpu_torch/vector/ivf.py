@@ -225,6 +225,8 @@ class IvfCorpus(DeviceCorpus):
         #: whose out-edges the swap masks
         self._graph_seq = 0
         self._graph_inflight = False
+        #: the background graph build's thread (release() joins it)
+        self._graph_thread: Optional[threading.Thread] = None
         self._graph_stale: set = set()
         #: the last graph build's timings (build_knn_graph's stats, plus
         #: wall_s and background)
@@ -844,8 +846,23 @@ class IvfCorpus(DeviceCorpus):
                 log.info("knn graph swapped in (background build, %d stale "
                          "rows masked)", len(self._graph_stale))
 
-        threading.Thread(target=run, daemon=True,
-                         name="ivf-graph-build").start()
+        self._graph_thread = threading.Thread(target=run, daemon=True,
+                                              name="ivf-graph-build")
+        self._graph_thread.start()
+
+    def release(self) -> None:
+        """DeviceCorpus.release, and the background graph build: its
+        table is discarded (seq bump) and its thread joined, so nothing
+        of this corpus outlives the call on the device or writes after
+        it."""
+        with self._lock:
+            self._graph_seq += 1
+            self._graph_inflight = False
+            self._ivf_dev = None
+            thread, self._graph_thread = self._graph_thread, None
+            super().release()
+        if thread is not None:
+            thread.join()
 
     def _grow_slots(self) -> bool:
         """Extend the slot axis to the next shape rung on the device when
@@ -964,6 +981,7 @@ class IvfCorpus(DeviceCorpus):
         """Push host diffs into the block layout; full rebuild (with
         retrain) when the structure is stale, absent, or drifted."""
         with self._lock:
+            self._check_live()
             if self._cap == 0:
                 return
             n_live = int(self._live_h.sum())

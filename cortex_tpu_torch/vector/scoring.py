@@ -70,3 +70,11 @@ def apply_score_decay_batch(cfg: ScoreDecayConfig, raw_scores: np.ndarray,
                       kind_rates=rates)
     raw = np.asarray(raw_scores, np.float64)
     return (raw * (1.0 - w) + raw * f * w).astype(np.float32)
+
+
+def apply_score_decay(node: Node, raw_score: float, cfg: ScoreDecayConfig,
+                      recency_bias: float | None = None,
+                      *, now: float) -> float:
+    return float(apply_score_decay_batch(
+        cfg, np.array([raw_score]), [node], now=now,
+        recency_bias=recency_bias)[0])

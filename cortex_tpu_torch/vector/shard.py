@@ -177,6 +177,7 @@ class DeviceCorpus:
         self.kinds = Interner()
         self.agents = Interner()
         self._lock = threading.RLock()
+        self._released = False             # release() dropped the planes
 
     # ------------------------------------------------------------- mutation
     def __len__(self) -> int:
@@ -384,9 +385,24 @@ class DeviceCorpus:
             self._dev_q = (grown(self._dev_q[0], 0),
                            grown(self._dev_q[1], 0.0))
 
+    def release(self) -> None:
+        """Drop the device planes for good (an index replaced by a
+        rebuild): their memory returns to the allocator, and a later
+        search raises instead of uploading them again."""
+        with self._lock:
+            self._released = True
+            self._dev = None
+            self._dev_q = None
+
+    def _check_live(self) -> None:
+        if self._released:
+            raise IndexError_("the index was released (replaced by a "
+                              "rebuild)")
+
     def sync(self) -> None:
         """Push host changes to the device planes. Cheap when clean."""
         with self._lock:
+            self._check_live()
             if self._cap == 0:
                 return
             quant = self._quant_enabled()

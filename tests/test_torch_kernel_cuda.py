@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card:
 the IVF probed-block scan, the flat index's int8 candidate scan (K1)
 and exact re-rank (K2), the graph mirror's frontier walk (G1) and
-min-plus relaxation (G2), the edge decay sweep (D1), and the text
+min-plus relaxation (G2), the edge decay sweep (D1), retention
+eligibility (R1), and the text
 encoder's residual + LayerNorm (E1) and masked attention (E2), with the
 encoder's forward against the CPU's, and the IVF graph build's block
 kernel (N1) with K1 at the nprobe tuner's shape. Marked `cuda`: skipped
@@ -971,6 +972,96 @@ def test_decay_sweep_argument_checks(dev, bad):
         imp = imp.cpu()
     with pytest.raises(ValueError):
         decay.decay_sweep(w, days, imp, exempt, **DECAY_ARGS)
+
+
+# ------------------------------------------- R1: retention eligibility
+#
+# Criterion: the mask bit-equal to retention_eligibility_plain on the same
+# card. The kernel spells the plain version's float32 subtract and
+# multiply by float32(1 / 86400) with __fsub_rn / __fmul_rn, then the
+# same comparisons.
+
+R1_NOW = 1.76e9
+R1_DAY = 86400.0
+
+
+def _r1_inputs(dev, n, seed, per_node=False):
+    """Seeded nodes with rows exactly on the TTL, grace and score
+    boundaries; the parameters one value each, or one a node (ttl 0 and
+    min_score < 0 on some rows)."""
+    rng = np.random.default_rng(seed)
+    now = np.float32(R1_NOW)
+    created = (now - rng.uniform(0, 80, n) * R1_DAY).astype(np.float32)
+    last = (now - rng.uniform(0, 40, n) * R1_DAY).astype(np.float32)
+    score = rng.uniform(0, 1, n).astype(np.float32)
+    inbound = rng.random(n) < 0.3
+    created[::7] = now - np.float32(30 * R1_DAY)
+    last[::5] = now - np.float32(10 * R1_DAY)
+    score[::3] = np.float32(0.4)
+    nodes = [torch.from_numpy(a).to(dev)
+             for a in (created, last, score, inbound)]
+    if not per_node:
+        return nodes, [float(now), 30.0, 10.0, 0.4, True]
+    params = [np.full(n, now, np.float32),
+              rng.choice(np.array([0, 20, 30], np.float32), n),
+              rng.choice(np.array([0, 10], np.float32), n),
+              rng.choice(np.array([-1, 0.2, 0.4], np.float32), n),
+              rng.random(n) < 0.5]
+    return nodes, [torch.from_numpy(a).to(dev) for a in params]
+
+
+def _check_r1(nodes, params):
+    before = decay.retention_eligibility.launches
+    got = decay.retention_eligibility(*nodes, *params)
+    torch.cuda.synchronize()
+    assert decay.retention_eligibility.launches == before + 1
+    want = decay.retention_eligibility_plain(
+        *decay._retention_args(*nodes, *params))
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 65537, 1000003])
+@pytest.mark.parametrize("per_node", [False, True])
+def test_retention_eligibility_equals_plain(dev, n, per_node):
+    got = _check_r1(*_r1_inputs(dev, n, seed=n, per_node=per_node))
+    if n > 1000:
+        assert 0 < int(got.sum()) < n
+
+
+def test_retention_eligibility_unaligned(dev):
+    nodes, params = _r1_inputs(dev, 4099, seed=1, per_node=True)
+    _check_r1([t[1:] for t in nodes], [t[1:] for t in params])
+    _check_r1([t[3:4000] for t in nodes], [t[3:4000] for t in params])
+    scalar = _r1_inputs(dev, 4099, seed=2)
+    _check_r1([t[1:] for t in scalar[0]], scalar[1])
+
+
+def test_retention_eligibility_mixed_params(dev):
+    nodes, per = _r1_inputs(dev, 10007, seed=3, per_node=True)
+    _, one = _r1_inputs(dev, 10007, seed=3)
+    for k in range(5):
+        _check_r1(nodes, [per[j] if j == k else one[j] for j in range(5)])
+
+
+def test_retention_eligibility_empty(dev):
+    nodes, params = _r1_inputs(dev, 0, seed=0)
+    got = decay.retention_eligibility(*nodes, *params)
+    assert got.shape == (0,) and got.dtype == torch.bool
+
+
+@pytest.mark.parametrize("bad", ["length", "device", "shape"])
+def test_retention_eligibility_argument_checks(dev, bad):
+    nodes, params = _r1_inputs(dev, 64, seed=2)
+    if bad == "length":
+        nodes[1] = nodes[1][:-1]
+    elif bad == "device":
+        nodes[2] = nodes[2].cpu()
+    else:
+        params[1] = torch.zeros(1, device=dev)
+    with pytest.raises(ValueError):
+        decay.retention_eligibility(*nodes, *params)
 
 
 # ------------------------------------------------------------ encoder

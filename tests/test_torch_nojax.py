@@ -7,9 +7,10 @@ store -> search passes on the CPU (the IVF index, the flat index and the
 default config), an edges -> hybrid search pass through every tier of
 the graph mirror and linker cycles with decay and dedup on SQLite (the
 decay sweep through the out-of-process worker), a store -> search pass
-through the text encoder (a "flax:<npz>" model), and reports what it
-saw as JSON; the tests below check that report. Another runs the decay
-worker itself (python -m cortex_tpu_torch.linker.decay_worker) with the
+through the text encoder (a "flax:<npz>" model), a gated store, a
+rejected duplicate, a briefing, a query and a retention sweep, and
+reports what it saw as JSON; the tests below check that report.
+Another runs the decay worker itself (python -m cortex_tpu_torch.linker.decay_worker) with the
 same blocks. A third shows that chip_smoke.py's own check fails once a
 module of the JAX package is loaded.
 """
@@ -130,6 +131,42 @@ SCRIPT = textwrap.dedent("""
         "flat_ivf_settings": store_search(cfg(
             index="flat", ivf_graph_degree=32, ivf_target_recall=0.9))[1],
     }
+
+    def services(workdir):
+        # the write gate, a briefing, the query DSL and retention on a
+        # SQLite store, on the CPU
+        from cortex_tpu_torch.errors import GateRejection
+        from cortex_tpu_torch.policies import KindRetention, RetentionConfig
+        c = CortexConfig()
+        c.retention = RetentionConfig(
+            by_kind={"observation": KindRetention(ttl_days=30)})
+        cx = Cortex.open(f"{workdir}/services.db", c, device="cpu")
+        first = Node.new("fact", "Database runs postgres fourteen",
+                         "Our primary database is postgres fourteen.",
+                         Source(agent="a"))
+        stored = cx.store(first, gate=True) == first.id
+        try:
+            cx.store(Node.new("fact", first.title, first.body,
+                              Source(agent="b")), gate=True)
+            rejected = None
+        except GateRejection as e:
+            rejected = [e.check, e.existing_node == first.id]
+        old = Node.new("observation", "Stale observation entry",
+                       "Body long enough for the checks here.",
+                       Source(agent="a"), 0.1)
+        old.created_at = old.last_accessed_at = 1_600_000_000.0
+        cx.store(old)
+        brief = cx.briefing("a")
+        got = {"stored": stored, "rejected": rejected,
+               "briefing": first.title in brief,
+               "query": [n.id == first.id for n in cx.query("kind:fact")],
+               "retention": list(cx.run_retention()),
+               "swept_from_index": old.id not in cx.index}
+        cx.close()
+        return got
+
+    with tempfile.TemporaryDirectory() as workdir:
+        out["services"] = services(workdir)
     out["jax_loaded"] = any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         for m, v in sys.modules.items() if v is not None)
@@ -212,10 +249,6 @@ SCRIPT = textwrap.dedent("""
     ivf_defaults.embedding.model = "hash-64"
     cx_d, got = store_search(ivf_defaults)
     out["ivf_defaults"] = dict(got, **ivf_state(cx_d))
-    out["gate_error"] = raises(
-        lambda: cx.store(Node.new("fact", "gated title here", "gated body",
-                                  Source(agent="a")), gate=True),
-        ConfigError)
     print(json.dumps(out))
 """)
 
@@ -241,7 +274,11 @@ def test_every_module_imports_without_jax(report):
                  "linker.rules", "ops.decay", "utils.tracing",
                  "vector.config", "models.encoder", "models.tokenizer",
                  "models.convert", "ops.encoder", "ops.knn_graph",
-                 "vector.knn_graph"):
+                 "vector.knn_graph", "kinds", "relations", "gate",
+                 "gate.schema", "query.dsl", "policies.audit",
+                 "policies.retention", "briefing.engine",
+                 "briefing.precompute", "prompt.resolver",
+                 "prompt.rollback", "prompt.selection"):
         assert f"cortex_tpu_torch.{name}" in mods
 
 
@@ -423,4 +460,15 @@ def test_reference_defaults_open_the_flat_index(report):
 
 
 def test_write_gate_raises_config_error(report):
-    assert "ROADMAP" in report["gate_error"]
+    # the write gate is ported: a gated store is accepted and a planted
+    # duplicate of it is rejected by the conflict check, without jax
+    got = report["services"]
+    assert got["stored"] is True
+    assert got["rejected"] == ["conflict", True]
+
+
+def test_briefing_query_retention_run_without_jax(report):
+    got = report["services"]
+    assert got["briefing"] is True
+    assert got["query"] == [True]
+    assert got["retention"] == [1, 0] and got["swept_from_index"]
