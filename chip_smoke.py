@@ -56,27 +56,40 @@ Phases, each printing its results on its own line:
      threshold): new_w and its masks bit-equal to the plain version;
      its and the plain version's times at 10M and at the engine's 1M
      chunk beside the bound in bytes (20 B an edge). The text encoder's
-     residual + LayerNorm (E1) at h 36, 384 and 768 and its masked
+     residual + LayerNorm (E1) at h 36, 384 and 768 (also at T on both
+     sides of its launch shape's switches, 2 and 4 x the SM count), its
+     embedding form at the same widths, S 1, 31, 128 and 512, int32 and
+     int64 ids with ids 0, V - 1 and past both ends, and positions past
+     P (held within LN_ATOL of its plain version), both also at each
+     ENC_TIMED shape (up to the S 512 chunk's 99,840 rows), each case
+     with the launch form the kernel took there (every form must be
+     reached, each held within LN_ATOL), and its masked
      attention (E2) at (B 5, H 3, dh 32), BGE-small's (H 12, dh 32) and
      dh 64, each at S 1, 31, 128 and 512 and at E2's tile edges (S 63,
      64, 65, 127, 129) with padded rows, at the mask patterns of
      kept_patterns (kept keys ending on and one past a tile edge, masked
      keys in front and in the middle, a wholly masked tile between two
      kept ones, only the last key kept) and at dh 64, S 512, B * H 3,072
-     (E1 also with the embedding's [S, h] residual): within LN_ATOL and
+     (E1 also with an [S, h] residual): within LN_ATOL and
      ATTN_ATOL of the plain versions, and E2's kept rows bit-equal after
      new values at every masked key; E2 with |q| and |k| 10x larger,
      where the plain fp32 version is itself further than ATTN_ATOL from
      the float64 answer: no further from it than the plain version plus
      ATTN_ATOL. Then the times of each, its plain version and one
      PyTorch call computing the same function (F.layer_norm on the
-     pre-summed input, scaled_dot_product_attention with the mask bias)
+     pre-summed input, scaled_dot_product_attention with the mask bias;
+     for the embedding form none, so the three launches it replaces:
+     F.embedding, the [S, h] position + type add and E1)
      at ENC_TIMED (E2 also at ENC_MIX: the S 512 chunk with phase 11's
      lengths and with every key kept)
      over input sets that together exceed the L2 four times (so read
-     from HBM), beside the bound (E1: bytes; E2: bytes or fp32 FLOPs of
+     from HBM), beside the bound (E1: bytes; the embedding form: bytes
+     of the ids, the distinct rows they gather, the position rows, the
+     type row, g, b and y; E2: bytes or fp32 FLOPs of
      the kept keys, the larger, and beside it the bound of its route:
-     3 TF32 products per fp32 product at 495 TFLOP/s). The kNN-graph
+     3 TF32 products per fp32 product at 495 TFLOP/s), and the host
+     microseconds of one E1 and one embedding-form call at B 1 / S 32
+     (10,000 calls on a layer's tensors). The kNN-graph
      block kernel (N1) against its plain version, list for list: small
      and odd (L 37, d 100, a list with 3 live slots, r 1, 12 and 36),
      phase 4's 384-d layout (144 lists of 192 slots, r 32), the 10M
@@ -196,10 +209,11 @@ Phases, each printing its results on its own line:
      list with its rank 1 lost; then the embedder's forward (embed_tokens,
      in embed_batch's chunks) at B 1, 64 and 4,096 and S 32, 128 and 512
      (ms, texts/s, fp32 FLOP/s against 67 TFLOP/s) and one
-     torch.profiler trace of a forward at B 64, S 128, at the S 512
-     chunk with every key kept and at the S 512 chunk with phase 11's
-     lengths: the shares of the products, E1, E2 and GELU in its device
-     time;
+     torch.profiler trace of a forward at B 1, S 32, at B 64, S 128, at
+     the S 512 chunk with every key kept and at the S 512 chunk with
+     phase 11's lengths: its kernel launches (one embedding form and 2
+     E1 a layer), device ms and the shares of the products, E1, the
+     embedding form, E2 and GELU in it, beside its host ms untraced;
  12. the host services, in three parts. After phase 4, on its Cortex at
      the IVF defaults: SVC_GATE_IVF gated stores (half re-submit a
      stored node's text under a new id, planted duplicates; a sixth are
@@ -297,7 +311,8 @@ fifth, sixth and eighth, block_knn from the first and eighth,
 quant_candidates from the first (the tuner's truth) to the eighth,
 quant_rerank from the second to seventh, frontier_bfs,
 frontier_bfs_compact and bfs_relax from the third, decay_sweep from the
-fourth and eighth, add_layer_norm and masked_attention from the fifth,
+fourth and eighth, add_layer_norm, embed_layer_norm and
+masked_attention from the fifth,
 sixth and seventh, retention_eligibility from the sixth; launches made
 in phase 2 (also its part at the 1M layout, inside phase 3), or to
 compare a kernel with its plain version (or to time the forward or R1)
@@ -327,7 +342,9 @@ a block (CORTEX_KNN_WG, csrc/block_knn.cu). Then it traces
 PROFILE_ROUNDS hybrid searches of phase 7's device tier (host ms per
 leg, device ms per kernel, idle share), and times G2 from
 csrc/graph_bfs.cu built alone, whole and cut after its table read
-(CORTEX_RELAX_PARTS).
+(CORTEX_RELAX_PARTS). Last, E1 and its embedding form at ENC_TIMED,
+from csrc/encoder_rows.cu built alone with each launch form forced
+(CORTEX_E1_FORM), beside the form the ops' build picks there.
 """
 
 from __future__ import annotations
@@ -389,6 +406,8 @@ ENC_EPS = 1e-12                  # BGE-small-en-v1.5's layer_norm_eps
 LN_ATOL, ATTN_ATOL = 1e-5, 1e-5
 ENC_ATOL, ENC_COS = 1e-4, 0.99999   # the card's forward against the CPU's
 ENC_CHECK_SEQS = (1, 31, 128, 512)
+E1_FORMS = (0, 1)                # csrc/encoder_rows.cu's launch forms
+ENC_VOCAB = 30522                # BGE-small's (and BGE-base's) vocabulary
 ATTN_TILE = 32                           # E2's key tile (encoder_attn.cu)
 ENC_EDGE_SEQS = (63, 64, 65, 127, 129)   # about E2's key tile edges
 ENC_ATTN_BIG = (256, 12, 512, 64)        # B, H, S, dh: B * H 3,072
@@ -473,6 +492,8 @@ KERNELS = {               # name -> (source, what it replaces)
                     "cortex_tpu/ops/decay.py:28"),
     "add_layer_norm": ("cortex_tpu_torch/csrc/encoder_rows.cu",
                        "cortex_tpu/models/encoder.py:200"),
+    "embed_layer_norm": ("cortex_tpu_torch/csrc/encoder_rows.cu",
+                         "cortex_tpu/models/encoder.py:236"),
     "masked_attention": ("cortex_tpu_torch/csrc/encoder_attn.cu",
                          "cortex_tpu/models/encoder.py:216"),
     "block_knn": ("cortex_tpu_torch/csrc/block_knn.cu",
@@ -503,6 +524,7 @@ def _wrappers():
             "bfs_relax": graph_bfs.bfs_relax,
             "decay_sweep": decay.decay_sweep,
             "add_layer_norm": encoder.add_layer_norm,
+            "embed_layer_norm": encoder.embed_layer_norm,
             "masked_attention": encoder.masked_attention,
             "block_knn": knn_graph.block_knn,
             "retention_eligibility": decay.retention_eligibility}
@@ -2917,16 +2939,46 @@ def check_retention(rc, dev, gen, card):
 # ------------------------------------------------------ phase 2, encoder
 
 
+def e1_form(embed, ids64, rows, h):
+    """The launch form (csrc/encoder_rows.cu's note) E1, or with `embed`
+    its embedding form (int64 ids with `ids64`), takes over rows x h
+    values on the current device."""
+    import ctypes
+    from cortex_tpu_torch.ops import build
+    fn = ctypes.CDLL(str(build.build_library())).cortex_encoder_rows_form
+    fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int)
+    form = fn(int(embed), int(ids64), rows, h)
+    check(form >= 0, f"E1: no launch form for {rows} x {h}")
+    return form
+
+
 class EncoderKernelCheck:
     """E1 and E2 against their plain versions on the same card, within
-    LN_ATOL and ATTN_ATOL; keeps the largest difference of each, and
+    LN_ATOL and ATTN_ATOL; keeps the largest difference of each, and of
+    E1 and its embedding form also by the launch form each case took;
     checks E2's padding invariance bit for bit. E2 at large |q| and |k|
     is held to the float64 answer instead (e2_scaled)."""
 
     def __init__(self):
-        self.e1_err = self.e2_err = 0.0
-        self.e1_cases = self.e2_cases = self.invariant_rows = 0
+        self.e1_err = self.e2_err = self.emb_err = 0.0
+        self.e1_cases = self.e2_cases = self.emb_cases = 0
+        self.forms = {"add_layer_norm": {}, "embed_layer_norm": {}}
+        self.invariant_rows = 0
         self.scaled = []
+
+    def _by_form(self, name, form, err):
+        cases, worst = self.forms[name].get(form, (0, 0.0))
+        self.forms[name][form] = (cases + 1, max(worst, err))
+
+    def forms_held(self):
+        """{kernel: {"form<n>": {"cases", "max_abs_err"}}}, after
+        checking that the cases reached every launch form of each."""
+        for name, seen in self.forms.items():
+            check(sorted(seen) == list(E1_FORMS),
+                  f"{name}'s checks reached forms {sorted(seen)} only")
+        return {name: {f"form{f}": {"cases": c, "max_abs_err": e}
+                       for f, (c, e) in sorted(seen.items())}
+                for name, seen in self.forms.items()}
 
     def e1(self, x, r, g, b):
         import torch
@@ -2935,9 +2987,28 @@ class EncoderKernelCheck:
         want = enc.add_layer_norm_plain(x, r, g, b, ENC_EPS)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= LN_ATOL, f"E1 differs from plain by {err}")
+        check(err <= LN_ATOL, f"E1 differs from plain by {err} at "
+              f"{tuple(x.shape)}")
+        self._by_form("add_layer_norm", e1_form(False, False, *x.shape), err)
         self.e1_err = max(self.e1_err, err)
         self.e1_cases += 1
+
+    def emb(self, ids, word, pos, type_row, g, b):
+        """E1's embedding form against its plain version, within
+        LN_ATOL."""
+        import torch
+        from cortex_tpu_torch.ops import encoder as enc
+        got = enc.embed_layer_norm(ids, word, pos, type_row, g, b, ENC_EPS)
+        want = enc.embed_layer_norm_plain(ids, word, pos, type_row, g, b,
+                                          ENC_EPS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= LN_ATOL, f"the embedding form differs from plain by "
+              f"{err} at ids {tuple(ids.shape)}, h {word.shape[1]}")
+        self._by_form("embed_layer_norm", e1_form(
+            True, ids.dtype == torch.int64, ids.numel(), word.shape[1]), err)
+        self.emb_err = max(self.emb_err, err)
+        self.emb_cases += 1
 
     def e2(self, q, k, v, bias, kept):
         """Kernel against plain, then new values at every masked key
@@ -2993,6 +3064,32 @@ def ln_inputs(dev, gen, t, h, p):
     g = 1.0 + 0.1 * torch.randn(h, device=dev, generator=gen)
     b = 0.1 * torch.randn(h, device=dev, generator=gen)
     return x, r, g, b
+
+
+def embed_tables(dev, gen, h, vocab=ENC_VOCAB, positions=512):
+    """The embedding form's word [vocab, h] and pos [positions, h]
+    tables, type row, gain and bias, seeded."""
+    import torch
+    return (torch.randn(vocab, h, device=dev, generator=gen) * 0.5,
+            torch.randn(positions, h, device=dev, generator=gen) * 0.5,
+            torch.randn(h, device=dev, generator=gen) * 0.5,
+            1.0 + 0.1 * torch.randn(h, device=dev, generator=gen),
+            0.1 * torch.randn(h, device=dev, generator=gen))
+
+
+def embed_ids(dev, gen, b, s, vocab=ENC_VOCAB, dtype=None, edges=False):
+    """[b, s] token ids drawn from the vocabulary; with `edges` the first
+    ids are 0, vocab - 1 and ids past both ends of the table (which the
+    gather clamps, as the reference's does)."""
+    import torch
+    ids = torch.randint(0, vocab, (b, s), device=dev, generator=gen,
+                        dtype=dtype or torch.int32)
+    if edges:
+        flat = ids.view(-1)
+        out = torch.tensor([0, vocab - 1, vocab, vocab + 7, -1, -vocab - 2],
+                           dtype=ids.dtype, device=dev)[:flat.numel()]
+        flat[:len(out)] = out
+    return ids
 
 
 def qkv_views(dev, gen, b, heads, s, dh):
@@ -3109,11 +3206,29 @@ def check_encoder_kernels(ec, dev, gen, card):
     import torch
     import torch.nn.functional as F
     from cortex_tpu_torch.ops import encoder as enc
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for h in (36, 384, 768):                    # small, BGE-small, dh 64
         for s in ENC_CHECK_SEQS:                # T = 3 * S: 3, 93 odd
             x, r, g, b = ln_inputs(dev, gen, 3 * s, h, 3 * s)
             ec.e1(x, r, g, b)
-            ec.e1(x, r[:s], g, b)               # the embedding's [S, h] rows
+            ec.e1(x, r[:s], g, b)               # an [S, h] residual
+        # E1's launch shape switches at 2 and 4 x the SM count
+        for t in (2 * sms - 1, 2 * sms, 4 * sms - 1, 4 * sms):
+            ec.e1(*ln_inputs(dev, gen, t, h, t))
+        tables = embed_tables(dev, gen, h)
+        for s in ENC_CHECK_SEQS:
+            for dtype in (torch.int32, torch.int64):
+                ec.emb(embed_ids(dev, gen, 3, s, dtype=dtype, edges=True),
+                       *tables)
+        # positions past P clamp to P - 1
+        ec.emb(embed_ids(dev, gen, 2, 100, edges=True), tables[0],
+               tables[1][:64], *tables[2:])
+        del tables
+    # the shapes timed below, where the large T take the other forms
+    for b, s, h, _ in ENC_TIMED.values():
+        ec.e1(*ln_inputs(dev, gen, b * s, h, b * s))
+        ec.emb(embed_ids(dev, gen, b, s, edges=True), *embed_tables(dev, gen, h))
+        torch.cuda.empty_cache()
     for b, heads, dh in ((5, 3, 32), (4, 12, 32), (4, 12, 64)):
         for s in ENC_CHECK_SEQS + ENC_EDGE_SEQS:
             ec.e2(*attn_inputs(dev, gen, b, heads, s, dh))
@@ -3126,7 +3241,8 @@ def check_encoder_kernels(ec, dev, gen, card):
                                   (9, 12, 512, 64, "patterns")):
         ec.e2_scaled(*attn_inputs(dev, gen, b, heads, s, dh, kind,
                                   ENC_ATTN_SCALE)[:4])
-    perf = {"add_layer_norm": {}, "masked_attention": {}}
+    perf = {"add_layer_norm": {}, "embed_layer_norm": {},
+            "masked_attention": {}}
     for name, (b, s, h, heads, kind) in ENC_MIX.items():
         perf["masked_attention"][name] = time_attention(
             dev, gen, b, s, h, heads, kind)
@@ -3147,15 +3263,96 @@ def check_encoder_kernels(ec, dev, gen, card):
                 xr, (h,), g, bb, ENC_EPS), sets, 50),
             shape=[t, h], input_sets=len(sets))
         del sets
+        perf["embed_layer_norm"][name] = time_embed(dev, gen, b, s, h)
         perf["masked_attention"][name] = time_attention(
             dev, gen, b, s, h, heads, "uniform")
     say("2-encoder", e1_cases=ec.e1_cases, e1_max_abs_err=ec.e1_err,
-        e1_atol=LN_ATOL, e2_cases=ec.e2_cases, e2_max_abs_err=ec.e2_err,
+        e1_atol=LN_ATOL, embed_cases=ec.emb_cases,
+        embed_max_abs_err=ec.emb_err, by_launch_form=ec.forms_held(),
+        e1_host_us=e1_host_us(dev, gen),
+        e2_cases=ec.e2_cases, e2_max_abs_err=ec.e2_err,
         e2_atol=ATTN_ATOL, e2_padding_invariant_rows=ec.invariant_rows,
         e2_scaled=ec.scaled, e2_scale=ENC_ATTN_SCALE,
         card=card, **{f"{k}_{shape}": v for k, t in perf.items()
                       for shape, v in t.items()})
     return perf
+
+
+def embed_sets(dev, gen, b, s, h):
+    """`rotating` input sets of the embedding form at one shape, whose
+    ids gather from copies of a BGE-sized word table that together
+    exceed the L2 four times; and the number of those tables."""
+    table_bytes = 4 * ENC_VOCAB * h
+    tables = [embed_tables(dev, gen, h)
+              for _ in range(-(-4 * L2_BYTES // table_bytes))]
+    n = itertools.count()
+
+    def embed_set():
+        ids = embed_ids(dev, gen, b, s)
+        word, pos, type_emb, g, bb = tables[next(n) % len(tables)]
+        return ids, word, pos, type_emb, g, bb
+    return rotating(embed_set, 4 * b * s + 8 * b * s * h), len(tables)
+
+
+def time_embed(dev, gen, b, s, h):
+    """E1's embedding form at one shape: its, its plain version's and the
+    three launches' it replaces (F.embedding, the [S, h] position + type
+    add, E1) times, over `embed_sets`; the bound in bytes: the ids, the
+    distinct rows they gather, the S position rows, the type row, g and
+    b read once and y written once. No single PyTorch call computes it
+    (library_ms null)."""
+    import torch
+    import torch.nn.functional as F
+    from cortex_tpu_torch.ops import encoder as enc
+    t = b * s
+    sets, n_tables = embed_sets(dev, gen, b, s, h)
+
+    def replaced(ids, word, pos, type_row, g, bb):
+        x = F.embedding(ids, word).view(t, h)
+        return enc.add_layer_norm(x, pos[:s] + type_row, g, bb, ENC_EPS)
+    distinct = float(np.mean([int(torch.unique(st[0]).numel())
+                              for st in sets]))
+    nbytes = 4 * t + 4 * h * (distinct + s + 3 + t)
+    out = timing(
+        time_rotating(lambda *a: enc.embed_layer_norm(*a, ENC_EPS), sets,
+                      50),
+        time_rotating(lambda *a: enc.embed_layer_norm_plain(*a, ENC_EPS),
+                      sets, 20),
+        bound_ms(nbytes, 9 * t * h, F32_OPS_PER_S), library_ms=None,
+        replaced_ms=time_rotating(replaced, sets, 50), shape=[b, s, h],
+        distinct_ids=distinct, input_sets=len(sets), word_tables=n_tables)
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_us(fn, calls=10_000):
+    """Host microseconds of one fn() call: the wall of `calls` calls
+    (time.perf_counter) over calls, the device idle before and kept
+    ahead of (each call's kernel is shorter than its enqueue)."""
+    import torch
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
+def e1_host_us(dev, gen):
+    """host_us of one E1 call and one embedding-form call at B 1 / S 32
+    (h 384) on tensors as a layer holds them (contiguous, 16-byte
+    aligned)."""
+    from cortex_tpu_torch.ops import encoder as enc
+    x, r, g, b = ln_inputs(dev, gen, 32, 384, 32)
+    ids, tables = embed_ids(dev, gen, 1, 32), embed_tables(dev, gen, 384)
+    return {"add_layer_norm": host_us(
+                lambda: enc.add_layer_norm(x, r, g, b, ENC_EPS)),
+            "embed_layer_norm": host_us(
+                lambda: enc.embed_layer_norm(ids, *tables, ENC_EPS))}
 
 
 def time_attention(dev, gen, b, s, h, heads, kind):
@@ -4032,6 +4229,48 @@ def profile_relax_variants(dev, gen, card):
 # ------------------------------------------------------------ phase 11
 
 
+def profile_e1_forms(dev, gen, card):
+    """E1 and its embedding form at ENC_TIMED from csrc/encoder_rows.cu
+    built alone, one library for each launch form forced at every T
+    (CORTEX_E1_FORM), timed over `rotating` and `embed_sets` input sets
+    as phase 2 times the ops' build, beside the form that build picks at
+    each shape."""
+    import ctypes
+    import torch
+    libs, _ = build_variants("CORTEX_E1_FORM", E1_FORMS,
+                             source="encoder_rows.cu")
+    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    stream = ptr(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for name, (b, s, h, _) in ENC_TIMED.items():
+        t = b * s
+        y = torch.empty(t, h, device=dev)
+        row = {"picked": {"add_layer_norm": e1_form(False, False, t, h),
+                          "embed_layer_norm": e1_form(True, False, t, h)}}
+        sets = rotating(lambda: ln_inputs(dev, gen, t, h, t), 4 * 3 * t * h)
+        for form, lib in libs.items():
+            def e1(x, r, g, bb, lib=lib):
+                check(lib.cortex_add_layer_norm_launch(
+                    *(ptr(v.data_ptr()) for v in (x, r, g, bb)), i64(t), h,
+                    i64(t), f32(ENC_EPS), ptr(y.data_ptr()), stream) == 0,
+                    "E1 forms: launch failed")
+            row[f"e1_form{form}_ms"] = time_rotating(e1, sets, 50)
+        sets, _ = embed_sets(dev, gen, b, s, h)
+        for form, lib in libs.items():
+            def emb(ids, word, pos, type_row, g, bb, lib=lib):
+                check(lib.cortex_embed_layer_norm_launch(
+                    ptr(ids.data_ptr()), 0, *(ptr(v.data_ptr()) for v in (
+                        word, pos, type_row, g, bb)), i64(t), i64(s),
+                    i64(word.shape[0]), i64(pos.shape[0]), h, f32(ENC_EPS),
+                    ptr(y.data_ptr()), stream) == 0,
+                    "embedding form, forms: launch failed")
+            row[f"embed_form{form}_ms"] = time_rotating(emb, sets, 50)
+        del sets, y
+        torch.cuda.empty_cache()
+        out[name] = row
+    say("profile-e1-forms", card=card, **out)
+
+
 def encoder_words(seed):
     """ENC_WORDS distinct made-up words of 2-3 syllables of a seeded
     70-syllable alphabet, and the syllables."""
@@ -4299,19 +4538,22 @@ def encoder_speed(emb, cfg, dev):
 
 
 def encoder_profile(emb, cfg):
-    """One traced forward at B = 64, S = 128, one at the embedder's
-    S = 512 chunk with every key kept and one at that chunk with phase
-    11's lengths (attn_mask's "mix"): device ms by kernel, and the shares
-    of the products (cuBLAS gemm kernels), E1, E2, GELU and the rest of
-    the device time."""
+    """One traced forward at B = 1, S = 32 (a store or a search), one at
+    B = 64, S = 128, one at the embedder's S = 512 chunk with every key
+    kept and one at that chunk with phase 11's lengths (attn_mask's
+    "mix"): device ms by kernel, its kernel launches (memory copies
+    apart) and the launches of E1, its embedding form and E2 (their
+    counts), the shares of the products (cuBLAS gemm kernels), E1, the
+    embedding form, E2, GELU and the rest of the device time, and beside
+    them the host ms of the same forward untraced (time.perf_counter
+    around embed_tokens and its synchronize, the median of 20 calls, 3
+    at the S 512 chunk)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     rows = emb.chunk_rows(512)
     gen = torch.Generator()
     gen.manual_seed(ENC_SEED)
-    for b, s, mix in ((64, 128, False), (rows, 512, False),
+    for b, s, mix in ((1, 32, False), (64, 128, False), (rows, 512, False),
                       (rows, 512, True)):
         ids = np.random.default_rng(s).integers(
             1000, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -4319,27 +4561,62 @@ def encoder_profile(emb, cfg):
         if mix:
             mask = attn_mask("cpu", gen, b, s, "mix")[1].numpy().astype(
                 np.int32)
-        emb.embed_tokens(ids, mask)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            emb.embed_tokens(ids, mask)
-            torch.cuda.synchronize()
-        dev_ms = {e.key: e.self_device_time_total / 1e3
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA}
+        host = host_ms(lambda: emb.embed_tokens(ids, mask),
+                       3 if s == 512 else 20)
+        before = launch_counts()
+        dev_ms, launches = traced(lambda: emb.embed_tokens(ids, mask))
+        ours = {n: c - before[n] for n, c in launch_counts().items()
+                if c > before[n]}
         total = sum(dev_ms.values())
         check(total > 0, "the profiler saw no device time")
+        check(ours.get("embed_layer_norm") == 1
+              and ours.get("add_layer_norm") == 2 * cfg.layers,
+              f"a forward launched {ours}")
         parts = {"gemm": ("gemm",), "e1": ("add_ln_",),
+                 "embed": ("embed_ln_",),
                  "e2": ("masked_attention_tc_kernel",), "gelu": ("gelu",)}
         share = {p: sum(v for k, v in dev_ms.items()
                         if any(m in k.lower() for m in marks)) / total
                  for p, marks in parts.items()}
         share["other"] = 1 - sum(share.values())
         out[f"b{b}_s{s}" + ("_mix" if mix else "")] = {
-            "device_ms": total, "share": share, "kernels": len(dev_ms),
-            "kept_tokens": int(mask.sum())}
+            "device_ms": total, "launches": launches,
+            "wrapper_launches": ours,
+            "host_ms": host, "share": share,
+            "kernels": len(dev_ms), "kept_tokens": int(mask.sum())}
     return out
+
+
+def host_ms(fn, reps):
+    """The median host ms of fn() followed by a synchronize, over reps
+    calls after one more."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def traced(fn):
+    """fn() once under torch.profiler: device ms by kernel name, and the
+    kernel launches (memory copies and sets apart)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return ({e.key: e.self_device_time_total / 1e3 for e in events},
+            sum(e.count for e in events
+                if not e.key.lower().startswith(("memcpy", "memset"))))
 
 
 def phase_encoder(dev, workdir, card):
@@ -6278,6 +6555,7 @@ def main(argv) -> int:
         del index, rows
         torch.cuda.empty_cache()
         profile_relax_variants(dev, gen, card)
+        profile_e1_forms(dev, gen, card)
         check_no_reference_import()
         print(card, flush=True)
         return 0
@@ -6316,13 +6594,13 @@ def main(argv) -> int:
     flat, graph = ("quant_candidates", "quant_rerank"), (
         "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
     linker = ("quant_candidates", "quant_rerank", "decay_sweep")
-    encoder = ("add_layer_norm", "masked_attention", "quant_candidates",
-               "quant_rerank", "probed_scores")
+    encoder = ("add_layer_norm", "embed_layer_norm", "masked_attention",
+               "quant_candidates", "quant_rerank", "probed_scores")
     services = ("probed_scores", "quant_candidates", "quant_rerank",
-                "add_layer_norm", "masked_attention",
+                "add_layer_norm", "embed_layer_norm", "masked_attention",
                 "retention_eligibility")
-    serve = ("add_layer_norm", "masked_attention", "quant_candidates",
-             "quant_rerank")
+    serve = ("add_layer_norm", "embed_layer_norm", "masked_attention",
+             "quant_candidates", "quant_rerank")
     mesh = ("probed_scores", "quant_candidates", "decay_sweep", "block_knn")
     launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {},
                 "encoder": {}, "services": {}, "serve": {}, "mesh": {}}
@@ -6437,7 +6715,8 @@ def main(argv) -> int:
 
     errs = {"probed_scores": kc.max_abs_err, "quant_candidates": fc.k1_err,
             "quant_rerank": fc.k2_err, "decay_sweep": dc.max_abs_err,
-            "add_layer_norm": ec.e1_err, "masked_attention": ec.e2_err,
+            "add_layer_norm": ec.e1_err, "embed_layer_norm": ec.emb_err,
+            "masked_attention": ec.e2_err,
             "block_knn": knc.max_abs_err,
             "retention_eligibility": rc.max_abs_err, **gc.max_abs_err}
     main_shapes = {"probed_scores": (f"b{BATCH}", "b1"),
@@ -6449,6 +6728,7 @@ def main(argv) -> int:
                    "bfs_relax": ("a1_r3", None),
                    "decay_sweep": ("e10M", None),
                    "add_layer_norm": ("b64_s128", "b1_s32"),
+                   "embed_layer_norm": ("b64_s128", "b1_s32"),
                    "masked_attention": ("b64_s128", "b1_s32"),
                    "block_knn": (f"c{KNN_CHUNK}_r{GRAPH_DEGREE}", None),
                    "retention_eligibility": ("n10M", None)}
@@ -6472,6 +6752,8 @@ def main(argv) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": head}
+        entry.update({k: t[k] for k in ("share_of_bound", "replaced_ms")
+                      if k in t})
         if second is not None:
             entry["batch1"] = perf[name][second]
         entry.update({k: v for k, v in perf[name].items()

@@ -20,13 +20,12 @@ The torch side replaces the reference's jitted `_forward` (line 231):
 the reference's `device_params` does). The products are `F.linear` in
 float32 (cuBLAS on the card, under torch's default full-fp32 matmul
 precision; this module never changes it), with Q, K and V as one
-[h, 3h] product. The two other device programs of a layer are
-hand-written kernels (ops/encoder.py): the residual + LayerNorm (E1,
-also the embedding LayerNorm, whose word-row gather is `F.embedding`
-and whose position + type rows are E1's [S, h] residual, read once per
-sequence) and the masked attention (E2), which reads Q, K and V in
-place from the [T, 3h] product and writes the context as [T, h], so no
-transpose runs between the products.
+[h, 3h] product. The other device programs are hand-written kernels
+(ops/encoder.py): the embedding's gather, sums and LayerNorm in one
+launch (`embed_layer_norm`, E1's embedding form), and in each layer the
+residual + LayerNorm (E1) and the masked attention (E2), which reads Q,
+K and V in place from the [T, 3h] product and writes the context as
+[T, h], so no transpose runs between the products.
 """
 
 from __future__ import annotations
@@ -39,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.encoder import add_layer_norm, masked_attention
+from ..ops.encoder import (add_layer_norm, embed_layer_norm,
+                           masked_attention)
 from ..utils.device import resolve_device
 
 
@@ -286,9 +286,9 @@ class BertEncoder(nn.Module):
         b, s = input_ids.shape
         if b == 0:
             return self.word_emb.new_zeros((0, cfg.hidden))
-        x = F.embedding(input_ids, self.word_emb).view(b * s, cfg.hidden)
-        x = add_layer_norm(x, self.pos_emb[:s] + self.type_emb[0],
-                           self.emb_ln_g, self.emb_ln_b, cfg.layernorm_eps)
+        x = embed_layer_norm(input_ids, self.word_emb, self.pos_emb,
+                             self.type_emb[0], self.emb_ln_g, self.emb_ln_b,
+                             cfg.layernorm_eps)
         mask_bias = torch.where(attention_mask > 0, 0.0, -1e30).to(
             torch.float32)
         for layer in self.layers:

@@ -1,15 +1,22 @@
-"""The text encoder's two row programs besides its products: the
-residual + LayerNorm (E1) and the masked attention (E2).
+"""The text encoder's row programs besides its products: the residual +
+LayerNorm (E1), its embedding form, and the masked attention (E2).
 
 Counterpart of the XLA fusions of cortex_tpu/models/encoder.py, which
 has no Pallas kernel:
 
   * `add_layer_norm` (E1) replaces `_layer_norm` (line 200) with the
-    residual add before it (lines 222-223 and 226-227, and the
-    embedding sum at 244-247): LN(x + r) * g + b over the last
-    dimension, mean and biased variance in float32. x is [T, h]; r is
-    [T, h], or [P, h] with T % P == 0, row t then taking r[t % P] (the
-    embedding's position + type rows, [S, h], serve every sequence).
+    residual add before it (lines 222-223 and 226-227): LN(x + r) * g +
+    b over the last dimension, mean and biased variance in float32. x is
+    [T, h]; r is [T, h], or [P, h] with T % P == 0, row t then taking
+    r[t % P].
+  * `embed_layer_norm` (E1's embedding form) replaces the embedding sum
+    and its LayerNorm (lines 236-239): LN((word_emb[id] + pos_emb[s]) +
+    type_row) * g + b for each token (s its position in its sequence),
+    the sums in the reference's order, in one launch: no [T, h]
+    embedding tensor is written or read. Ids outside the vocabulary are
+    taken as the reference's jnp gather takes them, with no host sync: a
+    negative id is wrapped once (id + V), then every id is clamped into
+    [0, V - 1]; positions past P clamp to P - 1.
   * `masked_attention` (E2) replaces the attention lines 216-221:
     softmax(q k^T / sqrt(dh) + mask_bias[:, None, None, :]) v for q, k,
     v [B, H, S, dh] and mask_bias [B, S] (0 or -1e30). A masked key
@@ -20,17 +27,24 @@ has no Pallas kernel:
     tiles that hold a kept key, and sets masked keys' K and V to zeros,
     so that a kept row does not depend on them, bit for bit.
 
-Each wrapper checks its arguments, then dispatches on the tensors'
-device with exactly two branches: CUDA tensors launch the hand-written
-kernel (csrc/encoder_rows.cu, csrc/encoder_attn.cu; built at first use
-by ops/build.py) and count the launch; CPU tensors run the plain torch
-version beside it (`add_layer_norm_plain`, `masked_attention_plain`),
-which the CPU tests hold to the reference and chip_smoke.py holds each
-kernel against on the card. A CUDA launch never falls back.
+Each wrapper dispatches on the tensors' device with exactly two
+branches: CUDA tensors launch the hand-written kernel (csrc/
+encoder_rows.cu, csrc/encoder_attn.cu; built at first use by
+ops/build.py) and count the launch; CPU tensors run the plain torch
+version beside it (`add_layer_norm_plain`, `embed_layer_norm_plain`,
+`masked_attention_plain`), which the CPU tests hold to the reference and
+chip_smoke.py holds each kernel against on the card. A CUDA launch
+never falls back. On a CUDA call E1's two forms leave every argument
+check to their op (csrc/encoder_rows_op.cpp), which raises the
+ValueErrors the CPU checks here raise, so a call on the encoder's own
+tensors (contiguous, 16-byte aligned) is checked once and copies
+nothing.
 
-Limits of the kernels (the plain versions take any shape): E1 takes
-h <= MAX_LN_WIDTH with h % 4 == 0; E2 takes dh in ATTN_HEAD_DIMS and
-1 <= S <= MAX_ATTN_SEQ. A CUDA call outside them raises ValueError.
+Limits of the kernels (the plain versions take any shape): E1's forms
+hold a row in a warp's registers as float4s, so they take h <= 1024
+with h % 4 == 0 (every BERT width: 384, 768, 1024; kMaxWidth in
+csrc/encoder_rows_op.cpp); E2 takes dh in ATTN_HEAD_DIMS and 1 <= S <=
+MAX_ATTN_SEQ. A CUDA call outside them raises ValueError.
 """
 
 from __future__ import annotations
@@ -41,9 +55,6 @@ import torch
 
 from .build import load_ops
 
-#: E1 holds a row in a warp's registers, float4s: at most 32 floats a
-#: lane, h % 4 == 0 (every BERT width: 384, 768, 1024)
-MAX_LN_WIDTH = 1024
 #: E2's tile shape: k-steps of 8 over dh, Q's fragments in registers
 ATTN_HEAD_DIMS = (32, 64)
 #: E2 stages a sequence's mask row in shared memory and walks its 32-key
@@ -72,32 +83,44 @@ def _check_rows(x, r, g, b) -> None:
                              f"on {x.device}")
 
 
-def _dense_aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself when it is contiguous and starts on 16 bytes (the
-    kernel's float4 loads), else a contiguous copy, which does."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+def _check_embed(ids, word_emb, pos_emb, type_row, g, b) -> None:
+    if ids.dim() != 2 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"embed_layer_norm: ids must be int32 or int64 "
+                         f"[B, S], got {ids.dtype} {tuple(ids.shape)}")
+    if (word_emb.dim() != 2 or pos_emb.dim() != 2
+            or pos_emb.shape[1] != word_emb.shape[1]
+            or word_emb.shape[0] == 0 or pos_emb.shape[0] == 0):
+        raise ValueError(f"embed_layer_norm: word_emb must be [V, h] and "
+                         f"pos_emb [P, h] with V, P >= 1, got "
+                         f"{tuple(word_emb.shape)} and "
+                         f"{tuple(pos_emb.shape)}")
+    h = word_emb.shape[1]
+    for name, v in (("type_row", type_row), ("g", g), ("b", b)):
+        if tuple(v.shape) != (h,):
+            raise ValueError(f"embed_layer_norm: {name} must be [{h}], got "
+                             f"{tuple(v.shape)}")
+    for name, v in (("word_emb", word_emb), ("pos_emb", pos_emb),
+                    ("type_row", type_row), ("g", g), ("b", b)):
+        if v.dtype != torch.float32:
+            raise ValueError(f"embed_layer_norm: {name} must be float32, "
+                             f"got {v.dtype}")
+        if v.device != ids.device:
+            raise ValueError(f"embed_layer_norm: {name} is on {v.device}, "
+                             f"ids on {ids.device}")
 
 
 def add_layer_norm(x: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
                    b: torch.Tensor, eps: float) -> torch.Tensor:
     """E1: LN(x + r) * g + b, a new [T, h] float32 tensor."""
-    _check_rows(x, r, g, b)
-    dev = x.device
-    if dev.type == "cuda":
-        h = x.shape[1]
-        if h > MAX_LN_WIDTH or h % 4 != 0:
-            raise ValueError(f"add_layer_norm: the kernel takes h <= "
-                             f"{MAX_LN_WIDTH} with h % 4 == 0, got {h}")
-        out = load_ops().add_layer_norm(_dense_aligned(x), _dense_aligned(r),
-                                        _dense_aligned(g), _dense_aligned(b),
-                                        float(eps))
+    if x.is_cuda:
+        out = load_ops().add_layer_norm(x, r, g, b, eps)
         add_layer_norm.launches += 1
         return out
-    if dev.type == "cpu":
+    _check_rows(x, r, g, b)
+    if x.device.type == "cpu":
         return add_layer_norm_plain(x, r, g, b, eps)
-    raise RuntimeError(f"add_layer_norm has no kernel for device {dev}")
+    raise RuntimeError(f"add_layer_norm has no kernel for device "
+                       f"{x.device}")
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it to show
@@ -105,14 +128,56 @@ def add_layer_norm(x: torch.Tensor, r: torch.Tensor, g: torch.Tensor,
 add_layer_norm.launches = 0
 
 
-def add_layer_norm_plain(x, r, g, b, eps):
-    """`add_layer_norm` in plain torch, spelled as the reference's
-    `_layer_norm`: mean, biased variance, (v - mu) / sqrt(var + eps)."""
-    t, h = x.shape
-    v = (x.view(-1, r.shape[0], h) + r).view(t, h)
+def _layer_norm(v, g, b, eps):
+    """The reference's `_layer_norm` over the last dimension: mean,
+    biased variance, (v - mu) / sqrt(var + eps) * g + b."""
     mu = torch.mean(v, dim=-1, keepdim=True)
     var = torch.mean(torch.square(v - mu), dim=-1, keepdim=True)
     return (v - mu) / torch.sqrt(var + eps) * g + b
+
+
+def add_layer_norm_plain(x, r, g, b, eps):
+    """`add_layer_norm` in plain torch, spelled as the reference's
+    `_layer_norm`."""
+    t, h = x.shape
+    return _layer_norm((x.view(-1, r.shape[0], h) + r).view(t, h), g, b,
+                       eps)
+
+
+def embed_layer_norm(ids: torch.Tensor, word_emb: torch.Tensor,
+                     pos_emb: torch.Tensor, type_row: torch.Tensor,
+                     g: torch.Tensor, b: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """E1's embedding form: ids [B, S] -> LN((word_emb[id] + pos_emb[s]) +
+    type_row) * g + b, a new [B * S, h] float32 tensor."""
+    if ids.is_cuda:
+        out = load_ops().embed_layer_norm(ids, word_emb, pos_emb, type_row,
+                                          g, b, eps)
+        embed_layer_norm.launches += 1
+        return out
+    _check_embed(ids, word_emb, pos_emb, type_row, g, b)
+    if ids.device.type == "cpu":
+        return embed_layer_norm_plain(ids, word_emb, pos_emb, type_row, g,
+                                      b, eps)
+    raise RuntimeError(f"embed_layer_norm has no kernel for device "
+                       f"{ids.device}")
+
+
+#: kernel launches since the last reset
+embed_layer_norm.launches = 0
+
+
+def embed_layer_norm_plain(ids, word_emb, pos_emb, type_row, g, b, eps):
+    """`embed_layer_norm` in plain torch: the reference's gather (ids and
+    positions clamped as jnp indexing clamps them), its sum
+    (word + pos) + type, then `_layer_norm`."""
+    bsz, s = ids.shape
+    vocab, h = word_emb.shape
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + vocab, idx).clamp_(0, vocab - 1)
+    pos = torch.arange(s, device=ids.device).clamp_(max=pos_emb.shape[0] - 1)
+    v = (word_emb[idx] + pos_emb[pos]) + type_row
+    return _layer_norm(v.view(bsz * s, h), g, b, eps)
 
 
 def _check_attention(q, k, v, mask_bias) -> None:

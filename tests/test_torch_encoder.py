@@ -165,6 +165,95 @@ def test_layer_norm_plain_matches_reference(t, h, p):
     assert max_abs(got.numpy(), want) <= TINY_ATOL
 
 
+BGE_SMALL = dict(vocab_size=30522, hidden=384, max_position=512)
+
+
+@jax.jit
+def _reference_embedding(word_emb, pos_emb, type_emb, g, b, input_ids):
+    """cortex_tpu/models/encoder.py:236-239 (`_forward`'s embedding lines)
+    as written there, jitted as `_forward` is."""
+    s = input_ids.shape[1]
+    pos = jnp.arange(s)[None, :]
+    x = (word_emb[input_ids]
+         + pos_emb[pos]
+         + type_emb[jnp.zeros_like(input_ids)])
+    return jenc._layer_norm(x, g, b, 1e-12)
+
+
+def _embedding_params(width, seed):
+    """word, pos and type tables, gain and bias at a config's width,
+    seeded (gain and bias not 1 and 0, so that both count)."""
+    rng = np.random.default_rng(seed)
+    v, h, p = width["vocab_size"], width["hidden"], width["max_position"]
+    arrays = (rng.normal(0.0, 0.5, (v, h)), rng.normal(0.0, 0.5, (p, h)),
+              rng.normal(0.0, 0.5, (2, h)), rng.normal(1.0, 0.1, h),
+              rng.normal(0.0, 0.1, h))
+    return [a.astype(np.float32) for a in arrays]
+
+
+def _embed(params, ids):
+    """The port's embed_layer_norm of numpy ids and tables on the CPU."""
+    word, pos, typ, g, b = (torch.from_numpy(a) for a in params)
+    return ops.embed_layer_norm(torch.from_numpy(ids), word, pos, typ[0], g,
+                                b, 1e-12)
+
+
+def _check_embedding(params, ids):
+    want = np.asarray(_reference_embedding(*params, jnp.asarray(ids)))
+    got = _embed(params, ids)
+    assert got.shape == (ids.size, params[0].shape[1])
+    assert max_abs(got.numpy(), want.reshape(ids.size, -1)) <= TINY_ATOL
+
+
+@pytest.mark.parametrize("s", [1, 31, 128, 512])
+@pytest.mark.parametrize("width", ["tiny", "bge-small"])
+def test_embedding_plain_matches_reference(width, s):
+    # TINY's 64 positions: S 128 and 512 also take positions past P,
+    # which the reference's gather clamps
+    cfg = TINY if width == "tiny" else BGE_SMALL
+    params = _embedding_params(cfg, seed=s)
+    rng = np.random.default_rng(s + 1)
+    ids = rng.integers(0, cfg["vocab_size"], (3, s)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = 0, cfg["vocab_size"] - 1
+    ids[1, ::2] = cfg["vocab_size"] - 1
+    ids[2, 1::2] = 0
+    _check_embedding(params, ids)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_embedding_out_of_range_ids_match_reference(dtype):
+    # ids past the table clamp to its last row; negative ones wrap once,
+    # then clamp
+    params = _embedding_params(TINY, seed=3)
+    v = TINY["vocab_size"]
+    ids = np.array([[0, v - 1, v, v + 5, 10 ** 6, -1],
+                    [-v, -v - 3, -(10 ** 6), 7, -9, 2]], dtype)
+    _check_embedding(params, ids)
+    # a 6-row table: id 7 takes row 5, id -9 (-3 after the wrap) row 0
+    small = [params[0][:6], *params[1:]]
+    _check_embedding(small, np.array([[7, -9]], dtype))
+    assert torch.equal(_embed(small, np.array([[7, -9]], dtype)),
+                       _embed(small, np.array([[5, 0]], dtype)))
+
+
+@pytest.mark.parametrize("width", ["tiny", "bge-small"])
+def test_forward_matches_reference_at_edge_ids(width):
+    # BertEncoder.forward (its embedding through embed_layer_norm) at ids
+    # 0, vocab - 1 and past the vocabulary; BGE-small's width at 2 layers
+    kw = {} if width == "tiny" else dict(BGE_SMALL, layers=2, heads=12,
+                                         intermediate=1536)
+    jcfg, tcfg = configs(**kw)
+    params = jenc.init_params(jcfg, seed=13)
+    ids, mask = padded_ids(jcfg, 4, 21, seed=14)
+    v = jcfg.vocab_size
+    ids[0, :4] = [0, v - 1, v + 3, -2]
+    ids[1, 1] = v - 1
+    want = jenc.bert_encode(params, jcfg, ids, mask)
+    module = tenc.BertEncoder.from_params(params, tcfg, device="cpu")
+    atol = TINY_ATOL if width == "tiny" else FULL_ATOL
+    assert max_abs(tenc.bert_encode(module, ids, mask), want) <= atol
+
+
 def _reference_attention(q, k, v, mask_bias):
     """cortex_tpu/models/encoder.py:216-221 as written there."""
     dh = q.shape[-1]
@@ -230,12 +319,15 @@ def test_encoder_layer_matches_reference():
 
 
 def test_cpu_tensors_run_the_plain_versions_uncounted():
-    before = (ops.add_layer_norm.launches, ops.masked_attention.launches)
+    before = (ops.add_layer_norm.launches, ops.embed_layer_norm.launches,
+              ops.masked_attention.launches)
     x = torch.randn(6, 16)
     ops.add_layer_norm(x, x, torch.ones(16), torch.zeros(16), 1e-12)
+    ops.embed_layer_norm(torch.zeros(2, 3, dtype=torch.int32), x, x[:2],
+                         x[0], torch.ones(16), torch.zeros(16), 1e-12)
     q = torch.randn(1, 2, 5, 16)            # dh 16: only the kernel refuses
     ops.masked_attention(q, q, q, torch.zeros(1, 5))
-    assert (ops.add_layer_norm.launches,
+    assert (ops.add_layer_norm.launches, ops.embed_layer_norm.launches,
             ops.masked_attention.launches) == before
 
 
@@ -244,19 +336,35 @@ def test_other_devices_raise():
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         ops.add_layer_norm(x, x, torch.empty(8, device="meta"),
                            torch.empty(8, device="meta"), 1e-12)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ops.embed_layer_norm(torch.empty(2, 4, dtype=torch.int32,
+                                         device="meta"), x, x,
+                             *(torch.empty(8, device="meta")
+                               for _ in range(3)), 1e-12)
     q = torch.empty(1, 1, 4, 32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         ops.masked_attention(q, q, q, torch.empty(1, 4, device="meta"))
 
 
-@pytest.mark.parametrize("bad", ["shape", "rows", "dtype", "bias"])
+@pytest.mark.parametrize("bad", ["shape", "rows", "dtype", "bias",
+                                 "ids_dtype", "ids_shape", "type_row",
+                                 "table_dtype"])
 def test_argument_checks_raise(bad):
     x, q = torch.randn(6, 8), torch.randn(2, 2, 5, 32)
+    ids, one = torch.zeros(2, 3, dtype=torch.int32), torch.ones(8)
     with pytest.raises(ValueError):
         if bad == "shape":
             ops.add_layer_norm(x, x, torch.ones(7), torch.zeros(8), 1e-12)
         elif bad == "rows":
             ops.add_layer_norm(x, x[:4], torch.ones(8), torch.zeros(8), 1e-12)
+        elif bad == "ids_dtype":
+            ops.embed_layer_norm(ids.float(), x, x, one, one, one, 1e-12)
+        elif bad == "ids_shape":
+            ops.embed_layer_norm(ids[0], x, x, one, one, one, 1e-12)
+        elif bad == "type_row":
+            ops.embed_layer_norm(ids, x, x, x[:2], one, one, 1e-12)
+        elif bad == "table_dtype":
+            ops.embed_layer_norm(ids, x.double(), x, one, one, one, 1e-12)
         elif bad == "dtype":
             ops.masked_attention(q.double(), q.double(), q.double(),
                                  torch.zeros(2, 5))

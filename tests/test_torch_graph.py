@@ -64,7 +64,8 @@ from cortex_tpu_torch.types import Edge, EdgeProvenance, Node, Source
 REPO = Path(__file__).resolve().parent.parent
 COPIES = ("graph/__init__.py", "graph/types.py", "graph/subgraph.py",
           "graph/cache.py", "graph/traversal.py", "graph/paths.py",
-          "graph/host_csr.py", "graph/engine.py", "graph/packed.py")
+          "graph/host_csr.py", "graph/engine.py", "graph/packed.py",
+          "graph/temporal.py")
 KINDS = ("fact", "event", "decision")
 RELATIONS = ("related_to", "led_to", "uses")
 

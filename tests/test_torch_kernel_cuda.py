@@ -1140,6 +1140,96 @@ def test_add_layer_norm_limits(dev):
         enc.add_layer_norm(x.double(), r[:3].double(), g, b, 1e-12)
 
 
+# E1's launch shape: blocks of 1, 2, then 4 warps, switching at 2 and 4 x
+# the SM count; a row a warp while the card holds every warp at once
+# (up to 132 SMs x 16 blocks x 4 warps), then rows strided over a capped
+# grid (E1 up to 8 rounds, then a row a warp again; the embedding form
+# at any T). T on both sides of the block switches, and in each form at
+# every width (20,480 rows: strided; 102,400: past 8 rounds)
+LN_WIDTHS = (4, 36, 384, 768, 1024)
+LN_POINTS = ("one", "below_2x", "at_2x", "below_4x", "at_4x", "strided",
+             "past_strided")
+
+
+def _ln_rows(point):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"one": 1, "below_2x": 2 * sms - 1, "at_2x": 2 * sms,
+            "below_4x": 4 * sms - 1, "at_4x": 4 * sms,
+            "strided": 40 * 512, "past_strided": 200 * 512}[point]
+
+
+@pytest.mark.parametrize("point", LN_POINTS)
+@pytest.mark.parametrize("h", LN_WIDTHS)
+def test_add_layer_norm_launch_shapes(dev, h, point):
+    t = _ln_rows(point)
+    _check_e1(*_ln_inputs(dev, t, h, t, seed=t + h))
+    if t % 512 == 0:                        # an [S, h] residual
+        _check_e1(*_ln_inputs(dev, t, h, 512, seed=h))
+
+
+def _embed_inputs(dev, b, s, h, vocab, positions, dtype, seed):
+    """ids [b, s] (0, vocab - 1 and ids past both ends among them),
+    word [vocab, h], pos [positions, h], type row, gain and bias."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s))
+    flat = ids.reshape(-1)
+    flat[:6] = [0, vocab - 1, vocab, vocab + 7, -1, -vocab - 2][:flat.size]
+    tables = (rng.normal(0.0, 0.5, (vocab, h)),
+              rng.normal(0.0, 0.5, (positions, h)),
+              rng.normal(0.0, 0.5, h), rng.normal(1.0, 0.1, h),
+              rng.normal(0.0, 0.1, h))
+    return [torch.from_numpy(ids.astype(dtype)).to(dev)] + [
+        torch.from_numpy(a.astype(np.float32)).to(dev) for a in tables]
+
+
+def _check_embed(args, eps=1e-12):
+    before = enc.embed_layer_norm.launches
+    got = enc.embed_layer_norm(*args, eps)
+    torch.cuda.synchronize()
+    assert enc.embed_layer_norm.launches == before + 1
+    want = enc.embed_layer_norm_plain(*args, eps)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= LN_ATOL
+    return got
+
+
+@pytest.mark.parametrize("point", LN_POINTS)
+@pytest.mark.parametrize("h", LN_WIDTHS)
+def test_embed_layer_norm_equals_plain(dev, h, point):
+    t = _ln_rows(point)
+    s = 512 if t % 512 == 0 else t          # B 40 or 200 at S 512, else B 1
+    _check_embed(_embed_inputs(dev, t // s, s, h, 1000, 512, np.int32,
+                               seed=t + h))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("b,s,positions", [(3, 31, 512), (2, 100, 64),
+                                           (64, 128, 512), (1, 1, 1)])
+def test_embed_layer_norm_ids_and_positions(dev, dtype, b, s, positions):
+    # BGE-small's vocabulary; P 64 < S 100: positions past P clamp
+    _check_embed(_embed_inputs(dev, b, s, 384, 30522, positions, dtype,
+                               seed=b * s))
+
+
+def test_embed_layer_norm_limits(dev):
+    ids, word, pos, typ, g, b = _embed_inputs(dev, 2, 8, 36, 50, 16,
+                                              np.int32, seed=1)
+    with pytest.raises(ValueError, match="h % 4 == 0"):
+        enc.embed_layer_norm(ids, word[:, :35], pos[:, :35], typ[:35],
+                             g[:35], b[:35], 1e-12)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        enc.embed_layer_norm(ids.float(), word, pos, typ, g, b, 1e-12)
+    with pytest.raises(ValueError, match="float32"):
+        enc.embed_layer_norm(ids, word.double(), pos, typ, g, b, 1e-12)
+    with pytest.raises(ValueError, match="type_row"):
+        enc.embed_layer_norm(ids, word, pos, typ[:4], g, b, 1e-12)
+    with pytest.raises(ValueError, match="is on"):
+        enc.embed_layer_norm(ids, word.cpu(), pos, typ, g, b, 1e-12)
+    wide = _embed_inputs(dev, 1, 4, 1028, 10, 4, np.int32, seed=2)
+    with pytest.raises(ValueError, match="h <= 1024"):
+        enc.embed_layer_norm(*wide, 1e-12)
+
+
 def _kept_patterns(b, s):
     """[b, s] bool: row i keeps the keys of pattern i % 9: all; the first
     64, 65, 128 or 129 (ending on and one past E2's tile edges, 32 keys
@@ -1299,8 +1389,12 @@ def test_encoder_forward_equals_cpu(dev, cfg):
     card = BertEncoder.from_params(params, cfg, device=dev)
     cpu = BertEncoder.from_params(params, cfg, device="cpu")
     e1, e2 = enc.add_layer_norm.launches, enc.masked_attention.launches
+    emb = enc.embed_layer_norm.launches
     got = bert_encode(card, ids, mask)
-    assert enc.add_layer_norm.launches - e1 == 2 * cfg.layers + 1
+    # each layer's two E1s, and the embedding's gather, sums and
+    # LayerNorm in one launch of E1's embedding form
+    assert enc.add_layer_norm.launches - e1 == 2 * cfg.layers
+    assert enc.embed_layer_norm.launches - emb == 1
     assert enc.masked_attention.launches - e2 == cfg.layers
     want = bert_encode(cpu, ids, mask)
     assert float(np.abs(got - want).max()) <= ENCODER_ATOL

@@ -308,6 +308,7 @@ def test_every_module_imports_without_jax(report):
     mods = set(report["modules"])
     for name in ("graph.csr", "graph.engine", "graph.packed",
                  "graph.traversal", "graph.paths", "graph.host_csr",
+                 "graph.temporal",
                  "ops.graph_bfs", "vector.hybrid", "native", "api",
                  "linker.auto_linker", "linker.config", "linker.decay",
                  "linker.decay_worker", "linker.dedup", "linker.metrics",
