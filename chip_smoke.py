@@ -50,7 +50,7 @@ Phases, each printing its results on its own line:
      wrapper from host anchors, as the mirror calls them (ms), and
      through the op alone (op_ms). K1 and K2 also at the linker's shape
      (b128, cand 256, k 128) and dedup's (b256, cand 128, k 64) on the
-     1M x 768 planes. The decay sweep (D1) at 1, 31 and 65,537 edges and
+     1M x 768 planes, K1 beside torch._int_mm's product alone. The decay sweep (D1) at 1, 31 and 65,537 edges and
      at 10,000,000 (config #5's scale, made on the card; days <= 0,
      exempt rows, importance * shield = 1, rows exactly on each
      threshold): new_w and its masks bit-equal to the plain version;
@@ -187,7 +187,7 @@ Phases, each printing its results on its own line:
  10. the decay sweep at config #5: DecayEngine._sweep_arrays over 10M
      edges from host arrays in 1M chunks (H2D, D1, D2H) against
      decay_sweep_host on the same arrays; apply_decay on a SQLite store
-     of 500,000 edges (config #5's 10M cut for time), in process and through
+     of 250,000 edges (config #5's 10M cut for time), in process and through
      the worker process on a byte copy, each against a numpy oracle
      (weights, deletions, audit rows, counts); then on phase 8's store
      Cortex.bulk_import of 1,000 nodes (advance_linker_cursor, never
@@ -300,16 +300,35 @@ Phases, each printing its results on its own line:
      the composed server on both, held to a single-device engine). The
      numbers of a virtual mesh measure the per-shard programs and the
      merge run one after another on one card, not multi-GPU speed.
+ 15. the reference's cases on the card, after phase 14: (a) its model
+     fuzz (tests/test_model_fuzz.py, seeds REF_FUZZ_SEEDS, 200 random
+     stores, updates, deletes and searches each) through
+     Cortex.in_memory(device="cuda") on the flat index with
+     search_path "quant" (K1 + K2), held every 25 operations to a dict
+     of live nodes: the stored live set, the index's membership, no dead
+     id in a hit; (b) its IVF fuzz (tests/test_ivf_fuzz.py, seeds
+     IVF_FUZZ_SEEDS) on TorchIvfIndex at nprobe = nlist: random upserts,
+     updates, removes, retrains and filtered searches against the port's
+     BruteForceIndex, the same ids (near-ties of NEAR_TIE counted) and
+     scores within SCORE_ATOL; (c) exact-tie order: a TorchFlatIndex of
+     TIE_ROWS rows, every row stored three times, the same TIE_QUERIES
+     queries at each batch of TIE_BATCHES, the same ids in the same
+     order, on the auto path (cap 4,096: K1 + K2) and on the exact
+     product (cuBLAS); (d) entry.entry() on the card held to its CPU run
+     (ids where no two scores lie within NEAR_TIE, scores within
+     SCORE_ATOL).
 
-Eight main paths: phases 3-4 (IVF, from the index's build, with 13's
+Nine main paths: phases 3-4 (IVF, from the index's build, with 13's
 IVF snapshot boot), 5-6 (flat, with 13's flat snapshot boot), 7-8
 (graph, on the flat index), 9-10 (the linker), 11 (the encoder), 12
-(the services), 13-serve (the server) and 14 (the mesh). Every launch
+(the services), 13-serve (the server), 14 (the mesh) and 15 (a) to (c)
+(reference-cases). Every launch
 count is set to 0 just before each (and before each of phase 12's and
 14's parts) and read just after it: probed_scores from the first,
-fifth, sixth and eighth, block_knn from the first and eighth,
-quant_candidates from the first (the tuner's truth) to the eighth,
-quant_rerank from the second to seventh, frontier_bfs,
+fifth, sixth, eighth and ninth, block_knn from the first, eighth and
+ninth (the IVF fuzz's graph builds),
+quant_candidates from the first (the tuner's truth) to the ninth,
+quant_rerank from the second to seventh and the ninth, frontier_bfs,
 frontier_bfs_compact and bfs_relax from the third, decay_sweep from the
 fourth and eighth, add_layer_norm, embed_layer_norm and
 masked_attention from the fifth,
@@ -385,8 +404,9 @@ HYB_QUERIES, HYB_LAT = 48, 300
 CX_EDGES = 10_000
 LINKER_SHAPES = ((128, 256, 128), (256, 128, 64))  # (B, cand, k): linker, dedup
 DECAY_EDGES, DECAY_CHUNK = 10_000_000, 1_000_000    # config #5; CHUNK
-# config #5's 10M edges cut for time (to 1M in PR 7, 500,000 in PR 14)
-DECAY_STORE_EDGES, DECAY_STORE_NODES = 500_000, 50_000
+# config #5's 10M edges cut for time (to 1M in PR 7, 500,000 in PR 14,
+# 250,000 in PR 16 to make room for phase 15)
+DECAY_STORE_EDGES, DECAY_STORE_NODES = 250_000, 25_000
 DECAY = dict(daily_rate=0.01, shield=0.8, delete_threshold=0.05,
              prune_threshold=0.1)                   # DecayConfig()
 DECAY_BYTES_PER_EDGE = 20   # 13 in (3 f32 + a bool), 7 out (f32 + 3 bools)
@@ -475,6 +495,14 @@ MESH_LAYOUTS = {"4": (4, 1), "2x2": (4, 2)}
 MESH_LAT, MESH_RUNS, MESH_ROUNDS = 200, 3, 10
 MESH_NODES, MESH_SEARCHES = 5000, 50
 TUNE_QUERIES, TUNE_CAND = 256, 32   # K1 at the tuner's shape
+# phase 15: the reference's model fuzz (its seeds, ops and check
+# interval), its IVF fuzz (seeds, steps, width, lists) and the tie order
+# of a flat index with every row stored three times, at each batch
+REF_FUZZ_SEEDS, REF_FUZZ_OPS, REF_FUZZ_EVERY = (7, 99, 2026), 200, 25
+IVF_FUZZ_SEEDS, IVF_FUZZ_STEPS = (0, 1, 2), 120
+IVF_FUZZ_DIM, IVF_FUZZ_NLIST = 32, 8
+TIE_ROWS, TIE_DIM, TIE_QUERIES, TIE_K = 3000, 384, 64, 10
+TIE_BATCHES = (1, 7, 64)
 KERNELS = {               # name -> (source, what it replaces)
     "probed_scores": ("cortex_tpu_torch/csrc/ivf_gather.cu",
                       "cortex_tpu/ops/ivf_gather.py:114"),
@@ -876,7 +904,8 @@ def check_knn_real(knc, fc, index):
                 bound_ms(cap * (d + 8) + TUNE_QUERIES * d
                          + 8 * TUNE_QUERIES * TUNE_CAND,
                          2 * TUNE_QUERIES * cap * d, INT8_OPS_PER_S),
-                rows=cap)
+                rows=cap, int_mm_product_only_ms=time_ms(
+                    lambda: torch._int_mm(qi8, args[0].T), 5))
     return out, k1
 
 
@@ -1662,7 +1691,9 @@ def check_flat_real(fc, index, q_np):
                                                  cand), 10),
             time_ms(lambda: sim.quant_candidates_plain(
                 emb_i8, rinv, qib, qsb, b0, cand), 5),
-            bound_ms(nbytes, 2 * b * cap * d, INT8_OPS_PER_S))
+            bound_ms(nbytes, 2 * b * cap * d, INT8_OPS_PER_S),
+            int_mm_product_only_ms=time_ms(
+                lambda: torch._int_mm(qib, emb_i8.T), 5))
         cv, ci = sim.quant_candidates(emb_i8, rinv, qib, qsb, b0, cand)
         valid = int((cv > -1e29).sum())
         nbytes = 4 * valid * d + 4 * b * d + 8 * cv.numel() + 8 * b * k
@@ -6505,6 +6536,217 @@ def phase_mesh_dryrun(dev, card):
     say("14-mesh-dryrun", seconds=time.monotonic() - t0, **out, card=card)
 
 
+# ------------------------------------------------------------ phase 15
+
+
+def fuzz_node(counter):
+    """tests/test_model_fuzz.py's node for its counter."""
+    from cortex_tpu_torch.types import Node, Source
+    return Node.new("fact", f"Fuzz node {counter} flavor {counter % 7}",
+                    f"Body long enough for checks, entry {counter}.",
+                    Source(agent=f"a{counter % 3}"))
+
+
+def model_fuzz(dev, seed):
+    """Phase 15 (a), the reference's model fuzz (tests/test_model_fuzz.py
+    run_fuzz) on the card: random store, update, delete and search
+    through a flat Cortex whose searches run K1 + K2 (search_path
+    "quant"), held after every REF_FUZZ_EVERY operations to a dict of
+    live nodes: the stored live set, the index's membership, and no dead
+    id in any hit. Returns its counts."""
+    import random
+
+    from cortex_tpu_torch.api import Cortex
+    from cortex_tpu_torch.config import CortexConfig
+    cfg = CortexConfig()
+    cfg.embedding.search_path = "quant"
+    rng = random.Random(seed)
+    cx = Cortex.in_memory(cfg, device=dev)
+    check(cx.index._corpus._choose_path(16) == "quant",
+          "model fuzz: the flat index does not search through K1 + K2")
+    live, counter, hits, bursts = {}, 0, 0, 0
+
+    def agree():
+        stored = {n.id for n in cx.list_nodes() if not n.deleted}
+        check(stored == set(live), f"seed {seed}: stored set != oracle")
+        check(len(cx.index) == len(live), f"seed {seed}: index size")
+        check(all(nid in cx.index for nid in live),
+              f"seed {seed}: a live node missing from the index")
+
+    for step in range(REF_FUZZ_OPS):
+        r = rng.random()
+        if r < 0.45 or not live:
+            counter += 1
+            n = fuzz_node(counter)
+            cx.store(n)
+            live[n.id] = n.title
+        elif r < 0.60:
+            n = cx.get_node(rng.choice(list(live)))
+            n.body = f"Updated body long enough, step {step}."
+            cx.update_node(n)
+        elif r < 0.80:
+            nid = rng.choice(list(live))
+            check(cx.delete_node(nid, hard=rng.random() < 0.5),
+                  f"seed {seed}: delete_node({nid}) failed")
+            del live[nid]
+        else:
+            got = cx.search(f"fuzz node flavor {step % 7}", limit=8,
+                            record_access=False)
+            hits += len(got)
+            check(all(n.id in live for _, n in got),
+                  f"seed {seed} step {step}: a dead node in the hits")
+        if step % REF_FUZZ_EVERY == REF_FUZZ_EVERY - 1:
+            agree()
+            bursts += 1
+    agree()
+    cx.close()
+    return {"seed": seed, "ops": REF_FUZZ_OPS, "checks": bursts + 1,
+            "live": len(live), "hits": hits}
+
+
+def ivf_fuzz(dev, seed):
+    """Phase 15 (b), the reference's IVF fuzz (tests/test_ivf_fuzz.py) on
+    the card: TorchIvfIndex at nprobe = nlist through random upserts,
+    updates, removes, retrains and searches (kind filters, exclusions),
+    each search against the port's BruteForceIndex: the same ids (ranks
+    whose oracle scores lie within NEAR_TIE may swap, counted) and
+    scores within SCORE_ATOL. Returns its counts."""
+    from cortex_tpu_torch.vector import (BruteForceIndex, TorchIvfIndex,
+                                         VectorFilter)
+    rng = np.random.default_rng(seed)
+    ivf = TorchIvfIndex(IVF_FUZZ_DIM, nlist=IVF_FUZZ_NLIST,
+                        nprobe=IVF_FUZZ_NLIST, device=dev)
+    oracle = BruteForceIndex(IVF_FUZZ_DIM)
+    live, next_id, kinds = {}, 0, ["fact", "event", "decision"]
+    searches, swaps = 0, 0
+
+    def vec():
+        return rng.standard_normal(IVF_FUZZ_DIM).astype(np.float32)
+
+    for step in range(IVF_FUZZ_STEPS):
+        op = rng.choice(["insert", "insert", "insert", "update", "remove",
+                         "rebuild", "search", "search"])
+        if op == "insert" or (op in ("update", "remove") and not live):
+            nid, next_id = f"n{next_id}", next_id + 1
+            v, kind = vec(), kinds[int(rng.integers(len(kinds)))]
+            ivf.insert(nid, v, kind=kind, source_agent="f")
+            oracle.insert(nid, v, kind=kind, source_agent="f")
+            live[nid] = kind
+        elif op == "update":
+            nid, v = str(rng.choice(list(live))), vec()
+            ivf.insert(nid, v, kind=live[nid], source_agent="f")
+            oracle.insert(nid, v, kind=live[nid], source_agent="f")
+        elif op == "remove":
+            nid = str(rng.choice(list(live)))
+            check(ivf.remove(nid) == oracle.remove(nid),
+                  f"seed {seed} step {step}: remove({nid}) disagrees")
+            live.pop(nid)
+        elif op == "rebuild":
+            ivf.retrain()
+        else:
+            q, k = vec()[None, :], int(rng.integers(1, 12))
+            flt = None
+            if rng.random() < 0.3:
+                flt = VectorFilter(kinds=[kinds[int(rng.integers(3))]])
+            if rng.random() < 0.15 and live:
+                flt = flt or VectorFilter()
+                flt.exclude_ids = list(rng.choice(
+                    list(live), size=min(3, len(live)), replace=False))
+            got = ivf.search_batch(q, k, flt)[0]
+            want = oracle.search_batch(q, k, flt)[0]
+            ws = [s for _, s in want]
+            check(len(got) == len(want),
+                  f"seed {seed} step {step}: {len(got)} hits, oracle "
+                  f"{len(want)}")
+            for j, ((g, _), (w, _)) in enumerate(zip(got, want)):
+                if g != w:
+                    check(any(abs(ws[j] - ws[o]) <= NEAR_TIE
+                              for o in (j - 1, j + 1) if 0 <= o < len(ws)),
+                          f"seed {seed} step {step}: rank {j} {g} != {w}")
+                    swaps += 1
+            np.testing.assert_allclose([s for _, s in got], ws,
+                                       atol=SCORE_ATOL)
+            searches += 1
+    ivf.close()
+    return {"seed": seed, "steps": IVF_FUZZ_STEPS, "searches": searches,
+            "near_tie_swaps": swaps, "live": len(live)}
+
+
+def tie_order(dev, path):
+    """Phase 15 (c), ROADMAP C's open item: a TorchFlatIndex of TIE_ROWS
+    rows, each of TIE_ROWS // 3 rows stored three times under ids out of
+    slot order, so that scores tie exactly; the same TIE_QUERIES queries
+    (a third of them stored rows) searched at each batch of TIE_BATCHES
+    return the same ids in the same order and the same scores. Returns
+    the path searched and the exact ties seen in the top k."""
+    from cortex_tpu_torch.vector import TorchFlatIndex
+    rng = np.random.default_rng(15)
+    base = rng.standard_normal((TIE_ROWS // 3, TIE_DIM)).astype(np.float32)
+    rows = np.concatenate([base, base[::-1], base])
+    ids = [f"t{(7919 * j) % TIE_ROWS:05d}" for j in range(TIE_ROWS)]
+    index = TorchFlatIndex(TIE_DIM, search_path=path, device=dev)
+    index.insert_batch(ids, rows)
+    q = np.concatenate([base[:TIE_QUERIES // 3], rng.standard_normal(
+        (TIE_QUERIES - TIE_QUERIES // 3, TIE_DIM)).astype(np.float32)])
+    results = {}
+    for b in TIE_BATCHES:
+        results[b] = [h for s in range(0, TIE_QUERIES, b)
+                      for h in index.search_batch(q[s:s + b], TIE_K)]
+    first = results[TIE_BATCHES[0]]
+    for b in TIE_BATCHES[1:]:
+        for j, (w, g) in enumerate(zip(first, results[b])):
+            check([i for i, _ in g] == [i for i, _ in w],
+                  f"tie order ({path}): query {j} at batch {b} "
+                  f"{[i for i, _ in g]} != batch {TIE_BATCHES[0]} "
+                  f"{[i for i, _ in w]}")
+            np.testing.assert_allclose([s for _, s in g],
+                                       [s for _, s in w], atol=SCORE_ATOL)
+    ties = sum(int(sum(a[1] == b_[1] for a, b_ in zip(h, h[1:])))
+               for h in first)
+    check(ties > 0, f"tie order ({path}): no exact tie in the top {TIE_K}")
+    resolved, cap = index._corpus._choose_path(16), index._corpus._cap
+    index.close()
+    return {"search_path": path, "resolved": resolved, "cap": cap,
+            "queries": TIE_QUERIES, "batches": list(TIE_BATCHES),
+            "exact_ties": ties}
+
+
+def entry_on_card(dev):
+    """Phase 15 (d): entry.entry() on the card, its step held to the same
+    step on the CPU: equal top-K ids where no two scores of a row lie
+    within NEAR_TIE, scores within SCORE_ATOL."""
+    from cortex_tpu_torch.entry import entry
+    step, args = entry(dev)
+    t0 = time.monotonic()
+    v, i = (t.cpu().numpy() for t in step(*args))
+    ms = (time.monotonic() - t0) * 1e3
+    step_c, args_c = entry("cpu")
+    want_v, want_i = (t.numpy() for t in step_c(*args_c))
+    err = float(np.abs(v - want_v).max())
+    check(err <= SCORE_ATOL, f"entry: scores {err} from the CPU's")
+    gap = np.abs(np.diff(want_v, axis=1)) > NEAR_TIE
+    pad = np.ones((want_v.shape[0], 1), bool)
+    decided = np.concatenate([pad, gap], 1) & np.concatenate([gap, pad], 1)
+    check((i[decided] == want_i[decided]).all(),
+          "entry: top-k ids differ from the CPU's")
+    return {"shape": list(v.shape), "max_abs_err": err,
+            "decided": int(decided.sum()), "first_call_ms": ms}
+
+
+def phase_reference_cases(dev, card):
+    """Phase 15, the reference's cases on the card: (a) its model fuzz,
+    (b) its IVF fuzz, (c) exact-tie order across batches, (d) entry()."""
+    t0 = time.monotonic()
+    out = {"model_fuzz": [model_fuzz(dev, s) for s in REF_FUZZ_SEEDS]}
+    out["ivf_fuzz"] = [ivf_fuzz(dev, s) for s in IVF_FUZZ_SEEDS]
+    out["tie_order"] = [tie_order(dev, p) for p in ("auto", "exact")]
+    say("15-reference-cases", seconds=time.monotonic() - t0, **out,
+        card=card)
+    t0 = time.monotonic()
+    out = entry_on_card(dev)
+    say("15-entry", seconds=time.monotonic() - t0, **out, card=card)
+
+
 def check_no_reference_import():
     """Fail if any module of the JAX package was imported."""
     loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
@@ -6582,14 +6824,15 @@ def main(argv) -> int:
     perf.update(check_graph_big(gc, dev, gen, card))
     torch.cuda.empty_cache()
 
-    # seven main paths, each read just after it: IVF (3-4, from the build:
+    # nine main paths, each read just after it: IVF (3-4, from the build:
     # its kNN graph runs N1, the tuner K1; with 13's IVF snapshot boot),
     # flat (5-6, and 13's flat snapshot boot after 9), graph (7-8),
     # linker (9-10), encoder (11), services (12, in three parts: the
     # IVF gate after phase 4, the store's services after phase 10, the
-    # flat gate after phase 11) and serve (13-serve, after 12's flat
-    # gate); 9 runs between 7 and 6 because it needs phase 5's index and
-    # phase 7's storage
+    # flat gate after phase 11), serve (13-serve, after 12's flat
+    # gate), mesh (14, in three parts) and reference-cases (15, last);
+    # 9 runs between 7 and 6 because it needs phase 5's index and phase
+    # 7's storage
     ivf = ("probed_scores", "block_knn", "quant_candidates")
     flat, graph = ("quant_candidates", "quant_rerank"), (
         "frontier_bfs", "frontier_bfs_compact", "bfs_relax")
@@ -6602,8 +6845,11 @@ def main(argv) -> int:
     serve = ("add_layer_norm", "embed_layer_norm", "masked_attention",
              "quant_candidates", "quant_rerank")
     mesh = ("probed_scores", "quant_candidates", "decay_sweep", "block_knn")
+    refcases = ("quant_candidates", "quant_rerank", "probed_scores",
+                "block_knn")
     launches = {"ivf": {}, "flat": {}, "graph": {}, "linker": {},
-                "encoder": {}, "services": {}, "serve": {}, "mesh": {}}
+                "encoder": {}, "services": {}, "serve": {}, "mesh": {},
+                "reference-cases": {}}
 
     def take(path, names):
         counts = launch_counts()
@@ -6709,6 +6955,9 @@ def main(argv) -> int:
     mesh_s["cortex_and_dryrun"] = time.monotonic() - t14
     say("14-mesh", seconds=sum(mesh_s.values()), parts_s=mesh_s,
         launches=launches["mesh"], card=card)
+    reset_launches(refcases)                  # the reference's cases (15)
+    phase_reference_cases(dev, card)
+    take("reference-cases", refcases)
     for path, counts in launches.items():
         for name, n in counts.items():
             check(n > 0, f"the {path} main path never launched {name}")

@@ -1,11 +1,13 @@
 """The port's native host kernels (C++ through ctypes), built at first use.
 
 Counterpart of cortex_tpu/native (`build.load` and the wrappers of
-`graph.py`), limited to the three entry points the port calls: the
-threaded exact fp32 re-rank of device candidates against the host
-mirror (`rerank_topk_native`, `host_rerank.cpp`), and the graph
-engine's multi-source BFS with parents (`bfs_depths`) and connected
-components (`components_native`, both `host_graph.cpp`). The two
+`graph.py`), with the same public names: the threaded exact fp32
+re-rank of device candidates against the host mirror
+(`rerank_topk_native`, `host_rerank.cpp`), the graph engine's
+multi-source BFS with parents (`bfs_depths`) and connected components
+(`components_native`), the max-product path (`dijkstra_maxprod`) and
+the host edge-decay sweep (`decay_sweep_native`, the four in
+`host_graph.cpp`). The two
 sources are compiled with the reference's flags (`g++ -O3 -march=native
 -shared -fPIC`, so both packages' re-ranks round alike on one machine)
 into one library in cortex_tpu_torch/_build/host/<hash>/, keyed by a
@@ -99,8 +101,17 @@ def load() -> Optional[ctypes.CDLL]:
         lib.gc_bfs.argtypes = [i32p, i32p, ctypes.c_int32, i32p,
                                ctypes.c_int32, ctypes.c_int32,
                                ctypes.c_int64, i32p, i32p]
+        lib.gc_dijkstra_maxprod.restype = ctypes.c_int32
+        lib.gc_dijkstra_maxprod.argtypes = [
+            i32p, i32p, f32p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, i32p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_double)]
         lib.gc_components.restype = ctypes.c_int32
         lib.gc_components.argtypes = [i32p, i32p, ctypes.c_int32, i32p]
+        lib.gc_decay_sweep.restype = ctypes.c_int64
+        lib.gc_decay_sweep.argtypes = [f32p, f32p, f32p, ctypes.c_int64,
+                                       ctypes.c_float, ctypes.c_float,
+                                       ctypes.POINTER(ctypes.c_uint8)]
         _LIB = lib
         return _LIB
 
@@ -140,6 +151,10 @@ def _i32(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+def _f32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
 def bfs_depths(indptr: np.ndarray, indices: np.ndarray,
                sources: np.ndarray, *, max_depth: int = -1,
                max_visited: int = 0, want_parents: bool = False
@@ -161,6 +176,30 @@ def bfs_depths(indptr: np.ndarray, indices: np.ndarray,
     return depths, rc < 0, parents
 
 
+def dijkstra_maxprod(indptr: np.ndarray, indices: np.ndarray,
+                     weights: np.ndarray, src: int, dst: int, *,
+                     max_len: int = 0
+                     ) -> Optional[Tuple[np.ndarray, float]]:
+    """Max-product path src->dst. Returns (node_rows, product) with an
+    empty array when unreachable, or None without the native lib."""
+    lib = load()
+    if lib is None:
+        return None
+    n = indptr.shape[0] - 1
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    weights = np.ascontiguousarray(weights, np.float32)
+    cap = n + 1
+    out = np.empty(cap, np.int32)
+    w = ctypes.c_double(0.0)
+    ln = lib.gc_dijkstra_maxprod(_i32(indptr), _i32(indices),
+                                 _f32(weights), n, src, dst, max_len,
+                                 _i32(out), cap, ctypes.byref(w))
+    if ln <= 0:
+        return np.empty(0, np.int32), 0.0
+    return out[:ln].copy(), float(w.value)
+
+
 def components_native(indptr: np.ndarray, indices: np.ndarray
                       ) -> Optional[np.ndarray]:
     """Connected-component labels over an undirected CSR, or None."""
@@ -173,3 +212,23 @@ def components_native(indptr: np.ndarray, indices: np.ndarray
     comp = np.empty(n, np.int32)
     lib.gc_components(_i32(indptr), _i32(indices), n, _i32(comp))
     return comp
+
+
+def decay_sweep_native(weights: np.ndarray, eff_rates: np.ndarray,
+                       days: np.ndarray, delete_below: float,
+                       prune_below: float
+                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """In-place decay over [E] edge arrays. Returns (new_weights, flags
+    [0 keep / 1 prune / 2 delete]) or None without the native lib."""
+    lib = load()
+    if lib is None:
+        return None
+    weights = np.ascontiguousarray(weights, np.float32)
+    eff_rates = np.ascontiguousarray(eff_rates, np.float32)
+    days = np.ascontiguousarray(days, np.float32)
+    flags = np.empty(weights.shape[0], np.uint8)
+    lib.gc_decay_sweep(
+        _f32(weights), _f32(eff_rates), _f32(days), weights.shape[0],
+        delete_below, prune_below,
+        flags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return weights, flags

@@ -71,14 +71,15 @@ def _check(weights, days, max_importance, exempt) -> None:
 
 
 def decay_sweep(weights: torch.Tensor, days: torch.Tensor,
-                max_importance: torch.Tensor, exempt: torch.Tensor, *,
+                max_importance: torch.Tensor, exempt: torch.Tensor,
                 daily_rate: float, shield: float, delete_threshold: float,
                 prune_threshold: float
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """D1: weights, days, max_importance f32 [E] and exempt bool [E] ->
     (new_w f32, delete bool, prune bool, changed bool), each [E]. The
-    four scalars are taken as float32, as the reference takes them."""
+    four scalars come in the reference's order, by position or by name,
+    and are taken as float32, as the reference takes them."""
     _check(weights, days, max_importance, exempt)
     scalars = (_f32(daily_rate), _f32(shield), _f32(delete_threshold),
                _f32(prune_threshold))

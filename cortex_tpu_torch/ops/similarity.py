@@ -15,6 +15,11 @@ Counterpart of cortex_tpu/ops/similarity.py:
     167-192): K1, csrc/flat_scan.cu on the card.
   * `cosine_topk_quant_exact` (lines 214-253): K1, then K2
     (`quant_rerank`, csrc/flat_scan.cu on the card).
+  * `cosine_topk_quant` (line 196): the candidate scan alone, K1 through
+    `quant_candidates` on the queries' int8 form.
+  * `cosine_topk` (line 267): the reference's dispatcher, exact unless
+    `prefer_approx`. Its default takes the approximate path only on a
+    TPU, so on the card, as on the CPU, it is the exact scan.
 
 Each kernel wrapper dispatches on its tensors' device with exactly two
 branches: CUDA tensors launch the hand-written kernel (built at first
@@ -147,6 +152,22 @@ def cosine_topk_approx(corpus: torch.Tensor, queries: torch.Tensor, k: int,
     return cosine_topk_xla(corpus, queries, min(k, corpus.shape[0]), bias)
 
 
+def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+                bias: Optional[torch.Tensor] = None,
+                *, prefer_approx: Optional[bool] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Dispatch: the storage-dtype path when prefer_approx, else the
+    exact scan; (scores [B, k], rows [B, k]) as numpy, padded with
+    (NEG_INF, row 0) past N."""
+    n = corpus.shape[0]
+    if prefer_approx and k <= n:
+        v, i = cosine_topk_approx(corpus, queries, k, bias)
+    else:
+        v, i = _pad_topk(*cosine_topk_xla(corpus, queries, min(k, n), bias),
+                         k)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
 # ----------------------------------------------------------- K1: scan
 
 
@@ -211,6 +232,20 @@ def quant_candidates_plain(emb_i8, rinv, qi8, qs, bias, cand
     s = s + bias[None, :]
     v, i = torch.topk(s, min(cand, emb_i8.shape[0]), dim=1)
     return _pad_topk(v, i.to(torch.int32), cand)
+
+
+def cosine_topk_quant(emb_i8: torch.Tensor, rinv: torch.Tensor,
+                      queries: torch.Tensor, cand: int,
+                      bias: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 candidate scan (K1) of f32 queries [B, d] (normalized):
+    the top-`cand` candidates by descaled score ([B, cand] f32 values,
+    [B, cand] int32 rows). Callers re-rank them exactly."""
+    if bias is None:
+        bias = torch.zeros(emb_i8.shape[0], dtype=torch.float32,
+                           device=emb_i8.device)
+    qi8, qs = quantize_queries(queries)
+    return quant_candidates(emb_i8, rinv, qi8, qs, bias.reshape(-1), cand)
 
 
 # --------------------------------------------------------- K2: re-rank

@@ -1,5 +1,7 @@
-"""Device selection and timed spans."""
+"""Device selection, timed spans and the profiler scope."""
 
-from .tracing import SpanStats, reset_stats, span, stats, timed
+from .tracing import (SpanStats, profile_trace, reset_stats, span, stats,
+                      timed)
 
-__all__ = ["SpanStats", "reset_stats", "span", "stats", "timed"]
+__all__ = ["SpanStats", "profile_trace", "reset_stats", "span", "stats",
+           "timed"]

@@ -3,9 +3,10 @@
 Copy of cortex_tpu/utils/tracing.py: `span()` is a timed scope that
 logs its duration and feeds a process-wide table (`stats()`,
 `reset_stats()`), `timed` its decorator form. The auto-linker's cycle
-runs its legs inside spans (linker.scan, linker.search, ...). The
-reference's `profile_trace` wraps jax.profiler and is not copied: the
-port traces the card with torch.profiler (chip_smoke.py --profile).
+runs its legs inside spans (linker.scan, linker.search, ...).
+`profile_trace(log_dir)` is the reference's device-profile scope on
+torch.profiler: the host's and, with CUDA, the card's activity, written
+as a Chrome trace into log_dir.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
+import os
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -69,3 +71,35 @@ def timed(name: str = ""):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[None]:
+    """Capture a torch.profiler trace (Chrome trace JSON in log_dir) for
+    the scope. No-ops with a warning when the profiler can't start
+    (e.g. nested inside another profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = None
+    try:
+        if torch.autograd.profiler._is_profiler_enabled:
+            raise RuntimeError("a profiler is already running")
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        p = profile(activities=acts)
+        p.start()
+        prof = p
+    except RuntimeError as e:
+        log.warning("profiler unavailable: %s", e)
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                os.makedirs(log_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    log_dir, f"trace.{os.getpid()}.{time.time_ns()}.json"))
+            except (RuntimeError, OSError) as e:
+                log.warning("profiler trace not written: %s", e)

@@ -11,6 +11,9 @@ chain (`write_delta` / `apply_delta`), byte for byte in the reference's
 format, so a file written by either package opens in the other; and
 `rebuild`, the compaction. The mesh indexes of parallel/ share all of
 it (their `_fresh_corpus` is their own); `index_info` adds their mesh.
+`BruteForceIndex` is the reference's exact numpy scan, the ground truth
+of the recall tests, on the host and in the same tie order (a stable
+argsort, ties in insertion order).
 """
 
 from __future__ import annotations
@@ -18,12 +21,13 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..errors import IndexError_
+from ..ops.similarity import normalize_rows
 from ..utils.device import resolve_device
 from .shard import DeviceCorpus
 
@@ -338,3 +342,74 @@ def _hits(scores: np.ndarray, ids) -> List[List[SearchHit]]:
     return [[(nid, float(scores[b, j])) for j, nid in enumerate(row)
              if nid is not None]
             for b, row in enumerate(ids)]
+
+
+class BruteForceIndex(VectorIndex):
+    """Numpy exact scan; ground truth for recall tests."""
+
+    def __init__(self, dim: int):
+        self.dim = dim
+        self._vecs: Dict[str, np.ndarray] = {}
+        self._kind: Dict[str, str] = {}
+        self._agent: Dict[str, str] = {}
+
+    def insert(self, node_id: str, vector: np.ndarray, *,
+               kind: str = "", source_agent: str = "") -> None:
+        v = np.asarray(vector, np.float32)
+        if v.shape != (self.dim,):
+            raise IndexError_(f"vector shape {v.shape} != ({self.dim},)")
+        self._vecs[node_id] = normalize_rows(v[None, :])[0]
+        self._kind[node_id] = kind
+        self._agent[node_id] = source_agent
+
+    def remove(self, node_id: str) -> bool:
+        self._kind.pop(node_id, None)
+        self._agent.pop(node_id, None)
+        return self._vecs.pop(node_id, None) is not None
+
+    def search_batch(self, vectors: np.ndarray, k: int,
+                     flt: Optional[VectorFilter] = None, *,
+                     refine: bool = True) -> List[List[SearchHit]]:
+        flt = flt or VectorFilter()
+        ids = [i for i in self._vecs
+               if (flt.kinds is None or self._kind[i] in flt.kinds)
+               and (flt.source_agent is None
+                    or self._agent[i] == flt.source_agent)
+               and i not in flt.exclude_ids]
+        if not ids:
+            return [[] for _ in range(len(vectors))]
+        mat = np.stack([self._vecs[i] for i in ids])
+        q = normalize_rows(np.asarray(vectors, np.float32))
+        s = q @ mat.T
+        out = []
+        for b in range(q.shape[0]):
+            order = np.argsort(-s[b], kind="stable")[:k]
+            out.append([(ids[j], float(s[b, j])) for j in order])
+        return out
+
+    def __len__(self) -> int:
+        return len(self._vecs)
+
+    def __contains__(self, node_id: str) -> bool:
+        return node_id in self._vecs
+
+    def save(self, path: str) -> None:
+        ids = list(self._vecs)
+        np.savez_compressed(
+            path,
+            vectors=(np.stack([self._vecs[i] for i in ids]) if ids
+                     else np.zeros((0, self.dim), np.float32)),
+            meta=json.dumps({"dim": self.dim, "ids": ids,
+                             "kinds": [self._kind[i] for i in ids],
+                             "agents": [self._agent[i] for i in ids]}))
+
+    def load(self, path: str) -> None:
+        z = np.load(path, allow_pickle=False)
+        meta = json.loads(str(z["meta"]))
+        self._vecs.clear()
+        self._kind.clear()
+        self._agent.clear()
+        for j, nid in enumerate(meta["ids"]):
+            self._vecs[nid] = z["vectors"][j]
+            self._kind[nid] = meta["kinds"][j]
+            self._agent[nid] = meta["agents"][j]

@@ -10,7 +10,9 @@ decay sweep through the out-of-process worker), a store -> search pass
 through the text encoder (a "flax:<npz>" model), a gated store, a
 rejected duplicate, a briefing, a query and a retention sweep, a
 SQLite store closed and reopened from its index snapshot with an HTTP
-search served over it (the port's server/http.py on a local port), and
+search served over it (the port's server/http.py on a local port), the
+public names the port shares with the reference (BruteForceIndex, the
+native Dijkstra and decay sweep, profile_trace around entry()), and
 reports what it saw as JSON; the tests below check that report.
 `python -m cortex_tpu_torch --help` runs with the same blocks.
 Another runs the decay worker itself (python -m cortex_tpu_torch.linker.decay_worker) with the
@@ -206,6 +208,46 @@ SCRIPT = textwrap.dedent("""
 
     with tempfile.TemporaryDirectory() as workdir:
         out["served"] = served(workdir)
+
+    def surface(workdir):
+        # the reference's public names the port also carries
+        import os
+        import numpy as np
+        from cortex_tpu_torch.entry import entry
+        from cortex_tpu_torch.native import (decay_sweep_native,
+                                             dijkstra_maxprod)
+        from cortex_tpu_torch.ops import (cosine_scores, cosine_topk,
+                                          cosine_topk_quant,
+                                          cosine_topk_xla, normalize_rows)
+        from cortex_tpu_torch.utils import profile_trace
+        from cortex_tpu_torch.vector import (BruteForceIndex, DeviceCorpus,
+                                             SimilarityConfig, STEmbedder,
+                                             apply_score_decay)
+        bf = BruteForceIndex(4)
+        bf.insert("a", np.array([1, 0, 0, 0], np.float32))
+        bf.insert("b", np.array([0, 1, 0, 0], np.float32))
+        path, w = dijkstra_maxprod(np.array([0, 1, 2, 2], np.int32),
+                                   np.array([1, 2], np.int32),
+                                   np.array([0.5, 0.5], np.float32), 0, 2)
+        _, flags = decay_sweep_native(np.ones(2, np.float32),
+                                      np.ones(2, np.float32),
+                                      np.array([0, 9], np.float32),
+                                      0.01, 0.1)
+        with profile_trace(workdir):
+            step, args = entry("cpu")
+            v, i = step(*args)
+        return {"bf_top1": bf.search_batch(np.eye(4, dtype=np.float32)[:1],
+                                           1)[0][0][0],
+                "path": path.tolist(), "weight": w,
+                "flags": flags.tolist(), "entry": list(v.shape),
+                "traces": len(os.listdir(workdir)),
+                "named": all(callable(f) for f in (
+                    cosine_scores, cosine_topk, cosine_topk_quant,
+                    cosine_topk_xla, normalize_rows, SimilarityConfig,
+                    STEmbedder, apply_score_decay, DeviceCorpus))}
+
+    with tempfile.TemporaryDirectory() as workdir:
+        out["surface"] = surface(workdir)
     out["jax_loaded"] = any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         for m, v in sys.modules.items() if v is not None)
@@ -331,6 +373,13 @@ def test_every_module_imports_without_jax(report):
                  "parallel", "parallel.sharding", "parallel.sharded_index",
                  "parallel.sharded_ivf", "multichip", "__main__"):
         assert f"cortex_tpu_torch.{name}" in mods
+
+
+def test_public_surface_without_jax(report):
+    assert report["surface"] == {"bf_top1": "a", "path": [0, 1, 2],
+                                 "weight": 0.25, "flags": [0, 2],
+                                 "entry": [32, 16], "traces": 1,
+                                 "named": True}
 
 
 def test_linker_runs_without_jax(report):

@@ -3,14 +3,11 @@ on the port: meshes of eight `cpu` devices; the primitives' cases build
 their inputs with numpy where the reference uses jax.numpy (the port's
 shard_corpus and sharded_engine_step take numpy or torch arrays and lay
 them out themselves, so the reference's jax.device_put of the edge
-arrays goes), and the reference's numpy BruteForceIndex is the
-oracle."""
+arrays goes), and the port's BruteForceIndex is the oracle."""
 
-from cortex_tpu.vector.index import BruteForceIndex  # noqa: F401
 from torch_reference_cases import port_cases
 
 exec(port_cases("test_mesh2d.py", [
-    (r"from cortex_tpu\.vector\.index import BruteForceIndex\n", ""),
     (r"\bTpuFlatIndex\b", "TorchFlatIndex"),
     (r"import jax\n(\s+)import jax\.numpy as jnp\n\s+from jax\.sharding "
      r"import NamedSharding, PartitionSpec as P\n",
@@ -28,3 +25,4 @@ def test_cases_run_on_the_port():
     m = build_mesh(8, replicas=2, devices=["cpu"] * 8)  # noqa: F821
     assert type(m).__module__ == "cortex_tpu_torch.parallel.sharding"
     assert m.shape == {"replica": 2, "shard": 4} and m.virtual
+    assert BruteForceIndex.__module__ == "cortex_tpu_torch.vector.index"  # noqa: F821

@@ -16,10 +16,16 @@ not there fails.
 
 `CLI_ON_CPU` is the rewrite that runs the reference's in-process CLI
 calls, main([...]), with the port's `--device cpu`.
+
+`storage` is tests/conftest.py's fixture of that name on the port's
+MemoryStorage and SqliteStorage: a port file that imports it runs the
+reference's storage cases on the port's stores, not the reference's.
 """
 
 import re
 from pathlib import Path
+
+import pytest
 
 TESTS = Path(__file__).resolve().parent
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)cortex_tpu\b", re.M)
@@ -89,3 +95,14 @@ def drop_cases(ns, reasons):
         else:
             assert test in ns, case
             del ns[test]
+
+
+@pytest.fixture(params=["memory", "sqlite"])
+def storage(request, tmp_path):
+    from cortex_tpu_torch.storage import MemoryStorage, SqliteStorage
+    if request.param == "memory":
+        yield MemoryStorage()
+    else:
+        s = SqliteStorage(str(tmp_path / "test.db"))
+        yield s
+        s.close()
