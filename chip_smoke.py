@@ -348,8 +348,9 @@ cortex_tpu_torch package beside it.
 --profile builds the kernels, phase 3's and phase 5's indexes, measures
 each one's search speed as phases 3 and 5 do, then traces
 PROFILE_ROUNDS searches at batch 64 and at batch 1 with torch.profiler:
-host ms per search in each layer's span, device ms per kernel, and the
-device's idle share of the traced wall. The Chrome traces go to
+host ms per search in each of the program's search regions
+(utils/tracing.py) and their self times, candidate rows per query,
+device ms per kernel, and the device's idle share of the traced wall. The Chrome traces go to
 profile_out/ beside this script. Last, on the flat index's planes, it
 times K1's kernel whole and cut short after each of its parts, and K2
 with its largest warp sort of 64, 256 and 1,024 entries, each from
@@ -2568,10 +2569,9 @@ def profile_hybrid(dev, index, rows, card):
     del index.search_batch_async, mirror.per_anchor
     host, devt = {}, {}
     for e in prof.key_averages():
-        # spans (these, and profile_layers' on the index's corpus) have a
+        # spans (these, and the program's search regions) have a
         # device-side range over the kernels they launched: left out
-        if e.key.startswith(("H0.", "H1.", "H2.", "L0.", "L1.", "L2.",
-                             "L4.")):
+        if e.key.startswith(("H0.", "H1.", "H2.", "search.")):
             if e.device_type != DeviceType.CUDA and e.key[0] == "H":
                 host[e.key] = e.cpu_time_total / 1e3 / len(qs)
         elif e.device_type == DeviceType.CUDA:
@@ -3953,30 +3953,19 @@ def phase_cortex_linker(dev, workdir, card):
 
 def profile_layers(name, index, q_np, q_lat):
     """Trace PROFILE_ROUNDS searches of index `name` at batch 64 and at
-    batch 1. Spans:
-    L0 search_batch (the whole search), L1 sync and filter codes, L2
-    dispatch (enqueue only; the fetch that waits for the device lies
-    between L2 and L4), L4 host exact re-rank and id map. Device time
-    sums the kernels' own rows (a span's device-side range is left out:
-    it covers the kernels it launched), so the idle share is
-    1 - busy / wall."""
+    batch 1. Spans: L0 search_batch (the whole search, this function's),
+    and the program's own regions (utils/tracing.py), which record while
+    the profiler runs: search.dispatch (search.prepare, search.launch)
+    and search.finish (search.fetch: the copy that waits for the device;
+    search.expand, search.rerank, search.hits), with their self times
+    and the counters per query. Device time sums the kernels' own rows
+    (a span's device-side range is left out: it covers the kernels it
+    launched), so the idle share is 1 - busy / wall."""
     from pathlib import Path
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     import torch
-    co = index._corpus
-
-    def span(name, fn):
-        def wrapped(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return wrapped
-
-    spans = {"L1.sync": "sync", "L1.filter_codes": "_filter_codes",
-             "L2.dispatch": "_dispatch_search", "L4.rerank_host": "_finish_topk"}
-    for span_name, attr in spans.items():
-        setattr(co, attr, span(span_name, getattr(co, attr)))
-    spans["L0.search_batch"] = None
+    from cortex_tpu_torch.utils import tracing
     out_dir = Path(__file__).resolve().parent / "profile_out"
     out_dir.mkdir(exist_ok=True)
     for label, batches in (("batch64", [q_np] * PROFILE_ROUNDS),
@@ -3985,6 +3974,7 @@ def profile_layers(name, index, q_np, q_lat):
         for q in batches[:3]:
             index.search_batch(q, K)
         torch.cuda.synchronize()
+        tracing.reset_counters()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3995,16 +3985,23 @@ def profile_layers(name, index, q_np, q_lat):
             wall = (time.perf_counter() - t0) * 1e3 / len(batches)
         host, dev = {}, {}
         for e in prof.key_averages():
-            if e.key in spans:
+            if e.key.startswith(("L0.", "search.")):
                 if e.device_type != DeviceType.CUDA:
                     host[e.key] = e.cpu_time_total / 1e3 / len(batches)
             elif e.device_type == DeviceType.CUDA:
                 dev[e.key[:80]] = e.self_device_time_total / 1e3 / len(
                     batches)
+        selfs = tracing.self_times()
+        queries = tracing.counters().get("search.queries", 0)
         busy = sum(dev.values())
         say(f"profile-{name}-{label}", rounds=len(batches),
             traced_wall_ms=wall, device_busy_ms=busy,
             device_idle_share=1 - busy / wall, host_ms=host,
+            self_ms={k: v * 1e3 / len(batches) for k, v in selfs.items()
+                     if k.startswith("search.")},
+            rows_per_query={k: v / max(1, queries) for k, v in
+                            tracing.counters().items()
+                            if k.endswith("_rows")},
             device_ms=dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8]))
         prof.export_chrome_trace(str(out_dir / f"trace_{name}_{label}.json"))
 

@@ -47,6 +47,7 @@ import torch
 from ..errors import IndexError_
 from ..ops.similarity import (cosine_topk_xla, quant_candidates,
                               quantize_queries, quantize_rows_centered)
+from ..utils.tracing import timed
 from ..vector.index import TorchFlatIndex
 from ..vector.shard import MIN_CAP, DeviceCorpus, build_bias, to_device
 from .sharding import (Mesh, build_mesh, pad_batch, place_rows,
@@ -157,6 +158,7 @@ class ShardedCorpus(DeviceCorpus):
     def _shard_rows(self) -> int:
         return self._cap // self._n_shard
 
+    @timed("index.layout")
     def _upload_full(self, quant: bool) -> None:
         """Every plane to every shard, straight from the host mirror; the
         int8 shadow centered on the live mean, as on one device."""

@@ -16,9 +16,12 @@ batch size instead of dispatch count.
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from ..utils import tracing
 
 
 class BatcherClosed(RuntimeError):
@@ -44,12 +47,16 @@ class _MicroBatcher:
         self._closed = False
         self.batches = 0
         self.items = 0
+        # submit time of the oldest queued item, while tracing is active
+        self._oldest_ns: Optional[int] = None
 
     async def _submit(self, *payload):
         if self._closed:
             raise BatcherClosed("batcher is closed")
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
+        if not self._pending and tracing.active():
+            self._oldest_ns = time.perf_counter_ns()
         self._pending.append((*payload, fut))
         if len(self._pending) >= self.max_batch:
             await self._flush()
@@ -65,6 +72,11 @@ class _MicroBatcher:
         if not self._pending:
             return
         batch, self._pending = self._pending, []
+        oldest, self._oldest_ns = self._oldest_ns, None
+        if oldest is not None:
+            tracing.elapsed("server.batch_wait", oldest)
+        tracing.count("server.batches")
+        tracing.count("server.batch_queries", len(batch))
         try:
             await self._flush_batch(batch)
             self.batches += 1

@@ -14,6 +14,8 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
+from ..utils import tracing
+
 _BUCKETS = [0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
             5.0, 10.0]
 
@@ -73,6 +75,8 @@ class CortexMetrics:
             out: List[str] = []
             self.set_gauge_unlocked("cortex_uptime_seconds",
                                     time.time() - self.started_at)
+            if tracing.active():
+                self._mirror_tracing_unlocked()
             names = sorted({n for n, _ in list(self._counters)
                             + list(self._gauges) + list(self._hist)})
             for name in names:
@@ -106,6 +110,19 @@ class CortexMetrics:
     def set_gauge_unlocked(self, name: str, value: float, **labels) -> None:
         self._types.setdefault(name, "gauge")
         self._gauges[self._key(name, labels)] = value
+
+    def _mirror_tracing_unlocked(self) -> None:
+        """The process's span table and trace counters
+        (utils/tracing.py), rendered while tracing is active."""
+        for span_name, st in tracing.stats().items():
+            for name, value in (("cortex_span_seconds_total", st.total_s),
+                                ("cortex_span_calls_total", st.count)):
+                self._types.setdefault(name, "counter")
+                self._counters[self._key(name, {"span": span_name})] = value
+        for counter, n in tracing.counters().items():
+            self._types.setdefault("cortex_trace_count_total", "counter")
+            self._counters[self._key("cortex_trace_count_total",
+                                     {"name": counter})] = n
 
     # ------------------------------------------------------------- mirrors
     def mirror_storage(self, stats) -> None:

@@ -29,6 +29,7 @@ import torch
 from ..errors import IndexError_
 from ..ops.similarity import normalize_rows
 from ..utils.device import resolve_device
+from ..utils.tracing import region
 from .shard import DeviceCorpus
 
 SearchHit = Tuple[str, float]          # (node_id, cosine score)
@@ -167,7 +168,12 @@ class TorchFlatIndex(VectorIndex):
         finish = self._corpus.topk_async(
             vectors, k, kinds=flt.kinds, agent=flt.source_agent,
             exclude_ids=flt.exclude_ids, refine=refine)
-        return lambda: _hits(*finish())
+
+        def hits():
+            scores, ids = finish()
+            with region("search.hits", finish.call):
+                return _hits(scores, ids)
+        return hits
 
     def search_stream(self, vectors: np.ndarray, k: int,
                       flt: Optional[VectorFilter] = None,

@@ -69,6 +69,7 @@ from ..ops.ivf_gather import probed_scores
 from ..ops.similarity import (NEG_INF, quant_candidates, quantize_queries,
                               quantize_rows_centered)
 from ..utils.device import resolve_device
+from ..utils.tracing import active, count, region, timed
 from . import knn_graph
 from .index import TorchFlatIndex, mesh_info
 from .shard import (DeviceCorpus, MAX_EXCLUDE, MAX_FILTER_KINDS,
@@ -467,6 +468,7 @@ class IvfCorpus(DeviceCorpus):
         return min(c, max(8, c // 8))
 
     # ------------------------------------------------------------- build
+    @timed("index.layout")
     def _build_ivf(self) -> None:
         """Full (re)build: train centroids on the device, pack every live
         row into a cluster slot, upload the block layout. Runs under the
@@ -1117,10 +1119,20 @@ class IvfCorpus(DeviceCorpus):
         device's own candidate first; the exact re-rank then scores
         everything fp32-true, so refinement can only add recall.
         REFINE_HOPS >= 2 re-expands from the exact-scored top of each
-        hop's additions. Runs under the corpus lock."""
+        hop's additions. Runs under the corpus lock, in region
+        search.expand; counter search.expanded_rows: the valid rows it
+        added, after the dedup."""
         nbrs = self._nbrs_h
         if nbrs is None or REFINE_FRONTIER <= 0 or REFINE_HOPS <= 0:
             return i, valid
+        with region("search.expand"):
+            i2, v2 = self._expand_graph(nbrs, i, valid, q_np, flt)
+            if active():
+                count("search.expanded_rows", int(v2[:, i.shape[1]:].sum()))
+        return i2, v2
+
+    def _expand_graph(self, nbrs, i, valid, q_np, flt):
+        """_expand_candidates' work over the graph table nbrs."""
         kinds, agent, exclude_ids = flt if flt else (None, None, None)
         codes = acode = ex_rows = None
         if kinds is not None:

@@ -39,6 +39,15 @@ corpora also set the capacity ladder's row alignment (`_row_alignment`)
 and pad a query batch to their replica count (`_pad_batch`, sliced
 back by `_unpad_batch`); every other method is shared.
 
+Tracing (utils/tracing.py): while it is active, `topk_async` runs in
+region search.dispatch (search.prepare: normalize, sync, filter codes,
+k bucket; search.launch: each `_dispatch_search`), and its callable in
+search.finish under the same call id (search.fetch: the copy to the
+host; search.expand, search.rerank: the host re-rank; search.hits: the
+masks and the id map), with counters search.calls, search.queries,
+search.rerank_rows and search.redispatch. The build's spans, on
+always: index.insert (`upsert_batch`) and index.layout (a full upload).
+
 Concurrency: dispatch and every mutation hold the corpus lock. Device
 work is enqueued on the current CUDA stream, so a later in-place layout
 update runs after an earlier search's kernels. The device-to-host fetch
@@ -61,6 +70,7 @@ from ..ops.similarity import (NEG_INF, cosine_topk_approx,
                               cosine_topk_quant_exact, cosine_topk_xla,
                               normalize_rows, quant_candidates,
                               quantize_queries, quantize_rows_centered)
+from ..utils.tracing import active, count, region, timed
 
 MIN_CAP = 1024
 MAX_FILTER_KINDS = 16
@@ -255,6 +265,7 @@ class DeviceCorpus:
             return self._emb_fits()
         return self._cap * self.dim <= self._hbm_budget
 
+    @timed("index.insert")
     def upsert_batch(self, ids: Sequence[str], vectors: np.ndarray,
                      kinds: Sequence[str], agents: Sequence[str]) -> None:
         """Insert or overwrite rows. Row assignment, code interning and
@@ -382,6 +393,7 @@ class DeviceCorpus:
         emb_i8.index_copy_(0, idx, self._to_dev(q))
         ri.index_copy_(0, idx, self._to_dev(rinv))
 
+    @timed("index.layout")
     def _upload_full(self, quant: bool) -> None:
         self._emb_resident = self._emb_fits()
         # one live-mean pass serves both the bf16 and the int8 centering
@@ -591,18 +603,20 @@ class DeviceCorpus:
         with self._lock:
             if len(self._row_of) == 0:
                 return None
-            self.sync()
-            ak, aa, ex, hb = self._filter_codes(*flt)
-            kk, k_bucket = self._k_bucket(k)
+            with region("search.prepare"):
+                self.sync()
+                ak, aa, ex, hb = self._filter_codes(*flt)
+                kk, k_bucket = self._k_bucket(k)
             gen = self._generation
             mu = self._bf16_mu
             step = chunk if chunk > 0 else max(1, q_np.shape[0])
             vs, rs, rescore = [], [], False
             for s0 in range(0, max(1, q_np.shape[0]), step):
-                qp, b = self._pad_batch(q_np[s0:s0 + step])
-                v, i, rescore = self._dispatch_search(
-                    qp, ak, aa, ex, k_bucket, host_bias=hb)
-                v, i = self._unpad_batch(v, i, b)
+                with region("search.launch"):
+                    qp, b = self._pad_batch(q_np[s0:s0 + step])
+                    v, i, rescore = self._dispatch_search(
+                        qp, ak, aa, ex, k_bucket, host_bias=hb)
+                    v, i = self._unpad_batch(v, i, b)
                 vs.append(v)
                 rs.append(i)
         if len(vs) > 1:
@@ -619,9 +633,10 @@ class DeviceCorpus:
             return (np.full((b, k), NEG_INF, np.float32),
                     [[None] * k for _ in range(b)])
         v, i, rescore, kk, gen, mu = dispatched
-        return self._finish_topk(v.cpu().numpy(), i.cpu().numpy(), k, kk,
-                                 gen, q_np, rescore, mu, flt=flt,
-                                 refine=refine)
+        with region("search.fetch"):
+            v, i = v.cpu().numpy(), i.cpu().numpy()
+        return self._finish_topk(v, i, k, kk, gen, q_np, rescore, mu,
+                                 flt=flt, refine=refine)
 
     def _resolve(self, first, redispatch, q_np: np.ndarray, k: int,
                  flt=None, refine: bool = True):
@@ -631,8 +646,10 @@ class DeviceCorpus:
         for _ in range(_RETRIES):
             if out is not None:
                 return out
+            count("search.redispatch")
             out = self._collect(redispatch(), q_np, k, flt, refine)
         if out is None:
+            count("search.redispatch")
             with self._lock:
                 out = self._collect(redispatch(), q_np, k, flt, refine)
         if out is None:
@@ -647,13 +664,25 @@ class DeviceCorpus:
         """Dispatch a batched search without fetching it; returns a
         zero-arg callable that blocks for (scores [B, k], ids [B][k]).
         Dead or padded hits have score <= -1e29 and id None. refine=False
-        skips _expand_candidates."""
-        q_np = normalize_rows(np.asarray(queries, np.float32))
-        flt = (kinds, agent, exclude_ids)
-        first = self._dispatch(q_np, k, flt)
-        return lambda: self._resolve(
-            first, lambda: self._dispatch(q_np, k, flt), q_np, k, flt,
-            refine)
+        skips _expand_candidates. The dispatch runs in region
+        search.dispatch, the callable in search.finish, under one call
+        id: the callable's `call` (None while tracing is off)."""
+        with region("search.dispatch") as scope:
+            with region("search.prepare"):
+                q_np = normalize_rows(np.asarray(queries, np.float32))
+            count("search.calls")
+            count("search.queries", q_np.shape[0])
+            flt = (kinds, agent, exclude_ids)
+            first = self._dispatch(q_np, k, flt)
+        call = scope.call
+
+        def finish():
+            with region("search.finish", call):
+                return self._resolve(
+                    first, lambda: self._dispatch(q_np, k, flt), q_np, k,
+                    flt, refine)
+        finish.call = call
+        return finish
 
     def topk(self, queries: np.ndarray, k: int, *,
              kinds: Optional[Sequence[str]] = None,
@@ -712,11 +741,18 @@ class DeviceCorpus:
         with self._lock:
             if generation != self._generation:
                 return None
-            valid = v > -1e29
-            # a row removed after dispatch is zeroed in the mirror but
-            # its old device score still marks it valid: mask dead-now
-            # rows so they surface as (<= -1e29, None)
-            valid &= self._live_h[np.where(valid, i, 0)]
+            with region("search.hits"):
+                valid = v > -1e29
+                # a row removed after dispatch is zeroed in the mirror but
+                # its old device score still marks it valid: mask dead-now
+                # rows so they surface as (<= -1e29, None)
+                valid &= self._live_h[np.where(valid, i, 0)]
+                if not rescore:
+                    v, i, valid = v[:, :kk], i[:, :kk], valid[:, :kk]
+                    if bf16_mu is not None:
+                        comp = (q_np @ bf16_mu).astype(np.float32)
+                        v = v + comp[:, None]
+                    v = np.where(valid, v, NEG_INF).astype(np.float32)
             if rescore:
                 if refine:
                     # refinement is a serving-recall feature; the bulk
@@ -725,34 +761,37 @@ class DeviceCorpus:
                     # miss band, and the extra host re-rank rows would
                     # tax every cycle
                     i, valid = self._expand_candidates(i, valid, q_np, flt)
-                nat = (rerank_topk_native(self._emb_h, q_np, i, valid, kk)
-                       if _USE_NATIVE_RERANK else None)
-                if nat is not None:
-                    v, i = nat
-                else:
-                    rows = np.where(valid, i, 0)
-                    g = self._emb_h[rows.reshape(-1)].reshape(
-                        rows.shape[0], rows.shape[1], self.dim)
-                    exact = np.matmul(g, q_np[:, :, None])[:, :, 0]
-                    exact = np.where(valid, exact, NEG_INF)
-                    order = np.argsort(-exact, axis=1,
-                                       kind="stable")[:, :kk]
-                    v = np.take_along_axis(exact, order, axis=1)
-                    i = np.take_along_axis(i, order, axis=1)
-            else:
-                v, i, valid = v[:, :kk], i[:, :kk], valid[:, :kk]
-                if bf16_mu is not None:
-                    comp = (q_np @ bf16_mu).astype(np.float32)
-                    v = v + comp[:, None]
-                v = np.where(valid, v, NEG_INF).astype(np.float32)
-            if kk < k:
-                v = np.pad(v, ((0, 0), (0, k - kk)),
-                           constant_values=NEG_INF)
-                i = np.pad(i, ((0, 0), (0, k - kk)))
-            ids = [[self._id_of[r] if v[b_, j] > -1e29 else None
-                    for j, r in enumerate(row)]
-                   for b_, row in enumerate(i)]
+                if active():
+                    count("search.rerank_rows", int(valid.sum()))
+                with region("search.rerank"):
+                    v, i = self._rerank_host(i, valid, q_np, kk)
+            with region("search.hits"):
+                if kk < k:
+                    v = np.pad(v, ((0, 0), (0, k - kk)),
+                               constant_values=NEG_INF)
+                    i = np.pad(i, ((0, 0), (0, k - kk)))
+                ids = [[self._id_of[r] if v[b_, j] > -1e29 else None
+                        for j, r in enumerate(row)]
+                       for b_, row in enumerate(i)]
         return v, ids
+
+    def _rerank_host(self, i: np.ndarray, valid: np.ndarray,
+                     q_np: np.ndarray, kk: int):
+        """(scores, rows) [B, kk]: the valid candidates i scored exactly
+        against the fp32 host mirror, best first, ties in candidate
+        order (the native re-rank, or numpy without it)."""
+        nat = (rerank_topk_native(self._emb_h, q_np, i, valid, kk)
+               if _USE_NATIVE_RERANK else None)
+        if nat is not None:
+            return nat
+        rows = np.where(valid, i, 0)
+        g = self._emb_h[rows.reshape(-1)].reshape(
+            rows.shape[0], rows.shape[1], self.dim)
+        exact = np.matmul(g, q_np[:, :, None])[:, :, 0]
+        exact = np.where(valid, exact, NEG_INF)
+        order = np.argsort(-exact, axis=1, kind="stable")[:, :kk]
+        return (np.take_along_axis(exact, order, axis=1),
+                np.take_along_axis(i, order, axis=1))
 
     def compact(self) -> None:
         """Repack the live rows into rows 0..n-1 of a fresh capacity

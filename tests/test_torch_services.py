@@ -103,8 +103,62 @@ COPIES = ("kinds.py", "relations.py", "query/__init__.py", "query/dsl.py",
           "storage/encrypted.py", "plugins.py", "__main__.py")
 #: (reference text, port text) per file: the only lines, imports aside,
 #: where a copy differs from the reference. The device is an argument;
-#: DeviceFetchTimeout and its except branches are gone
+#: DeviceFetchTimeout and its except branches are gone; the batchers
+#: record their wait and batch sizes, and /metrics renders the span
+#: table and the trace counters, while tracing is active
 SERVING_DIFFERENCES = {
+    "server/batcher.py": [
+        ("import numpy as np\n\n\nclass BatcherClosed",
+         "import numpy as np\n\nfrom ..utils import tracing\n\n\n"
+         "class BatcherClosed"),
+        ("        self.batches = 0\n        self.items = 0\n",
+         "        self.batches = 0\n        self.items = 0\n"
+         "        # submit time of the oldest queued item, while tracing is "
+         "active\n"
+         "        self._oldest_ns: Optional[int] = None\n"),
+        ("        self._pending.append((*payload, fut))\n",
+         "        if not self._pending and tracing.active():\n"
+         "            self._oldest_ns = time.perf_counter_ns()\n"
+         "        self._pending.append((*payload, fut))\n"),
+        ("        batch, self._pending = self._pending, []\n",
+         "        batch, self._pending = self._pending, []\n"
+         "        oldest, self._oldest_ns = self._oldest_ns, None\n"
+         "        if oldest is not None:\n"
+         "            tracing.elapsed(\"server.batch_wait\", oldest)\n"
+         "        tracing.count(\"server.batches\")\n"
+         "        tracing.count(\"server.batch_queries\", len(batch))\n")],
+    "server/metrics.py": [
+        ("from typing import Dict, List, Tuple\n\n",
+         "from typing import Dict, List, Tuple\n\n"
+         "from ..utils import tracing\n\n"),
+        ("                                    time.time() - "
+         "self.started_at)\n",
+         "                                    time.time() - "
+         "self.started_at)\n"
+         "            if tracing.active():\n"
+         "                self._mirror_tracing_unlocked()\n"),
+        ("        self._gauges[self._key(name, labels)] = value\n\n"
+         "    # ----",
+         "        self._gauges[self._key(name, labels)] = value\n\n"
+         "    def _mirror_tracing_unlocked(self) -> None:\n"
+         "        \"\"\"The process's span table and trace counters\n"
+         "        (utils/tracing.py), rendered while tracing is active."
+         "\"\"\"\n"
+         "        for span_name, st in tracing.stats().items():\n"
+         "            for name, value in ((\"cortex_span_seconds_total\", "
+         "st.total_s),\n"
+         "                                (\"cortex_span_calls_total\", "
+         "st.count)):\n"
+         "                self._types.setdefault(name, \"counter\")\n"
+         "                self._counters[self._key(name, {\"span\": "
+         "span_name})] = value\n"
+         "        for counter, n in tracing.counters().items():\n"
+         "            self._types.setdefault(\"cortex_trace_count_total\", "
+         "\"counter\")\n"
+         "            self._counters[self._key(\"cortex_trace_count_total\","
+         "\n"
+         "                                     {\"name\": counter})] = n\n"
+         "\n    # ----")],
     "server/http.py": [
         ("# importing .shard already executes the full vector package "
          "__init__\n# (jax and friends), so take both names from the "
