@@ -344,10 +344,10 @@ def mesh_info(corpus) -> dict:
 
 def _hits(scores: np.ndarray, ids) -> List[List[SearchHit]]:
     """(scores [B, k], ids [B][k]) -> per-query hit lists, dead hits
-    (id None) dropped."""
-    return [[(nid, float(scores[b, j])) for j, nid in enumerate(row)
-             if nid is not None]
-            for b, row in enumerate(ids)]
+    (id None) dropped. One zip a query over plain lists: tolist() gives
+    each score as float() of its numpy value."""
+    return [[(nid, s) for nid, s in zip(row, vals) if nid is not None]
+            for row, vals in zip(ids, scores.tolist())]
 
 
 class BruteForceIndex(VectorIndex):

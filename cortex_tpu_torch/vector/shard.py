@@ -770,9 +770,14 @@ class DeviceCorpus:
                     v = np.pad(v, ((0, 0), (0, k - kk)),
                                constant_values=NEG_INF)
                     i = np.pad(i, ((0, 0), (0, k - kk)))
-                ids = [[self._id_of[r] if v[b_, j] > -1e29 else None
-                        for j, r in enumerate(row)]
-                       for b_, row in enumerate(i)]
+                # plain lists, each row's lookups in one map: no hit is a
+                # numpy scalar; a dead hit is looked up as row 0, then None
+                ok = v > -1e29
+                ids = [list(map(self._id_of.__getitem__, row))
+                       for row in np.where(ok, i, 0).tolist()]
+                dead_b, dead_j = (~ok).nonzero()
+                for b_, j in zip(dead_b.tolist(), dead_j.tolist()):
+                    ids[b_][j] = None
         return v, ids
 
     def _rerank_host(self, i: np.ndarray, valid: np.ndarray,

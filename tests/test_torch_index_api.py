@@ -4,7 +4,8 @@ reference's parameters (names, kinds, defaults; `refine` keyword-only,
 default True), and `refine=False` gives the same hits as `refine=True` on
 the flat index and on an IVF index without the kNN graph (neither has a
 refinement to skip); with the graph, `refine=False` serves exactly the
-unrefined index's hits.
+unrefined index's hits. The finish leg's id map and hit lists, built over
+plain lists, are bit-identical to the per-element loops they replaced.
 """
 
 import inspect
@@ -15,8 +16,9 @@ import pytest
 from cortex_tpu.vector.index import TpuFlatIndex
 from cortex_tpu.vector.index import VectorIndex as JaxVectorIndex
 from cortex_tpu.vector.ivf import TpuIvfIndex
+from cortex_tpu_torch.ops.similarity import NEG_INF, normalize_rows
 from cortex_tpu_torch.vector import TorchFlatIndex, VectorFilter
-from cortex_tpu_torch.vector.index import VectorIndex
+from cortex_tpu_torch.vector.index import VectorIndex, _hits
 from cortex_tpu_torch.vector.ivf import TorchIvfIndex
 
 METHODS = ["search", "search_batch", "search_batch_async", "search_stream"]
@@ -89,3 +91,132 @@ def test_refine_false_skips_the_graph():
             plain.search_stream(q, 7, f, batch=4)
     assert graph._corpus._nbrs_h is not None
     assert plain._corpus._nbrs_h is None
+
+
+# ------------------------------------------------ the finish leg's hit lists
+
+def per_element_finish_topk(co, v, i, k, kk, generation, q_np, rescore,
+                            bf16_mu=None, flt=None, refine=True):
+    """DeviceCorpus._finish_topk as it was before its id map went over
+    plain lists (its regions and counter left out): the id map indexes
+    a numpy scalar per hit."""
+    with co._lock:
+        if generation != co._generation:
+            return None
+        valid = v > -1e29
+        valid &= co._live_h[np.where(valid, i, 0)]
+        if not rescore:
+            v, i, valid = v[:, :kk], i[:, :kk], valid[:, :kk]
+            if bf16_mu is not None:
+                comp = (q_np @ bf16_mu).astype(np.float32)
+                v = v + comp[:, None]
+            v = np.where(valid, v, NEG_INF).astype(np.float32)
+        if rescore:
+            if refine:
+                i, valid = co._expand_candidates(i, valid, q_np, flt)
+            v, i = co._rerank_host(i, valid, q_np, kk)
+        if kk < k:
+            v = np.pad(v, ((0, 0), (0, k - kk)),
+                       constant_values=NEG_INF)
+            i = np.pad(i, ((0, 0), (0, k - kk)))
+        ids = [[co._id_of[r] if v[b_, j] > -1e29 else None
+                for j, r in enumerate(row)]
+               for b_, row in enumerate(i)]
+    return v, ids
+
+
+def per_element_hits(scores, ids):
+    """vector/index.py::_hits as it was: float() of a numpy scalar per
+    hit."""
+    return [[(nid, float(scores[b, j])) for j, nid in enumerate(row)
+             if nid is not None]
+            for b, row in enumerate(ids)]
+
+
+FINISH_ROWS = 100          # fewer than the largest k
+FINISH_KINDS = {
+    "flat": dict(search_path="quant"),                # K1 + K2, no rescore
+    "flat-bf16": dict(storage_dtype="bfloat16"),      # the bf16 shift
+    "flat-host": dict(search_path="quant",
+                      storage_dtype="bfloat16"),      # K1, host re-rank
+    "ivf": dict(nlist=8, nprobe=3, graph_degree=8),   # expansion, host re-rank
+}
+
+
+def finish_index(kind):
+    """FINISH_ROWS live rows of a full capacity, row 0 among them: a
+    dead hit's row may then name a live row, so its id must come from
+    the score, not from the id map."""
+    d = 32
+    kw = FINISH_KINDS[kind]
+    ix = (TorchIvfIndex(d, device="cpu", **kw) if kind == "ivf"
+          else TorchFlatIndex(d, device="cpu", **kw))
+    n = 1024
+    ix.insert_batch([f"n{i}" for i in range(n)], unit_rows(n, d, 5),
+                    kinds=[f"k{i % 3}" for i in range(n)])
+    co = ix._corpus
+    assert co._cap == n
+    for i in range(n):
+        if co._row_of[f"n{i}"] >= FINISH_ROWS:
+            ix.remove(f"n{i}")
+    assert len(ix) == FINISH_ROWS and co._id_of[0] is not None
+    return ix
+
+
+def assert_finish_matches_per_element(ix, b, k, seed):
+    """For no filter and a kind filter: topk_async, search_batch_async
+    and a bare dispatch go out on one layout; rows the first queries
+    would return are removed before any is fetched (live at dispatch,
+    dead at the finish). The callables' (scores, ids) and hits must
+    equal the per-element finish of the bare dispatch, bit for bit,
+    with str ids and Python float scores."""
+    co = ix._corpus
+    q = unit_rows(b, 32, seed)
+    q_np = normalize_rows(q)
+    for flt in (VectorFilter(), VectorFilter(kinds=["k1"])):
+        kinds = flt.kinds
+        before = ix.search_batch(q[:3], 2, flt)
+        dead = {hits[0][0] for hits in before if hits}
+        legacy = co._dispatch(q_np, k, (kinds, None, []))
+        topk = co.topk_async(q, k, kinds=kinds, exclude_ids=[])
+        hits = ix.search_batch_async(q, k, flt)
+        for nid in dead:
+            assert ix.remove(nid)
+        scores, ids = topk()
+        got = hits()
+        v, i, rescore, kk, gen, mu = legacy
+        want_v, want_ids = per_element_finish_topk(
+            co, v.cpu().numpy(), i.cpu().numpy(), k, kk, gen, q_np,
+            rescore, mu, flt=(kinds, None, []))
+        assert scores.dtype == want_v.dtype and scores.shape == (b, k)
+        assert scores.tobytes() == want_v.tobytes()
+        assert ids == want_ids
+        want = per_element_hits(want_v, want_ids)
+        assert got == want and _hits(scores, ids) == want
+        assert all(type(nid) is str and type(s) is float
+                   for row in got for nid, s in row)
+        assert all(nid is None or type(nid) is str
+                   for row in ids for nid in row)
+        assert not dead & {nid for row in got for nid, _ in row}
+        live = len(co._row_of) if kinds is None else sum(
+            co._kind_h[r] == co.kinds.lookup("k1")
+            for r in co._row_of.values())
+        if k > live:               # the tail of every query is None
+            assert all(row[-1] is None for row in ids)
+            assert all(len(row) < k for row in got)
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 128])
+@pytest.mark.parametrize("b", [1, 7, 64, 256])
+@pytest.mark.parametrize("kind", sorted(FINISH_KINDS))
+def test_finish_builds_the_per_element_hits(kind, b, k):
+    assert_finish_matches_per_element(finish_index(kind), b, k, seed=b + k)
+
+
+@pytest.mark.parametrize("kind", sorted(FINISH_KINDS))
+def test_finish_pads_past_the_capacity(kind):
+    """k above the capacity: kk < k, and the tail is padded."""
+    ix = finish_index(kind)
+    k = ix._corpus._cap + 8
+    assert ix._corpus._k_bucket(k)[0] < k
+    assert_finish_matches_per_element(ix, 7, k, seed=3)

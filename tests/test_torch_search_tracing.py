@@ -135,6 +135,9 @@ def test_a_search_records_its_path_once_per_call(kind, mode):
     assert "search.redispatch" not in c
     assert ("search.rerank_rows" in c) == (kind == "ivf")
     assert ("search.expanded_rows" in c) == (kind == "ivf")
+    # hits_ms sums the regions: a nested search.hits would count twice
+    assert not [r for r in tracing.regions()
+                if r.name == "search.hits" and r.parent == "search.hits"]
 
 
 def test_self_time_leaves_out_the_enclosed_regions():
