@@ -18,6 +18,9 @@ min-plus relaxation (G2, ops/graph_bfs.bfs_relax)
     dist <- min(dist, min_over_deg(dist[nbrs]) + 1)
 
 when the walk's frontier overflows or many anchors need a depth each.
+While tracing is active (utils/tracing.py) the packed tier counts the
+anchors it routes to the device walk (hybrid.device_walks) and the walks
+whose result it recomputes on the host (hybrid.host_fallbacks).
 Degree is capped (hub truncation) the way the reference caps auto-edges
 per node at 50 (linker/auto_linker.rs:261-273). The mirror versions
 itself against the AdjacencyCache so it rebuilds only after graph
@@ -39,6 +42,7 @@ import torch
 from ..ops.graph_bfs import (bfs_relax, frontier_bfs, frontier_bfs_compact,
                              unpack_compact)
 from ..utils.device import resolve_device
+from ..utils import tracing
 from .cache import AdjacencyCache
 from .packed import UNREACHED, PackedAdjacency
 
@@ -325,6 +329,7 @@ class DeviceGraphMirror:
             # device frontier walk (the 100M-edge tier): one launch from
             # a host anchor (no sync to enqueue), and one fetch of the
             # reached pairs with their count and flag
+            tracing.count("hybrid.device_walks")
             nbrs = self._packed_device_nbrs(pk)
             packed = frontier_bfs_compact(
                 nbrs, torch.tensor([pk.row_of[a]], dtype=torch.int32),
@@ -341,6 +346,7 @@ class DeviceGraphMirror:
                 # multi-million reach; slower than the walk but never
                 # silently zero-scoring reachable nodes.
                 self.packed_overflows += 1
+                tracing.count("hybrid.host_fallbacks")
                 dist = pk.multi_bfs([pk.row_of[a]], max_hops)
                 rows = np.nonzero(dist != UNREACHED)[0]
                 put(j, rows, dist[rows].astype(np.int32))

@@ -7,7 +7,9 @@ behavioral contract to SqliteStorage, dict-backed.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import shutil
 import time
 from typing import Any, Dict, List, Optional
@@ -186,6 +188,79 @@ class MemoryStorage(Storage):
                 fs, ts = [], []
         if fs:
             yield fs, ts
+
+    # ------------------------------------------------------------- bulk load
+    def bulk_insert_node_rows(self, rows, *,
+                              actor: str = "bulk-import") -> int:
+        """Raw bulk node insert, SqliteStorage's contract: INSERT OR
+        IGNORE on ids (an id already stored, or earlier in `rows`, is
+        left as it is), NO validation (the caller's contract), no
+        per-row audit but one summary row, index_seq moved once by the
+        count inserted. `rows` yields tuples of Node's fields in their
+        order (id, kind, title, body, then any of the rest); the store
+        builds each Node, and takes over any container a row holds.
+        All or nothing: a row that fails to build stores none."""
+        staged: Dict[str, Node] = {}
+        with self._collector_paused():
+            for row in rows:
+                if row[0] not in self._nodes and row[0] not in staged:
+                    staged[row[0]] = Node(*row)
+        self._nodes.update(staged)
+        if staged:
+            self._index_seq += len(staged)
+            self._audit.append(AuditEntry(
+                ts=time.time(), action="bulk_import_nodes",
+                target_id=f"count={len(staged)}", actor=actor))
+        return len(staged)
+
+    def bulk_insert_edge_rows(self, rows, *,
+                              actor: str = "bulk-import") -> int:
+        """Raw bulk edge insert, SqliteStorage's contract: INSERT OR
+        IGNORE on ids, NO endpoint validation and no duplicate scan
+        (the caller's contract: endpoints exist, and one edge a pair
+        and relation), one summary audit row. `rows` yields 8-tuples
+        in Edge's field order (id, from_id, to_id, relation, weight,
+        provenance, created_at, updated_at), the provenance an
+        EdgeProvenance where SQLite takes its JSON. All or nothing."""
+        staged: Dict[str, Edge] = {}
+        stored = self._edges
+        with self._collector_paused():
+            for row in rows:
+                eid = row[0]
+                if eid not in stored and eid not in staged:
+                    staged[eid] = Edge(*row)
+            stored.update(staged)
+            frm, to = self._edges_from, self._edges_to
+            for eid, e in staged.items():
+                out = frm.get(e.from_id)
+                if out is None:
+                    frm[e.from_id] = [eid]
+                else:
+                    out.append(eid)
+                into = to.get(e.to_id)
+                if into is None:
+                    to[e.to_id] = [eid]
+                else:
+                    into.append(eid)
+        if staged:
+            self._audit.append(AuditEntry(
+                ts=time.time(), action="bulk_import_edges",
+                target_id=f"count={len(staged)}", actor=actor))
+        return len(staged)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _collector_paused():
+        """The cyclic garbage collector off for the scope: a bulk load
+        makes millions of objects that hold no cycles, and the collector's
+        passes over the growing heap would add a third to its time."""
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if was:
+                gc.enable()
 
     def update_edge_weight_atomic(self, edge_id: str, weight: float,
                                   touch: bool = True) -> bool:

@@ -16,7 +16,9 @@ BFS over the host adjacency when the anchor neighborhood is small (cost
 frontier walk, then the min-plus relaxation over the device adjacency
 table) when the frontier covers a large fraction of the graph. The
 vector search is enqueued before the proximity pass and fetched after
-it, so the two overlap either way.
+it, so the two overlap either way: `search_async` takes the query's
+vector and returns the fetch-and-fuse callable, and `search` is the
+embedding of the query's text, that entry and the callable.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 from ..graph.csr import DeviceGraphMirror
 from ..storage.base import Storage
 from ..types import Node
+from ..utils.tracing import count, region
 from .embedding import EmbeddingService
 from .index import TorchFlatIndex, VectorFilter
 
@@ -61,44 +64,69 @@ class HybridSearch:
         self.mirror = mirror
 
     def search(self, query: HybridQuery) -> List[HybridResult]:
-        emb = self.embedder.embed(query.query_text)
+        return self.search_async(self.embedder.embed(query.query_text),
+                                 query)()
+
+    def search_async(self, emb: np.ndarray, query: HybridQuery):
+        """The search of `query` for its embedded text `emb`, split in
+        two: the vector leg is enqueued on the device and, with anchors,
+        the proximity leg runs on the host meanwhile; the returned
+        zero-arg callable fetches the hits and fuses them. Tracing
+        (utils/tracing.py): region hybrid.proximity (the proximity leg)
+        and, in the callable, hybrid.fuse (hydration, scoring, sort),
+        both under the vector leg's call id; counters hybrid.queries,
+        hybrid.anchors (anchors with edges) and hybrid.reached_rows
+        (nodes within reach of one)."""
         flt = VectorFilter(kinds=query.kind_filter) \
             if query.kind_filter else None
         k = max(query.limit * 3, 1)
-
-        if not query.anchors:
-            hits = self.index.search(emb, k, flt)
-            out = []
-            for nid, score in hits:
-                # hydrate BEFORE truncating, and skip tombstones: a
-                # search dispatched just before a delete can return the
-                # deleted id (the plain-search path guards the same
-                # race in Cortex.finish_search) — truncating first
-                # would also shrink the result below `limit` despite
-                # the 3x overfetch
-                node = self.storage.get_node(nid)
-                if node is None or node.deleted:
-                    continue
-                out.append(HybridResult(node=node, vector_score=score,
-                                        graph_score=0.0,
-                                        combined_score=score))
-                if len(out) >= query.limit:
-                    break
-            return out
-
         # overlap the two legs: enqueue the device search WITHOUT
         # fetching, run the anchor BFS on the host while the device
         # works, then collect
-        fetch = self.index.search_batch_async(emb[None, :], k, flt)
+        fetch = self.index.search_batch_async(
+            np.asarray(emb)[None, :], k, flt)
+        if not query.anchors:
+            return lambda: self._vector_only(fetch()[0], query.limit)
+        call = getattr(fetch, "call", None)
         # one call resolves ONE adjacency snapshot and returns both
         # the anchor column order and the depth arrays — resolving
         # them separately can straddle a background packed-snapshot
         # swap, misaligning anchors[j] with the depth columns
         # (ADVICE r4: IndexError / wrong nearest_anchor)
-        anchors, depth_map = self.mirror.per_anchor(
-            query.anchors, query.max_anchor_depth)
-        hits = fetch()[0]
+        with region("hybrid.proximity", call):
+            anchors, depth_map = self.mirror.per_anchor(
+                query.anchors, query.max_anchor_depth)
+        count("hybrid.queries")
+        count("hybrid.anchors", len(anchors))
+        count("hybrid.reached_rows", len(depth_map))
 
+        def finish() -> List[HybridResult]:
+            hits = fetch()[0]
+            with region("hybrid.fuse", call):
+                return self._fuse(hits, anchors, depth_map, query)
+        return finish
+
+    def _vector_only(self, hits, limit: int) -> List[HybridResult]:
+        out = []
+        for nid, score in hits:
+            # hydrate BEFORE truncating, and skip tombstones: a
+            # search dispatched just before a delete can return the
+            # deleted id (the plain-search path guards the same
+            # race in Cortex.finish_search) — truncating first
+            # would also shrink the result below `limit` despite
+            # the 3x overfetch
+            node = self.storage.get_node(nid)
+            if node is None or node.deleted:
+                continue
+            out.append(HybridResult(node=node, vector_score=score,
+                                    graph_score=0.0,
+                                    combined_score=score))
+            if len(out) >= limit:
+                break
+        return out
+
+    def _fuse(self, hits, anchors, depth_map,
+              query: HybridQuery) -> List[HybridResult]:
         results: List[HybridResult] = []
         w = query.vector_weight
         for nid, vscore in hits:

@@ -160,7 +160,8 @@ class TorchFlatIndex(VectorIndex):
                            refine: bool = True):
         """Dispatch without fetching; returns a zero-arg callable that
         blocks for the hits, so callers can overlap device work with
-        host work."""
+        host work. The callable's `call` is the search's call id in the
+        trace tables (None while tracing is off)."""
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2:
             raise IndexError_("search_batch expects [B, d]")
@@ -173,6 +174,7 @@ class TorchFlatIndex(VectorIndex):
             scores, ids = finish()
             with region("search.hits", finish.call):
                 return _hits(scores, ids)
+        hits.call = finish.call
         return hits
 
     def search_stream(self, vectors: np.ndarray, k: int,

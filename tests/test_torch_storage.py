@@ -35,6 +35,18 @@ PACKAGES = {"jax": (JaxSqlite, JaxNode, JaxEdge, JaxNodeFilter),
 KINDS = ("fact", "event", "decision", "goal", "observation")
 
 
+#: where a copy differs from the reference: the port's section between
+#: the two markers, which the reference lacks. The in-memory store has
+#: the raw bulk path that SqliteStorage has (bulk_insert_node_rows and
+#: bulk_insert_edge_rows), so that Cortex.in_memory loads millions of
+#: edges as a SQLite store does
+ADDED_SECTIONS = {
+    "storage/memory_store.py": (
+        "    # ------------------------------------------------------------- "
+        "bulk load\n",
+        "    def update_edge_weight_atomic(")}
+
+
 def _without_imports(text):
     return [line for line in text.splitlines()
             if not re.match(r"\s*(from|import)\s", line)]
@@ -44,6 +56,11 @@ def _without_imports(text):
 def test_copy_matches_reference(rel):
     ref = (REPO / "cortex_tpu" / rel).read_text()
     port = (REPO / "cortex_tpu_torch" / rel).read_text()
+    if rel in ADDED_SECTIONS:
+        start, end = ADDED_SECTIONS[rel]
+        assert port.count(start) == 1 and start not in ref, rel
+        a = port.index(start)
+        port = port[:a] + port[port.index(end, a):]
     assert _without_imports(port) == _without_imports(ref)
 
 
