@@ -10,7 +10,8 @@ adjacency is packed into a fixed-degree neighbor table on `device`
 and depths come from four tiers, chosen per call by what the frontier
 needs: a host frontier BFS over the AdjacencyCache (small frontiers);
 above PACKED_EDGE_THRESHOLD edges the packed CSR snapshot
-(graph/packed.py) with its vectorized host BFS; the device frontier walk
+(graph/packed.py), walked on the host over only the rows each anchor
+reaches (_sparse_walk); the device frontier walk
 (G1, ops/graph_bfs.frontier_bfs, or frontier_bfs_compact on the packed
 snapshot's table) over the resident table; and the full
 min-plus relaxation (G2, ops/graph_bfs.bfs_relax)
@@ -19,8 +20,9 @@ min-plus relaxation (G2, ops/graph_bfs.bfs_relax)
 
 when the walk's frontier overflows or many anchors need a depth each.
 While tracing is active (utils/tracing.py) the packed tier counts the
-anchors it routes to the device walk (hybrid.device_walks) and the walks
-whose result it recomputes on the host (hybrid.host_fallbacks).
+anchors its host walk serves (hybrid.host_walks), those it routes to the
+device walk (hybrid.device_walks) and the walks whose result it
+recomputes on the host (hybrid.host_fallbacks).
 Degree is capped (hub truncation) the way the reference caps auto-edges
 per node at 50 (linker/auto_linker.rs:261-273). The mirror versions
 itself against the AdjacencyCache so it rebuilds only after graph
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -54,6 +57,55 @@ DEFAULT_MAX_DEG = 64
 
 def _pad_deg(d: int) -> int:
     return max(8, ((d + 7) // 8) * 8)
+
+
+def _sparse_walk(pk: PackedAdjacency, src: int, hops: int, budget: int,
+                 seen: np.ndarray) -> Optional[tuple]:
+    """PackedAdjacency.multi_bfs from one source row, touching only
+    the rows it reaches: (rows, int32 depths), the rows of each depth
+    ascending and the depths in order, or None when the visited count
+    exceeds `budget` (the same hop-by-hop check as multi_bfs). `seen`
+    is an [n] int8 scratch of UNREACHED; the walk marks what it reaches
+    there and puts those entries back before it returns, overflow
+    included."""
+    found = [np.array([src], np.int64)]
+    seen[src] = 0
+    visited = 1
+    frontier = found[0]
+    try:
+        for h in range(hops):
+            nb = pk._expand(frontier)
+            if nb.size == 0:
+                break
+            nb = np.unique(nb)
+            nb = nb[seen[nb] == UNREACHED]
+            if nb.size == 0:
+                break
+            found.append(nb)
+            seen[nb] = h + 1
+            visited += nb.size
+            if visited > budget:
+                return None
+            frontier = nb
+        return (np.concatenate(found),
+                np.repeat(np.arange(len(found), dtype=np.int32),
+                          [len(f) for f in found]))
+    finally:
+        for rows in found:
+            seen[rows] = UNREACHED
+
+
+def _depth_map(ids: List[str], n_anchors: int,
+               reached: List[tuple]) -> Dict[str, np.ndarray]:
+    """{node id: [n_anchors] int32 depths, INF_DEPTH where that anchor
+    does not reach} from each walk's (anchor column, rows, depths),
+    built as one [R, n_anchors] matrix over the R distinct rows."""
+    cols, rows, depths = zip(*reached)
+    uniq, inv = np.unique(np.concatenate(rows), return_inverse=True)
+    mat = np.full((len(uniq), n_anchors), INF_DEPTH, np.int32)
+    mat[inv.reshape(-1), np.repeat(cols, [len(r) for r in rows])] = \
+        np.concatenate(depths)
+    return dict(zip(map(ids.__getitem__, uniq.tolist()), mat))
 
 
 class DeviceGraphMirror:
@@ -292,12 +344,12 @@ class DeviceGraphMirror:
     def _packed_per_anchor(self, anchor_ids: Sequence[str],
                            max_hops: int) -> tuple:
         """per_anchor over the packed tiers — returns (anchors_used,
-        depth_map) resolved against ONE snapshot: vectorized host
-        BFS per anchor; budget overflow routes THAT anchor to the
-        device frontier walk with on-device compaction. An
-        unavailable snapshot (first build failed, in backoff)
-        degrades to no proximity — hybrid then scores vector-only
-        rather than 500ing."""
+        depth_map) resolved against ONE snapshot: the host walk per
+        anchor over only the rows it reaches; budget overflow routes
+        THAT anchor to the device frontier walk with on-device
+        compaction. An unavailable snapshot (first build failed, in
+        backoff) degrades to no proximity — hybrid then scores
+        vector-only rather than 500ing."""
         try:
             pk = self._ensure_packed()
         except Exception:  # noqa: BLE001 — backoff/build failure
@@ -307,52 +359,52 @@ class DeviceGraphMirror:
         known = [a for a in anchor_ids if a in pk.row_of]
         if not known:
             return [], {}
-        out: Dict[str, np.ndarray] = {}
-
-        def put(j: int, rows: np.ndarray, depths: np.ndarray) -> None:
-            ids = pk.ids
-            for r, d in zip(rows.tolist(), depths.tolist()):
-                nid = ids[r]
-                row = out.get(nid)
-                if row is None:
-                    row = np.full(len(known), INF_DEPTH, np.int32)
-                    out[nid] = row
-                row[j] = d
-
-        for j, a in enumerate(known):
-            dist = pk.multi_bfs([pk.row_of[a]], max_hops,
-                                self.HOST_FRONTIER_BUDGET)
-            if dist is not None:
-                rows = np.nonzero(dist != UNREACHED)[0]
-                put(j, rows, dist[rows].astype(np.int32))
-                continue
-            # device frontier walk (the 100M-edge tier): one launch from
-            # a host anchor (no sync to enqueue), and one fetch of the
-            # reached pairs with their count and flag
-            tracing.count("hybrid.device_walks")
-            nbrs = self._packed_device_nbrs(pk)
-            packed = frontier_bfs_compact(
-                nbrs, torch.tensor([pk.row_of[a]], dtype=torch.int32),
-                min(max_hops, self.HOP_CAP),
-                self.DEVICE_FRONTIER_CAP, self.PACKED_OUT_CAP,
-                self._packed_device_scratch(pk, nbrs)).cpu().numpy()
-            rows_h, depth_h, count, overflow = unpack_compact(packed)
-            if overflow or count >= min(self.PACKED_OUT_CAP,
-                                        nbrs.shape[0]):
-                # frontier-cap overflow OR the compaction width
-                # filled: the device result is a SUBSET. Correctness
-                # falls back to the exact packed host BFS without a
-                # budget — vectorized numpy, O(visited), seconds at
-                # multi-million reach; slower than the walk but never
-                # silently zero-scoring reachable nodes.
-                self.packed_overflows += 1
-                tracing.count("hybrid.host_fallbacks")
-                dist = pk.multi_bfs([pk.row_of[a]], max_hops)
-                rows = np.nonzero(dist != UNREACHED)[0]
-                put(j, rows, dist[rows].astype(np.int32))
-                continue
-            put(j, rows_h, depth_h)
-        return known, out
+        reached = []      # (anchor column, rows, depths) a walk
+        # the walk's [n] scratch, from a pool cached on the snapshot
+        # (beside its device table, for the same reason): a call owns
+        # one until it appends it back, so concurrent calls never share
+        # one, and the pool holds one a concurrent call at most
+        pool = pk.__dict__.setdefault("_host_scratch", [])
+        try:
+            seen = pool.pop()
+        except IndexError:
+            seen = np.full(pk.n, UNREACHED, np.int8)
+        try:
+            for j, a in enumerate(known):
+                walked = _sparse_walk(pk, pk.row_of[a], max_hops,
+                                      self.HOST_FRONTIER_BUDGET, seen)
+                if walked is not None:
+                    tracing.count("hybrid.host_walks")
+                    reached.append((j, *walked))
+                    continue
+                # device frontier walk (the 100M-edge tier): one launch from
+                # a host anchor (no sync to enqueue), and one fetch of the
+                # reached pairs with their count and flag
+                tracing.count("hybrid.device_walks")
+                nbrs = self._packed_device_nbrs(pk)
+                packed = frontier_bfs_compact(
+                    nbrs, torch.tensor([pk.row_of[a]], dtype=torch.int32),
+                    min(max_hops, self.HOP_CAP),
+                    self.DEVICE_FRONTIER_CAP, self.PACKED_OUT_CAP,
+                    self._packed_device_scratch(pk, nbrs)).cpu().numpy()
+                rows_h, depth_h, count, overflow = unpack_compact(packed)
+                if overflow or count >= min(self.PACKED_OUT_CAP,
+                                            nbrs.shape[0]):
+                    # frontier-cap overflow OR the compaction width
+                    # filled: the device result is a SUBSET. Correctness
+                    # falls back to the exact packed host BFS without a
+                    # budget — O(visited) numpy, seconds at multi-million
+                    # reach; slower than the device walk but never
+                    # silently zero-scoring reachable nodes.
+                    self.packed_overflows += 1
+                    tracing.count("hybrid.host_fallbacks")
+                    reached.append((j, *_sparse_walk(
+                        pk, pk.row_of[a], max_hops, sys.maxsize, seen)))
+                    continue
+                reached.append((j, rows_h, depth_h))
+        finally:
+            pool.append(seen)
+        return known, _depth_map(pk.ids, len(known), reached)
 
     def _in_graph(self, node_id: str) -> bool:
         if self._packed_mode():
