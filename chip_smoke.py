@@ -736,7 +736,7 @@ def check_real_layout(kc, index, queries):
     kc.compare(args, filtered=False)
     kc.compare((emb, rinv, rows, kinds, agents, probe, qi8,
                 *filter_lists(dev, rows, on=True, agent=0)), filtered=True)
-    bias = torch.from_numpy(co._host_bias(["k1"], None, None)).to(dev)
+    bias = torch.from_numpy(co._search_filter(["k1"]).exact_bias()).to(dev)
     kc.compare(args, filtered=False, host_bias=bias)
     # skewed: 64 copies of one query, so each of its lists is probed 64
     # times; repeats: each query probes lists twice, plus invalid ids
@@ -1646,9 +1646,9 @@ def check_flat_real(fc, index, q_np):
     emb_i8, rinv = co._dev_q
     q = torch.from_numpy(q_np).to(emb.device)
     qi8, qs = sim.quantize_queries(q)
-    host = torch.from_numpy(co._host_bias(
-        None, None, [co._id_of[r] for r in range(0, 20000, 97)])).to(
-            emb.device)
+    host = torch.from_numpy(co._search_filter(
+        exclude_ids=[co._id_of[r] for r in range(0, 20000, 97)]
+    ).exact_bias()).to(emb.device)
     biases = flat_biases(live, kinds, agents, None, host=host, agent=0)
     for bias in biases:
         for cand in FLAT_CANDS:

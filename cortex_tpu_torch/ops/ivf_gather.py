@@ -27,7 +27,8 @@ import torch
 from .build import load_ops
 from .similarity import F32_EXACT_DIM, NEG_INF, int8_dot, require_exact_f32
 
-NO_FILTER = -1          # filter list entry: filter off / pad (shard.py)
+#: filter list entry: filter off (ak[0], aa) / pad (ex)
+NO_FILTER = -1
 PLAIN_BUDGET_BYTES = 1 << 30    # f32 gather per query chunk, plain version
 
 
@@ -38,9 +39,10 @@ def probed_scores(emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl, probe,
 
     emb_i8 [C, L, d] int8; rinv_sl [C, L] f32; slot_rows / kind_sl /
     agent_sl [C, L] int32; probe [B, p] int32; qi8 [B, d] int8; ak [16] /
-    aa [1] / ex [64] int32 filter lists (shard.py encoding). filtered=
-    False drops the kind/agent/exclusion tests and REQUIRES the lists to
-    be all NO_FILTER. Returns (scores [B, p*L] f32: q_i8 . row_i8 * rinv,
+    aa [1] / ex [64] int32 filter lists (ak[0] or aa NO_FILTER: that
+    filter off; ex padded with NO_FILTER, which matches only empty
+    slots). filtered=False drops the kind/agent/exclusion tests and
+    REQUIRES the lists to be all NO_FILTER. Returns (scores [B, p*L] f32: q_i8 . row_i8 * rinv,
     NEG_INF where masked; rows [B, p*L] int32: the raw slot rows)."""
     dev = emb_i8.device
     if dev.type == "cuda":

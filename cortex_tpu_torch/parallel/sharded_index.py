@@ -4,25 +4,26 @@ Counterpart of cortex_tpu/parallel/sharded_index.py. The same
 `VectorIndex` surface as TorchFlatIndex; the corpus lives split along
 the row axis over a `Mesh` (parallel/sharding.py): shard s of replica
 group r keeps rows s * cap / S .. (s + 1) * cap / S of every plane on
-device (r, s). A search runs per shard on its device (the bias of the
-filters on its local rows, exclusions by global row; the product or
-the int8 scan; a local top-k) and merges the shards' candidates
-exactly on the lead device (sharding.py::run_sharded, merge_topk):
-top-k is associative, so the merge gives the single-device answer.
+device (r, s). A search runs per shard on its device (the filter's
+bias on its rows; the product or the int8 scan; a local top-k) and
+merges the shards' candidates exactly on the lead device
+(sharding.py::run_sharded, merge_topk): top-k is associative, so the
+merge gives the single-device answer.
 
-Routes (`_dispatch_search`):
+Routes (`_dispatch_search`), each given the resolved filter
+(vector/shard.py::SearchFilter), whose `bias_on` builds a shard's bias
+from the filter lists (exclusions by global row) or takes its rows of
+an overflowing filter's exact host bias:
 
-  * exact (`_sharded_filtered_topk`, and `_sharded_hostbias_topk` with
-    the exact host bias of an overflowing filter, sharded by rows):
-    the fp32 (or bf16) product + bias and torch.topk on each shard;
-    the scores are final.
-  * quant (`_sharded_quant_topk`, `_sharded_quant_hostbias_topk`): K1
-    (ops/similarity.py::quant_candidates) on each shard's centered
-    int8 shadow, then the merge to the global top-cand, returned with
-    needs_rescore, so DeviceCorpus._finish_topk re-ranks the merged
-    candidates exactly against the fp32 host mirror, as the reference
-    does (the single-device port re-ranks on the device with K2; K2 per
-    shard would re-rank other candidates). The reference's over-fetch
+  * exact (`_sharded_filtered_topk`): the fp32 (or bf16) product + bias
+    and torch.topk on each shard; the scores are final.
+  * quant (`_sharded_quant_topk`): K1 (ops/similarity.py::
+    quant_candidates) on each shard's centered int8 shadow, then the
+    merge to the global top-cand, returned with needs_rescore, so
+    DeviceCorpus._finish_topk re-ranks the merged candidates exactly
+    against the fp32 host mirror, as the reference does (the
+    single-device port re-ranks on the device with K2; K2 per shard
+    would re-rank other candidates). The reference's over-fetch
     (max(512, 2 cand)) feeds approx_max_k; K1's top-cand is exact, so
     each shard asks for min(cand, shard rows) and the merged set is the
     global int8 top-cand.
@@ -31,10 +32,10 @@ Routes (`_dispatch_search`):
 
 Host bookkeeping (id <-> row maps, dirty tracking, interners, the
 re-rank) is DeviceCorpus's. A sync scatters dirty rows into their
-shards in place, or re-uploads every shard past max(4096, cap // 8)
-dirty rows; capacity growth re-places the layout (a full upload), and
-the ladder's 1.25x steps stay divisible by the shard count
-(_row_alignment).
+shards in place, or re-uploads every shard past the bulk rule
+(DeviceCorpus._bulk_resync); capacity growth re-places the layout (a
+full upload), and the ladder's 1.25x steps stay divisible by the shard
+count (_row_alignment).
 """
 
 from __future__ import annotations
@@ -49,75 +50,47 @@ from ..ops.similarity import (cosine_topk_xla, quant_candidates,
                               quantize_queries, quantize_rows_centered)
 from ..utils.tracing import timed
 from ..vector.index import TorchFlatIndex
-from ..vector.shard import MIN_CAP, DeviceCorpus, build_bias, to_device
+from ..vector.shard import MIN_CAP, DeviceCorpus, SearchFilter, to_device
 from .sharding import (Mesh, build_mesh, pad_batch, place_rows,
                        replica_count, run_sharded, shard_count,
                        unpad_rows)
 
 
-def _sharded_filtered_topk(mesh: Mesh, planes, ak, aa, ex, q, *, k: int):
-    """Per shard: the filters' bias on its rows (exclusions by global
-    row), the product and its top-k; merged to the global top-k.
+def _sharded_filtered_topk(mesh: Mesh, planes, flt: SearchFilter, q, *,
+                           k: int):
+    """Per shard: the filter's bias on its rows (SearchFilter.bias_on),
+    the product and its top-k; merged to the global top-k.
     planes[r][s] = (emb, live, kind_code, agent_code)."""
     shard_rows = planes[0][0][1].shape[0]
 
     def local(r, s, dev, qd):
         emb, live, kc, ac = planes[r][s]
         off = s * shard_rows
-        bias = build_bias(live, kc, ac, ak, aa, ex, row_offset=off)
-        v, i = cosine_topk_xla(emb, qd, min(k, shard_rows), bias)
+        v, i = cosine_topk_xla(emb, qd, min(k, shard_rows),
+                               flt.bias_on(live, kc, ac, off))
         return v, i + off
 
     return run_sharded(mesh, q, local, k)
 
 
-def _sharded_hostbias_topk(mesh: Mesh, planes, bias, q, *, k: int):
-    """The exact route with an overflowing filter: the exact [cap] host
-    bias, sharded by rows (bias[r][s] = (shard bias,))."""
-    shard_rows = planes[0][0][1].shape[0]
-
-    def local(r, s, dev, qd):
-        off = s * shard_rows
-        v, i = cosine_topk_xla(planes[r][s][0], qd, min(k, shard_rows),
-                               bias[r][s][0])
-        return v, i + off
-
-    return run_sharded(mesh, q, local, k)
-
-
-def _quant_local(qplanes, cand, shard_rows, bias_of):
-    def local(r, s, dev, qd):
-        emb_i8, rinv = qplanes[r][s]
-        qi8, qs = quantize_queries(qd)
-        v, i = quant_candidates(emb_i8, rinv, qi8, qs, bias_of(r, s),
-                                min(cand, shard_rows))
-        return v, i + s * shard_rows
-    return local
-
-
-def _sharded_quant_topk(mesh: Mesh, planes, qplanes, ak, aa, ex, q, *,
-                        cand: int):
-    """The int8 scan sharded: per shard the filters' bias and K1 to its
+def _sharded_quant_topk(mesh: Mesh, planes, qplanes, flt: SearchFilter, q,
+                        *, cand: int):
+    """The int8 scan sharded: per shard the filter's bias and K1 to its
     top-cand (global rows), merged to the global top-cand for the host
     re-rank. qplanes[r][s] = (emb_i8, rinv)."""
     shard_rows = qplanes[0][0][1].shape[0]
 
-    def bias_of(r, s):
+    def local(r, s, dev, qd):
         _, live, kc, ac = planes[r][s]
-        return build_bias(live, kc, ac, ak, aa, ex,
-                          row_offset=s * shard_rows)
+        emb_i8, rinv = qplanes[r][s]
+        off = s * shard_rows
+        qi8, qs = quantize_queries(qd)
+        v, i = quant_candidates(emb_i8, rinv, qi8, qs,
+                                flt.bias_on(live, kc, ac, off),
+                                min(cand, shard_rows))
+        return v, i + off
 
-    return run_sharded(mesh, q, _quant_local(qplanes, cand, shard_rows,
-                                             bias_of), cand)
-
-
-def _sharded_quant_hostbias_topk(mesh: Mesh, qplanes, bias, q, *,
-                                 cand: int):
-    """The int8 scan with an overflowing filter's exact host bias,
-    sharded by rows."""
-    shard_rows = qplanes[0][0][1].shape[0]
-    return run_sharded(mesh, q, _quant_local(
-        qplanes, cand, shard_rows, lambda r, s: bias[r][s][0]), cand)
+    return run_sharded(mesh, q, local, cand)
 
 
 class ShardedCorpus(DeviceCorpus):
@@ -206,7 +179,7 @@ class ShardedCorpus(DeviceCorpus):
             quant = self._quant_enabled()
             if (self._dev is None or self._full_resync
                     or (quant and self._dev_q is None)
-                    or len(self._dirty) > max(4096, self._cap // 8)):
+                    or self._bulk_resync()):
                 self._upload_full(quant)
                 self._full_resync = False
             elif self._dirty:
@@ -219,32 +192,17 @@ class ShardedCorpus(DeviceCorpus):
         # no sharded approx route; the exact merge is near its cost
         return "xla" if path == "approx" else path
 
-    def _host_bias_parts(self, host_bias: np.ndarray):
-        return place_rows(self.mesh, (host_bias,), self._shard_rows())
-
-    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
-                         host_bias: Optional[np.ndarray] = None):
+    def _dispatch_search(self, q_np: np.ndarray, flt: SearchFilter,
+                         k_bucket: int):
         """Enqueue the per-shard search and its merge (q_np is padded to
         the replica count by _dispatch). Returns (values, global rows,
         needs_rescore) on the lead device."""
-        path = self._choose_path(k_bucket)
-        if path == "quant":
-            cand = self._cand_count(k_bucket)
-            if host_bias is not None:
-                v, i = _sharded_quant_hostbias_topk(
-                    self.mesh, self._dev_q, self._host_bias_parts(host_bias),
-                    q_np, cand=cand)
-            else:
-                v, i = _sharded_quant_topk(self.mesh, self._dev, self._dev_q,
-                                           ak, aa, ex, q_np, cand=cand)
+        if self._choose_path(k_bucket) == "quant":
+            v, i = _sharded_quant_topk(self.mesh, self._dev, self._dev_q, flt,
+                                       q_np, cand=self._cand_count(k_bucket))
             return v, i, True
-        if host_bias is not None:     # overflowing filters: exact host bias
-            v, i = _sharded_hostbias_topk(self.mesh, self._dev,
-                                          self._host_bias_parts(host_bias),
-                                          q_np, k=k_bucket)
-        else:
-            v, i = _sharded_filtered_topk(self.mesh, self._dev, ak, aa, ex,
-                                          q_np, k=k_bucket)
+        v, i = _sharded_filtered_topk(self.mesh, self._dev, flt, q_np,
+                                      k=k_bucket)
         return v, i, False
 
 

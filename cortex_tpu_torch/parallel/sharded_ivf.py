@@ -23,8 +23,10 @@ reference turns its Pallas kernel off here only because Mosaic is
 single-device; its XLA path computes the same function as
 probed_scores, which this port launches on every shard.
 
-slot_rows hold global rows, so neither the exclusion list nor an
-overflowing filter's host bias (replicated to every shard) is offset.
+The resolved filter (vector/shard.py::SearchFilter) goes to every
+device once a search (`lists_on`); slot_rows hold global rows, so
+neither its exclusion list nor an overflowing filter's host bias
+(replicated to every shard) is offset.
 The kNN-graph build and the nprobe tuner read host copies of the
 planes (_graph_build_arrays): N1 (block_knn) runs on chunks uploaded to
 the lead device, and the tuner's truth is K1 there. Incremental writes
@@ -42,16 +44,14 @@ import torch
 
 from ..ops.similarity import NEG_INF
 from ..vector.ivf import IvfCorpus, TorchIvfIndex, dedup_rows, ivf_search
-from ..vector.shard import MAX_EXCLUDE, MAX_FILTER_KINDS, NO_FILTER, \
-    to_device
+from ..vector.shard import SearchFilter, to_device
 from .sharding import (Mesh, build_mesh, pad_batch, place_rows,
                        replica_count, run_sharded, shard_count,
                        unpad_rows)
 
 
-def _sharded_ivf_topk(mesh: Mesh, layout, q, ak, aa, ex, *, p_s: int,
-                      cand: int, filtered: bool, dedup: bool,
-                      host_bias: Optional[np.ndarray] = None):
+def _sharded_ivf_topk(mesh: Mesh, layout, q, flt: SearchFilter, *,
+                      p_s: int, cand: int, dedup: bool):
     """Per shard: probe its own lists, scan them, its top-cand; merged
     to the global top-cand on the lead device, spill duplicates masked
     after the merge. layout[r][s] = (cent, emb_i8, rinv_sl, slot_rows,
@@ -59,19 +59,14 @@ def _sharded_ivf_topk(mesh: Mesh, layout, q, ak, aa, ex, *, p_s: int,
     global rows, 0 where invalid)."""
     # the filter lists (and the host bias) on each distinct device before
     # any shard is enqueued (run_sharded's queries likewise)
-    filters = {dev: (to_device(np.asarray(ak, np.int32), dev),
-                     to_device(np.asarray([aa], np.int32), dev),
-                     to_device(np.asarray(ex, np.int32), dev),
-                     None if host_bias is None
-                     else to_device(host_bias, dev))
-               for dev in set(mesh.devices.flat)}
+    lists = {dev: flt.lists_on(dev) for dev in set(mesh.devices.flat)}
 
     def local(r, s, dev, qd):
         lay = layout[r][s]
-        ak_t, aa_t, ex_t, hb = filters[dev]
-        return ivf_search(lay, qd, ak_t, aa_t, ex_t,
-                          p=min(p_s, lay[0].shape[0]), cand=cand,
-                          filtered=filtered, dedup=False, host_bias=hb)
+        ak, aa, ex, hb = lists[dev]
+        return ivf_search(lay, qd, ak, aa, ex, p=min(p_s, lay[0].shape[0]),
+                          cand=cand, filtered=flt.filtered, dedup=False,
+                          host_bias=hb)
 
     v, rows = run_sharded(mesh, q, local, cand)
     return dedup_rows(v, rows) if dedup else (v, rows)
@@ -130,8 +125,8 @@ class ShardedIvfCorpus(IvfCorpus):
                 for plane, v in zip(self._ivf_dev[r][s][1:], vals):
                     plane.index_put_(idx, to_device(v[sel], dev))
 
-    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
-                         host_bias: Optional[np.ndarray] = None):
+    def _dispatch_search(self, q_np: np.ndarray, flt: SearchFilter,
+                         k_bucket: int):
         """Enqueue the per-shard probe + scan and the merge (q_np padded
         to the replica count); returns (values, GLOBAL rows, True) for
         the inherited expansion and exact host re-rank."""
@@ -145,19 +140,9 @@ class ShardedIvfCorpus(IvfCorpus):
         p_s = max(1, min(self._nprobe(c), c // self._n_shard))
         cand = min(self._cand_count(k_bucket),
                    p_s * self._n_shard * self._slot_cap)
-        if host_bias is not None:
-            ak = np.full(MAX_FILTER_KINDS, NO_FILTER, np.int32)
-            aa = np.int32(NO_FILTER)
-            ex = np.full(MAX_EXCLUDE, NO_FILTER, np.int32)
-            filtered = False
-        else:
-            filtered = bool(ak[0] != NO_FILTER or aa != NO_FILTER
-                            or ex[0] != NO_FILTER)
-        v, rows = _sharded_ivf_topk(self.mesh, self._ivf_dev, q_np, ak, aa,
-                                    ex, p_s=p_s, cand=cand,
-                                    filtered=filtered,
-                                    dedup=self._has_spill,
-                                    host_bias=host_bias)
+        v, rows = _sharded_ivf_topk(self.mesh, self._ivf_dev, q_np, flt,
+                                    p_s=p_s, cand=cand,
+                                    dedup=self._has_spill)
         if v.shape[1] < k_bucket:
             pad = k_bucket - v.shape[1]
             v = torch.nn.functional.pad(v, (0, pad), value=NEG_INF)

@@ -25,7 +25,9 @@ Counterpart of cortex_tpu/vector/ivf.py (IvfCorpus, TpuIvfIndex):
     candidates, widened through the kNN graph (_expand_candidates), then
     get the exact fp32 host re-rank of DeviceCorpus._finish_topk, so
     final scores are fp32-true and the only approximation is candidate
-    membership.
+    membership. The filter arrives resolved (shard.py::SearchFilter):
+    the scan tests its lists, or, for an overflowing filter, gets its
+    host bias gathered per slot; expanded rows pass its `admits`.
 
   * snapshots: state() adds the trained clustering, the tuner's pick and
     the graph (id-relative) to the flat corpus's; TorchIvfIndex writes
@@ -72,8 +74,7 @@ from ..utils.device import resolve_device
 from ..utils.tracing import active, count, region, timed
 from . import knn_graph
 from .index import TorchFlatIndex, mesh_info
-from .shard import (DeviceCorpus, MAX_EXCLUDE, MAX_FILTER_KINDS,
-                    NO_FILTER, PAD_CODE)
+from .shard import PAD_CODE, DeviceCorpus, SearchFilter
 
 log = logging.getLogger("cortex.ivf")
 
@@ -871,10 +872,9 @@ class IvfCorpus(DeviceCorpus):
         then keeps the probe-hit pick."""
         try:
             s = q.shape[0]
-            ak, aa, ex, hb = self._filter_codes(None, None, None)
             _, kb = self._k_bucket(TUNE_TRUTH_K)
-            v, rows, _ = self._dispatch_search(self._pad_batch(q)[0], ak,
-                                               aa, ex, kb, host_bias=hb)
+            v, rows, _ = self._dispatch_search(self._pad_batch(q)[0],
+                                               self._search_filter(), kb)
             v_h, rows_h = v.cpu().numpy()[:s], rows.cpu().numpy()[:s]
             hits = total = 0
             for i in range(s):
@@ -1095,8 +1095,8 @@ class IvfCorpus(DeviceCorpus):
             drifted = (self._trained_live > 0 and
                        (n_live > RETRAIN_GROWTH * self._trained_live
                         or n_live * RETRAIN_GROWTH < self._trained_live))
-            bulk = len(self._dirty) > max(4096, self._cap // 8)
-            if self._full_resync or stale or drifted or bulk:
+            if (self._full_resync or stale or drifted
+                    or self._bulk_resync()):
                 self._build_ivf()
                 self._full_resync = False
                 self._dirty.clear()
@@ -1114,10 +1114,10 @@ class IvfCorpus(DeviceCorpus):
         kNN-graph neighbours of its top REFINE_FRONTIER entries before the
         exact re-rank, so a true top-k row whose cluster ranks low is
         reached through a found neighbour's edge. Expanded rows are
-        checked against the host mirrors (liveness, kind, agent,
-        exclusions: the device never saw them) and deduplicated, the
-        device's own candidate first; the exact re-rank then scores
-        everything fp32-true, so refinement can only add recall.
+        checked with the filter's host predicate (SearchFilter.admits:
+        the device never saw them) and deduplicated, the device's own
+        candidate first; the exact re-rank then scores everything
+        fp32-true, so refinement can only add recall.
         REFINE_HOPS >= 2 re-expands from the exact-scored top of each
         hop's additions. Runs under the corpus lock, in region
         search.expand; counter search.expanded_rows: the valid rows it
@@ -1133,17 +1133,7 @@ class IvfCorpus(DeviceCorpus):
 
     def _expand_graph(self, nbrs, i, valid, q_np, flt):
         """_expand_candidates' work over the graph table nbrs."""
-        kinds, agent, exclude_ids = flt if flt else (None, None, None)
-        codes = acode = ex_rows = None
-        if kinds is not None:
-            codes = np.asarray([self.kinds.lookup(kk) for kk in kinds],
-                               np.int32)
-        if agent is not None:
-            acode = self.agents.lookup(agent)
-        if exclude_ids:
-            ex_rows = np.asarray(
-                [self._row_of[x] for x in exclude_ids
-                 if x in self._row_of], np.int32)
+        sf = self._search_filter(*(flt or ()), host_only=True)
         b = i.shape[0]
         e = min(REFINE_FRONTIER, i.shape[1])
         r = nbrs.shape[1]
@@ -1154,13 +1144,7 @@ class IvfCorpus(DeviceCorpus):
             ext = nbrs[np.where(front_v, front_i, 0)].reshape(b, -1)
             ok = np.repeat(front_v, r, axis=1) & (ext >= 0)
             ext = np.where(ok, ext, 0)
-            ok &= self._live_h[ext]
-            if codes is not None:
-                ok &= np.isin(self._kind_h[ext], codes)
-            if acode is not None:
-                ok &= self._agent_h[ext] == acode
-            if ex_rows is not None and len(ex_rows):
-                ok &= ~np.isin(ext, ex_rows)
+            ok &= sf.admits(ext)
             parts_i.append(ext)
             parts_v.append(ok)
             if hop + 1 < REFINE_HOPS:
@@ -1176,8 +1160,8 @@ class IvfCorpus(DeviceCorpus):
         v2 = np.concatenate(parts_v, axis=1)
         return i2, knn_graph.dedup_keep_first(i2, v2)
 
-    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
-                         host_bias: Optional[np.ndarray] = None):
+    def _dispatch_search(self, q_np: np.ndarray, flt: SearchFilter,
+                         k_bucket: int):
         """Enqueue the IVF search; returns (values, GLOBAL rows, True) so
         the inherited _finish_topk re-ranks the candidates exactly
         against the fp32 host mirror. Callers hold the corpus lock."""
@@ -1191,22 +1175,10 @@ class IvfCorpus(DeviceCorpus):
         cand = min(self._cand_count(k_bucket) * self._cand_boost,
                    p * self._slot_cap)
         q = torch.from_numpy(q_np).to(dev)
-        hb = None
-        if host_bias is not None:
-            hb = torch.from_numpy(host_bias).to(dev)
-            ak = np.full(MAX_FILTER_KINDS, NO_FILTER, np.int32)
-            aa = np.int32(NO_FILTER)
-            ex = np.full(MAX_EXCLUDE, NO_FILTER, np.int32)
-            filtered = False
-        else:
-            filtered = bool(ak[0] != NO_FILTER or aa != NO_FILTER
-                            or ex[0] != NO_FILTER)
-        ak_t = torch.from_numpy(np.asarray(ak, np.int32)).to(dev)
-        aa_t = torch.from_numpy(np.asarray([aa], np.int32)).to(dev)
-        ex_t = torch.from_numpy(np.asarray(ex, np.int32)).to(dev)
-        v, rows = ivf_search(self._ivf_dev, q, ak_t, aa_t, ex_t, p=p,
-                             cand=cand, filtered=filtered,
-                             dedup=self._has_spill, host_bias=hb)
+        ak, aa, ex, hb = flt.lists_on(dev)
+        v, rows = ivf_search(self._ivf_dev, q, ak, aa, ex, p=p, cand=cand,
+                             filtered=flt.filtered, dedup=self._has_spill,
+                             host_bias=hb)
         if v.shape[1] < k_bucket:
             # tiny probed pool (nprobe*L < k bucket): pad so the re-rank
             # still sees at least kk candidate columns

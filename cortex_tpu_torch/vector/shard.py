@@ -4,9 +4,12 @@ bookkeeping every device layout shares.
 Counterpart of cortex_tpu/vector/shard.py::DeviceCorpus. The host side
 is the reference's: the authoritative host mirror (fp32 rows, liveness,
 kind and agent codes), the id <-> row maps, the capacity ladder, dirty
-tracking, the fixed-shape filter encoding with its exact host-bias
-fallback, the k and candidate-width rules, and the exact fp32 re-rank
+tracking, the k and candidate-width rules, and the exact fp32 re-rank
 of device candidates against the host mirror.
+
+Filters: `_search_filter` resolves a search's (kinds, agent,
+exclude_ids) once into a `SearchFilter`, the one value every layout's
+`_dispatch_search` and the IVF graph expansion take.
 
 The device layout of the flat index (the reference's default):
 
@@ -18,12 +21,13 @@ The device layout of the flat index (the reference's default):
     rinv       [cap]     f32 dequant factors              (quant path)
 
 A sync writes dirty rows in place (index_copy_) into every plane, or
-uploads everything when more than max(4096, cap // 8) rows are dirty.
-Capacity growth appends dead rows to the device planes (torch.cat), so
-live rows keep their values and centering shifts, as the reference's
-in-place pad does. Above the memory budget (CORTEX_HBM_BUDGET_GB,
-default 12) only the int8 shadow and the masks stay on the device
-(quant-only residency) and the exact re-rank runs on the host mirror.
+uploads everything past max(4096, cap // 8) dirty rows (`_bulk_resync`,
+every layout's rule). Capacity growth appends dead rows to the device
+planes (torch.cat), so live rows keep their values and centering
+shifts, as the reference's in-place pad does. Above the memory budget
+(CORTEX_HBM_BUDGET_GB, default 12) only the int8 shadow and the masks
+stay on the device (quant-only residency) and the exact re-rank runs on
+the host mirror.
 
 Search paths (`_choose_path`): `quant` is the int8 candidate scan (K1)
 plus the exact fp32 device re-rank (K2), or K1 plus the host re-rank
@@ -40,13 +44,14 @@ and pad a query batch to their replica count (`_pad_batch`, sliced
 back by `_unpad_batch`); every other method is shared.
 
 Tracing (utils/tracing.py): while it is active, `topk_async` runs in
-region search.dispatch (search.prepare: normalize, sync, filter codes,
-k bucket; search.launch: each `_dispatch_search`), and its callable in
-search.finish under the same call id (search.fetch: the copy to the
-host; search.expand, search.rerank: the host re-rank; search.hits: the
-masks and the id map), with counters search.calls, search.queries,
-search.rerank_rows and search.redispatch. The build's spans, on
-always: index.insert (`upsert_batch`) and index.layout (a full upload).
+region search.dispatch (search.prepare: normalize, sync, the filter
+with an overflow's host bias, k bucket; search.launch: each
+`_dispatch_search`), and its callable in search.finish under one call
+id (search.fetch: the copy to the host; search.expand, search.rerank:
+the host re-rank; search.hits: the masks and the id map), with counters
+search.calls, search.queries, search.rerank_rows and search.redispatch.
+The build's spans, on always: index.insert (`upsert_batch`) and
+index.layout (a full upload).
 
 Concurrency: dispatch and every mutation hold the corpus lock. Device
 work is enqueued on the current CUDA stream, so a later in-place layout
@@ -66,6 +71,7 @@ import torch
 
 from ..errors import IndexError_
 from ..native import rerank_topk_native
+from ..ops.ivf_gather import NO_FILTER
 from ..ops.similarity import (NEG_INF, cosine_topk_approx,
                               cosine_topk_quant_exact, cosine_topk_xla,
                               normalize_rows, quant_candidates,
@@ -75,7 +81,7 @@ from ..utils.tracing import active, count, region, timed
 MIN_CAP = 1024
 MAX_FILTER_KINDS = 16
 MAX_EXCLUDE = 64
-NO_FILTER = -1
+#: the code of an unseen name, and of every dead row: matches nothing
 PAD_CODE = -2
 #: below this capacity `auto` serves through the product + exact top-k
 #: even on a CUDA device: the int8 scan's gain only matters at scale
@@ -130,10 +136,10 @@ def build_bias(live: torch.Tensor, kind_code: torch.Tensor,
     """[cap] additive f32 bias on the planes' device: 0 for admissible
     rows, <= NEG_INF otherwise. Counterpart of shard.py::_build_bias,
     as elementwise torch on the device-resident planes. ak [16] / aa /
-    ex [64] are the host filter codes of `_filter_codes` (ak[0] ==
-    NO_FILTER: no kind filter; ex padded with NO_FILTER); a filter that
-    is off costs nothing. The planes hold rows row_offset.. of the
-    corpus (a mesh shard's); ex holds corpus rows."""
+    ex [64] are SearchFilter's fixed-shape lists (ak[0] == NO_FILTER: no
+    kind filter; ex padded with NO_FILTER); a filter that is off costs
+    nothing. The planes hold rows row_offset.. of the corpus (a mesh
+    shard's); ex holds corpus rows."""
     dev = live.device
     bias = torch.where(live, 0.0, NEG_INF)
     ak = np.asarray(ak, np.int32)
@@ -150,6 +156,92 @@ def build_bias(live: torch.Tensor, kind_code: torch.Tensor,
         hit[torch.from_numpy(rows).to(dev)] = True
         bias = bias + torch.where(hit, NEG_INF, 0.0)
     return bias
+
+
+class SearchFilter:
+    """One search's filters, resolved once (DeviceCorpus._search_filter)
+    into every form a search path takes. Host form: kind_codes (None: no
+    kind filter; PAD_CODE for an unknown name), agent_code (None: no
+    agent filter), ex_rows (the present excluded ids' rows), checked by
+    `admits`. Device lists, the reference's encoding: ak [16] (ak[0]
+    NO_FILTER: no kind filter, else codes padded with PAD_CODE), aa,
+    ex [64] (rows padded with NO_FILTER), and `filtered` (probed_scores'
+    flag). Overflow (more than MAX_FILTER_KINDS kinds or MAX_EXCLUDE
+    exclusion ids given): all-NO_FILTER lists, and host_bias is the
+    exact [cap] bias. The mirrors are read when a method runs: a filter
+    serves the lock hold it was made in."""
+
+    def __init__(self, mirrors, kind_codes: Optional[List[int]],
+                 agent_code: Optional[int], ex_rows: List[int],
+                 overflow: bool, host_only: bool = False):
+        self._mirrors = mirrors          # (live, kind, agent) host planes
+        self.kind_codes = kind_codes
+        self.agent_code = agent_code
+        self.ex_rows = ex_rows
+        self.host_bias: Optional[np.ndarray] = None
+        self.ex = np.full(MAX_EXCLUDE, NO_FILTER, np.int32)
+        if overflow:
+            self.ak = np.full(MAX_FILTER_KINDS, NO_FILTER, np.int32)
+            self.aa = np.int32(NO_FILTER)
+            if not host_only:
+                self.host_bias = self.exact_bias()
+        else:
+            self.ak = np.full(MAX_FILTER_KINDS, PAD_CODE, np.int32)
+            if kind_codes is None:
+                self.ak[0] = NO_FILTER
+            else:
+                self.ak[:len(kind_codes)] = kind_codes
+            self.aa = np.int32(NO_FILTER if agent_code is None
+                               else agent_code)
+            if ex_rows:
+                self.ex[:len(ex_rows)] = ex_rows
+        # the lists filter something: a kind list, an agent or a row
+        self.filtered = not overflow and (kind_codes is not None
+                                          or agent_code is not None
+                                          or bool(ex_rows))
+
+    def admits(self, rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """Whether each of the mirror rows `rows` (any shape; None: every
+        row) is live, of an allowed kind and agent, and not excluded."""
+        live, kind, agent = self._mirrors
+        sel = slice(None) if rows is None else rows
+        ok = live.copy() if rows is None else live[rows]
+        if self.kind_codes is not None:
+            ok &= np.isin(kind[sel], self.kind_codes)
+        if self.agent_code is not None:
+            ok &= agent[sel] == self.agent_code
+        if self.ex_rows:
+            if rows is None:
+                ok[self.ex_rows] = False
+            else:
+                ok &= ~np.isin(rows, self.ex_rows)
+        return ok
+
+    def exact_bias(self) -> np.ndarray:
+        """The exact [cap] f32 bias: 0 where `admits`, else NEG_INF."""
+        return np.where(self.admits(), 0.0, NEG_INF).astype(np.float32)
+
+    def bias_on(self, live: torch.Tensor, kind_code: torch.Tensor,
+                agent_code: torch.Tensor, row_offset: int = 0
+                ) -> torch.Tensor:
+        """The bias of a plane set (rows row_offset.. of the corpus) on
+        its device: build_bias from the lists, or under overflow those
+        rows of the host bias."""
+        if self.host_bias is not None:
+            return to_device(
+                self.host_bias[row_offset:row_offset + live.shape[0]],
+                live.device)
+        return build_bias(live, kind_code, agent_code, self.ak, self.aa,
+                          self.ex, row_offset=row_offset)
+
+    def lists_on(self, dev: torch.device):
+        """(ak [16], aa [1], ex [64], host bias [cap] or None) on dev, for
+        the IVF scan (ops/ivf_gather.py::probed_scores)."""
+        return (to_device(self.ak, dev),
+                to_device(np.asarray([self.aa], np.int32), dev),
+                to_device(self.ex, dev),
+                None if self.host_bias is None
+                else to_device(self.host_bias, dev))
 
 
 class DeviceCorpus:
@@ -438,6 +530,11 @@ class DeviceCorpus:
             raise IndexError_("the index was released (replaced by a "
                               "rebuild)")
 
+    def _bulk_resync(self) -> bool:
+        """Whether so many rows are dirty that a sync uploads (or
+        repacks) the whole layout rather than writing them in place."""
+        return len(self._dirty) > max(4096, self._cap // 8)
+
     def sync(self) -> None:
         """Push host changes to the device planes. Cheap when clean."""
         with self._lock:
@@ -456,7 +553,7 @@ class DeviceCorpus:
                 self._grow_pad = 0
             if not self._dirty:
                 return
-            if len(self._dirty) > max(4096, self._cap // 8):
+            if self._bulk_resync():
                 self._upload_full(quant)
             else:
                 rows = np.fromiter(self._dirty, np.int64, len(self._dirty))
@@ -491,46 +588,26 @@ class DeviceCorpus:
             return "quant"
         return "xla"
 
-    def _host_bias(self, kinds, agent, exclude_ids) -> np.ndarray:
-        """Exact [cap] additive bias computed on the host mirrors — the
-        overflow path when filter lists don't fit the fixed-shape device
-        encoding. Never truncates."""
-        bias = np.where(self._live_h, 0.0, NEG_INF).astype(np.float32)
-        if kinds is not None:
-            codes = [self.kinds.lookup(k) for k in kinds]
-            ok = np.isin(self._kind_h, np.asarray(codes, np.int32))
-            bias = np.where(ok, bias, NEG_INF)
-        if agent is not None:
-            aa = self.agents.lookup(agent)
-            bias = np.where(self._agent_h == aa, bias, NEG_INF)
-        if exclude_ids:
-            rows = [self._row_of[i] for i in exclude_ids
-                    if i in self._row_of]
-            bias[rows] = NEG_INF
-        return bias.astype(np.float32)
-
-    def _filter_codes(self, kinds, agent, exclude_ids):
-        """Encode filters as fixed-shape arrays (16 kinds, 1 agent, 64
-        excluded rows). When a list exceeds its shape, returns the exact
-        host bias as the 4th element instead of truncating."""
-        if ((kinds is not None and len(kinds) > MAX_FILTER_KINDS)
-                or (exclude_ids and len(exclude_ids) > MAX_EXCLUDE)):
-            return None, None, None, self._host_bias(kinds, agent,
-                                                     exclude_ids)
-        ak = np.full(MAX_FILTER_KINDS, PAD_CODE, np.int32)
-        if kinds is None:
-            ak[0] = NO_FILTER
-        else:
-            codes = [self.kinds.lookup(k) for k in kinds]
-            ak[:len(codes)] = codes
-        aa = np.int32(NO_FILTER if agent is None
-                      else self.agents.lookup(agent))
-        ex = np.full(MAX_EXCLUDE, NO_FILTER, np.int32)
-        if exclude_ids:
-            rows = [self._row_of[i] for i in exclude_ids
-                    if i in self._row_of]
-            ex[:len(rows)] = rows
-        return ak, aa, ex, None
+    def _search_filter(self, kinds: Optional[Sequence[str]] = None,
+                       agent: Optional[str] = None,
+                       exclude_ids: Optional[Sequence[str]] = None, *,
+                       host_only: bool = False) -> SearchFilter:
+        """Resolve a search's filters against the interners and the row
+        map: the one place names become codes and ids become rows. The
+        overflow rule is the reference's: more than MAX_FILTER_KINDS kind
+        names or more than MAX_EXCLUDE exclusion ids as given, absent ids
+        included. host_only (the expansion's host checks) skips the
+        overflow's [cap] bias."""
+        return SearchFilter(
+            (self._live_h, self._kind_h, self._agent_h),
+            None if kinds is None else [self.kinds.lookup(k) for k in kinds],
+            None if agent is None else self.agents.lookup(agent),
+            [self._row_of[i] for i in exclude_ids or ()
+             if i in self._row_of],
+            overflow=((kinds is not None and len(kinds) > MAX_FILTER_KINDS)
+                      or bool(exclude_ids
+                              and len(exclude_ids) > MAX_EXCLUDE)),
+            host_only=host_only)
 
     def _k_bucket(self, k: int) -> Tuple[int, int]:
         """(kk, k_bucket): k rounded up to a power of two (>= 8). The
@@ -561,19 +638,17 @@ class DeviceCorpus:
         result."""
         return v[:b], i[:b]
 
-    def _dispatch_search(self, q_np: np.ndarray, ak, aa, ex, k_bucket: int,
-                         host_bias: Optional[np.ndarray] = None):
-        """Enqueue the bias build and the search of normalized queries
-        q_np on the device planes. host_bias (the exact [cap] bias of an
-        overflowing filter) replaces the fixed-shape filter codes.
-        Returns (values, rows, needs_rescore) as device tensors; with
-        needs_rescore the rows are int8-scored candidates for the host
-        re-rank. Callers hold the corpus lock."""
+    def _dispatch_search(self, q_np: np.ndarray, flt: SearchFilter,
+                         k_bucket: int):
+        """Enqueue the bias build (flt.bias_on) and the search of
+        normalized queries q_np on the device planes. Returns (values,
+        rows, needs_rescore) as device tensors; with needs_rescore the
+        rows are int8-scored candidates for the host re-rank. Callers
+        hold the corpus lock."""
         emb, live, kind_code, agent_code = self._dev
         path = self._choose_path(k_bucket, emb_resident=emb is not None)
         q = self._to_dev(q_np)
-        bias = (self._to_dev(host_bias) if host_bias is not None
-                else build_bias(live, kind_code, agent_code, ak, aa, ex))
+        bias = flt.bias_on(live, kind_code, agent_code)
         if path == "quant":
             cand = self._cand_count(k_bucket)
             emb_i8, rinv = self._dev_q
@@ -595,7 +670,7 @@ class DeviceCorpus:
         return v, i, False
 
     def _dispatch(self, q_np: np.ndarray, k: int, flt, chunk: int = 0):
-        """Under the corpus lock: sync, encode the filters, enqueue the
+        """Under the corpus lock: sync, resolve the filters, enqueue the
         search (in query chunks of `chunk` rows when chunk > 0, each on
         the same layout) and capture what the fetch needs. Returns None
         for an empty corpus, else (values, rows, rescore, kk, generation,
@@ -605,7 +680,7 @@ class DeviceCorpus:
                 return None
             with region("search.prepare"):
                 self.sync()
-                ak, aa, ex, hb = self._filter_codes(*flt)
+                sf = self._search_filter(*flt)
                 kk, k_bucket = self._k_bucket(k)
             gen = self._generation
             mu = self._bf16_mu
@@ -614,8 +689,7 @@ class DeviceCorpus:
             for s0 in range(0, max(1, q_np.shape[0]), step):
                 with region("search.launch"):
                     qp, b = self._pad_batch(q_np[s0:s0 + step])
-                    v, i, rescore = self._dispatch_search(
-                        qp, ak, aa, ex, k_bucket, host_bias=hb)
+                    v, i, rescore = self._dispatch_search(qp, sf, k_bucket)
                     v, i = self._unpad_batch(v, i, b)
                 vs.append(v)
                 rs.append(i)

@@ -220,6 +220,88 @@ def test_load_jax_state():
     assert_same_hits(ref.search_batch(q, 10), port.search_batch(q, 10))
 
 
+#: the resolver's cases: (kinds, agent, exclude_ids); "absent" and n5
+#: (removed) are ids no row holds
+RESOLVE_CASES = {
+    "none": (None, None, None),
+    "kinds": (["kind1", "kind7", "kind12"], None, None),
+    "kinds_empty": ([], None, None),
+    "kind_unknown": (["kind3", "nope"], None, None),
+    "kinds_16": ([f"kind{i}" for i in range(16)], None, None),
+    "kinds_17": ([f"kind{i}" for i in range(17)], None, None),
+    "agent": (None, "bob", None),
+    "agent_unknown": (None, "mallory", None),
+    "exclude_absent_repeated": (None, None,
+                                ["n3", "n3", "absent", "n5", "n40", "n3"]),
+    "exclude_64": (None, None, [f"n{i}" for i in range(0, 320, 5)]),
+    # 65 ids as given, 50 of them present: the count as given overflows
+    "exclude_65": (None, None, [f"n{i}" for i in range(250, 315)]),
+    "all": (["kind1", "kind2", "kind6"], "carol",
+            ["n1", "n21", "n26", "absent"]),
+}
+OVERFLOWS = {"kinds_17", "exclude_65"}
+
+
+def resolve_pair():
+    """(reference corpus, port corpus) over one state: the reference
+    inserts its rows in `ids` order, as the port's load_jax_state does,
+    then both remove n5."""
+    from cortex_tpu.vector.shard import DeviceCorpus as JaxCorpus
+    from cortex_tpu_torch.vector.shard import DeviceCorpus
+    n = 300
+    kinds, agents = meta_of(n)
+    st = {"ids": np.array([f"n{i}" for i in range(n)], dtype=object),
+          "vectors": unit_rows(n, 16, seed=21),
+          "kinds": np.array(kinds, dtype=object),
+          "agents": np.array(agents, dtype=object)}
+    ref = JaxCorpus(16)
+    ref.upsert_batch(list(st["ids"]), st["vectors"], kinds, agents)
+    port = DeviceCorpus(16, device="cpu")
+    port.load_jax_state(st)
+    assert ref.remove("n5") and port.remove("n5")
+    assert port._id_of == ref._id_of
+    return ref, port
+
+
+def bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", list(RESOLVE_CASES))
+def test_search_filter_equals_reference_codes_and_bias(case):
+    """One resolve (DeviceCorpus._search_filter) gives the reference's
+    _filter_codes lists, its overflow rule and, bit for bit, its exact
+    _host_bias; the host predicate admits exactly the rows where that
+    bias is 0."""
+    from cortex_tpu_torch.vector.shard import NO_FILTER
+    ref, port = resolve_pair()
+    args = RESOLVE_CASES[case]
+    ak, aa, ex, hb = ref._filter_codes(*args)
+    flt = port._search_filter(*args)
+    assert (hb is not None) == (case in OVERFLOWS)
+    if hb is None:
+        assert flt.host_bias is None
+        for got, want in ((flt.ak, ak), (flt.aa, aa), (flt.ex, ex)):
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+        assert flt.filtered == bool(ak[0] != NO_FILTER or aa != NO_FILTER
+                                    or ex[0] != NO_FILTER)
+    else:
+        assert flt.host_bias.dtype == np.float32
+        np.testing.assert_array_equal(bits(flt.host_bias), bits(hb))
+        assert (flt.ak == NO_FILTER).all() and flt.aa == NO_FILTER
+        assert (flt.ex == NO_FILTER).all() and not flt.filtered
+    want = np.asarray(ref._host_bias(*args))
+    np.testing.assert_array_equal(bits(flt.exact_bias()), bits(want))
+    np.testing.assert_array_equal(flt.admits(), want == 0)
+    rows = np.random.default_rng(4).integers(0, port._cap, (3, 90))
+    np.testing.assert_array_equal(flt.admits(rows), (want == 0)[rows])
+    # the expansion's resolve: the same predicate, no [cap] bias built
+    host = port._search_filter(*args, host_only=True)
+    assert host.host_bias is None
+    np.testing.assert_array_equal(host.admits(rows), (want == 0)[rows])
+
+
 def test_empty_index_and_k_past_size():
     port = TorchFlatIndex(16, device="cpu")
     assert port.search_batch(unit_rows(2, 16, 1), 5) == [[], []]

@@ -384,11 +384,11 @@ class TestDeliveredRecallGate:
                        graph_degree=0)
         co = idx._corpus
         q = smooth(4, seed=5)
-        ak, aa, ex, hb = co._filter_codes(None, None, None)
+        flt = co._search_filter()
         widths = []
         for boost in (1, 2, 4):
             co._cand_boost = boost
-            v, _, _ = co._dispatch_search(q, ak, aa, ex, 16, host_bias=hb)
+            v, _, _ = co._dispatch_search(q, flt, 16)
             widths.append(v.shape[1])
         assert widths[0] < widths[1] < widths[2]
 
