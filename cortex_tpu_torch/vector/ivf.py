@@ -21,7 +21,12 @@ Counterpart of cortex_tpu/vector/ivf.py (IvfCorpus, TpuIvfIndex):
     on a background thread (on a CUDA stream of its own) for large ones.
   * search: q @ centroids.T, top-nprobe clusters per query, the
     probed-block scan (ops/ivf_gather.py::probed_scores, a CUDA kernel
-    on the card), top-`cand`, the query descale, spill dedup. The
+    on the card), top-`cand`, the query descale, spill dedup. On the
+    card a dispatch of at most GRAPH_MAX_BATCH queries replays that
+    chain as one captured CUDA graph (SearchGraph), one a graph_key:
+    the batch, the filter's flag, dedup, nprobe, the candidate width
+    and the layout's generation; an overflowing filter, a larger batch
+    and the CPU run it eagerly, as the mesh corpus does. The
     candidates, widened through the kNN graph (_expand_candidates), then
     get the exact fp32 host re-rank of DeviceCorpus._finish_topk, so
     final scores are fp32-true and the only approximation is candidate
@@ -56,12 +61,14 @@ counts a query with none as all misses; the reference reads rows >= 0
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
 import os
 import threading
 import time
+from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -74,7 +81,8 @@ from ..utils.device import resolve_device
 from ..utils.tracing import active, count, region, timed
 from . import knn_graph
 from .index import TorchFlatIndex, mesh_info
-from .shard import PAD_CODE, DeviceCorpus, SearchFilter
+from .shard import (MAX_EXCLUDE, MAX_FILTER_KINDS, PAD_CODE, DeviceCorpus,
+                    SearchFilter)
 
 log = logging.getLogger("cortex.ivf")
 
@@ -105,6 +113,16 @@ TUNE_TRUTH_K = 10
 #: layouts of at least this many slots (C * L) build their kNN graph on a
 #: background thread; smaller ones inline, under the build's lock
 WARM_MIN_SLOTS = 1 << 16
+#: dispatches of at most this many queries replay a captured CUDA graph
+#: of the search chain (SearchGraph): launching its small operations
+#: one by one costs more than their device work. Larger ones (the
+#: linker's and dedup's chunks of 512) are device-bound and run eagerly
+GRAPH_MAX_BATCH = 16
+#: captured search graphs a corpus keeps, one a key; past it the least
+#: recently used is dropped
+GRAPH_MAX_RESIDENT = 32
+#: one capture at a time in the process (a rule of CUDA graphs)
+_CAPTURE_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------- training
@@ -204,6 +222,101 @@ def ivf_search(layout, q: torch.Tensor, ak, aa, ex, *, p: int, cand: int,
     return torch.cat(vs), torch.cat(rs)
 
 
+def graph_key(device_type: str, b: int, overflow: bool, *, filtered: bool,
+              dedup: bool, p: int, cand: int, generation: int,
+              tf32: bool = False) -> Optional[tuple]:
+    """The key of the captured search graph (SearchGraph) that serves a
+    dispatch of b queries, or None where the dispatch runs eagerly: off
+    CUDA, past GRAPH_MAX_BATCH queries, or under an overflowing filter
+    (its [cap] host bias is no fixed-shape input). generation is the
+    layout's (IvfCorpus._layout_gen), tf32 the matmul precision the
+    centroid product is captured with."""
+    if device_type != "cuda" or not 0 < b <= GRAPH_MAX_BATCH or overflow:
+        return None
+    return (b, bool(filtered), bool(dedup), int(p), int(cand),
+            int(generation), bool(tf32))
+
+
+class SearchGraph:
+    """ivf_search for one graph_key, captured once as a CUDA graph and
+    replayed for each later dispatch of the key: one launch in place of
+    ~28. The queries' float32 bits and the filter lists (ak, aa, ex) are
+    staged in one pinned host buffer, which the graph's first node copies
+    to its static input; an event recorded after each replay keeps the
+    next call from rewriting the buffer before that copy has read it. The
+    graph's last node stacks the values' bits and the rows into one
+    static output, which each call clones: a later replay never
+    overwrites an answer not yet fetched. Between them the graph runs
+    ivf_search's own operations in its order, so the answers are the
+    eager path's bit for bit. In-place slot writes (_write_slots) keep
+    the layout's addresses and run on the same stream, so a replay sees
+    them; a new layout needs a new graph. Callers hold the corpus
+    lock."""
+
+    def __init__(self, layout, b: int, *, p: int, cand: int,
+                 filtered: bool, dedup: bool):
+        dev = layout[0].device
+        parts = [b * layout[0].shape[1], MAX_FILTER_KINDS, 1, MAX_EXCLUDE]
+        self._host = torch.empty(sum(parts), dtype=torch.int32,
+                                 pin_memory=True)
+        q_h, self._ak_h, self._aa_h, self._ex_h = np.split(
+            self._host.numpy(), np.cumsum(parts)[:-1])
+        self._q_h = q_h.view(np.float32).reshape(b, -1)
+        self._in = torch.empty(sum(parts), dtype=torch.int32, device=dev)
+        q, ak, aa, ex = torch.split(self._in, parts)
+        self._run = functools.partial(
+            ivf_search, layout, q.view(torch.float32).view(b, -1), ak, aa,
+            ex, p=p, cand=cand, filtered=filtered, dedup=dedup)
+        self._replayed = torch.cuda.Event()
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None    # [2, b, cand'] int32
+        self._launches = 0                    # probed_scores in a replay
+
+    def _body(self) -> torch.Tensor:
+        self._in.copy_(self._host, non_blocking=True)
+        v, rows = self._run()
+        return torch.stack((v.view(torch.int32), rows))
+
+    def _capture(self) -> None:
+        """Run the body once on a side stream (cuBLAS's workspace, the
+        kernels' attributes), then capture it there, in the thread-local
+        mode: another thread's CUDA work (the graph build's stream, the
+        embedder) cannot break the capture."""
+        dev = self._in.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = probed_scores.launches
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
+            self._out = self._body()
+        # a capture records the launches, it runs none
+        self._launches = probed_scores.launches - before
+        probed_scores.launches = before
+        self._graph = graph
+
+    def __call__(self, q_np: np.ndarray, flt: SearchFilter):
+        """((values, rows) of the queries q_np under flt, the call's
+        own; whether this call captured the graph, as the first does)."""
+        with torch.cuda.device(self._in.device):
+            self._replayed.synchronize()      # its copy read the buffer
+            self._q_h[...] = q_np
+            self._ak_h[...] = flt.ak
+            self._aa_h[0] = flt.aa
+            self._ex_h[...] = flt.ex
+            captured = self._graph is None
+            if captured:
+                self._capture()
+            self._graph.replay()
+            self._replayed.record()
+            probed_scores.launches += self._launches
+            out = self._out.clone()
+        return (out[0].view(torch.float32), out[1]), captured
+
+
 class IvfCorpus(DeviceCorpus):
     """DeviceCorpus whose device layout is the clustered [C, L, d] block
     structure; candidate generation runs the probed-block kernel,
@@ -253,8 +366,14 @@ class IvfCorpus(DeviceCorpus):
         #: fraction of the layout's post-reserve slack filled with
         #: spilled duplicates of boundary rows (0 disables)
         self._spill = min(1.0, max(0.0, float(spill)))
-        #: (cent, emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl) tensors
+        #: (cent, emb_i8, rinv_sl, slot_rows, kind_sl, agent_sl) tensors,
+        #: assigned through _set_layout only
         self._ivf_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        #: bumps with every new layout (_set_layout): part of graph_key
+        self._layout_gen = 0
+        #: graph_key -> SearchGraph over the current layout, the least
+        #: recently used first
+        self._graphs: "OrderedDict[tuple, SearchGraph]" = OrderedDict()
         self._centroids_h: Optional[np.ndarray] = None
         self._cluster_of = np.full((0,), -1, np.int32)   # [cap] by row
         self._slot_of = np.full((0,), -1, np.int32)      # [cap] by row
@@ -375,7 +494,7 @@ class IvfCorpus(DeviceCorpus):
             for name in ("_cluster_of", "_slot_of", "_cluster_of2",
                          "_slot_of2"):
                 setattr(self, name, np.full(self._cap, -1, np.int32))
-            self._ivf_dev = None
+            self._set_layout(None)
 
     # -------------------------------------------------------- bookkeeping
     def _mask_boot_hint(self, row: int) -> None:
@@ -477,7 +596,7 @@ class IvfCorpus(DeviceCorpus):
         rows = np.where(self._live_h)[0].astype(np.int32)
         n = len(rows)
         if n == 0:
-            self._ivf_dev = None
+            self._set_layout(None)
             self._centroids_h = None
             self._cluster_of[:] = -1
             self._slot_of[:] = -1
@@ -627,8 +746,8 @@ class IvfCorpus(DeviceCorpus):
         self._centroids_h = cent
         self._slot_cap = lcap
         self._trained_live = n
-        self._ivf_dev = self._place_ivf(cent, emb_i8, rinv_sl, slot_rows,
-                                        kind_sl, agent_sl)
+        self._set_layout(self._place_ivf(cent, emb_i8, rinv_sl, slot_rows,
+                                         kind_sl, agent_sl))
         self._has_spill = bool((self._cluster_of2[rows] >= 0).any())
         # recall-target tuning: a carried-over pick is consumed once (the
         # layout is the one it was measured on); a fresh train re-measures
@@ -677,6 +796,24 @@ class IvfCorpus(DeviceCorpus):
             else:
                 self._spawn_graph_build(emb_i8, rinv_sl, slot_rows, rows)
         self._publish_info()
+
+    def _set_layout(self, planes) -> None:
+        """Make planes (a layout tuple, or None) the device layout. The
+        captured search graphs read the old planes' addresses, so they
+        go, and the generation bumps."""
+        self._ivf_dev = planes
+        self._layout_gen += 1
+        self._drop_graphs(len(self._graphs))
+
+    def _drop_graphs(self, n: int) -> None:
+        """Drop the n least recently used search graphs, once the device
+        is done with their last replays: a graph's pool then returns to
+        the allocator."""
+        if n <= 0:
+            return
+        torch.cuda.synchronize(self._device)
+        for _ in range(n):
+            self._graphs.popitem(last=False)
 
     def _place_ivf(self, cent, emb_i8, rinv_sl, slot_rows, kind_sl,
                    agent_sl):
@@ -970,7 +1107,7 @@ class IvfCorpus(DeviceCorpus):
         with self._lock:
             self._graph_seq += 1
             self._graph_inflight = False
-            self._ivf_dev = None
+            self._set_layout(None)
             thread, self._graph_thread = self._graph_thread, None
             super().release()
         if thread is not None:
@@ -996,9 +1133,9 @@ class IvfCorpus(DeviceCorpus):
                                             dtype=a.dtype,
                                             device=a.device)], dim=1)
 
-        self._ivf_dev = (cent, grown(emb_i8, 0), grown(rinv_sl, 0.0),
-                         grown(slot_rows, -1), grown(kind_sl, PAD_CODE),
-                         grown(agent_sl, PAD_CODE))
+        self._set_layout((cent, grown(emb_i8, 0), grown(rinv_sl, 0.0),
+                          grown(slot_rows, -1), grown(kind_sl, PAD_CODE),
+                          grown(agent_sl, PAD_CODE)))
         for f in self._cluster_free:
             f.extend(range(l, l2))
         self._slot_cap = l2
@@ -1174,11 +1311,18 @@ class IvfCorpus(DeviceCorpus):
         p = self._nprobe(c)
         cand = min(self._cand_count(k_bucket) * self._cand_boost,
                    p * self._slot_cap)
-        q = torch.from_numpy(q_np).to(dev)
-        ak, aa, ex, hb = flt.lists_on(dev)
-        v, rows = ivf_search(self._ivf_dev, q, ak, aa, ex, p=p, cand=cand,
-                             filtered=flt.filtered, dedup=self._has_spill,
-                             host_bias=hb)
+        key = graph_key(dev.type, b, flt.host_bias is not None,
+                        filtered=flt.filtered, dedup=self._has_spill, p=p,
+                        cand=cand, generation=self._layout_gen,
+                        tf32=torch.backends.cuda.matmul.allow_tf32)
+        if key is not None:
+            v, rows = self._graph_search(key, q_np, flt, p=p, cand=cand)
+        else:
+            q = torch.from_numpy(q_np).to(dev)
+            ak, aa, ex, hb = flt.lists_on(dev)
+            v, rows = ivf_search(self._ivf_dev, q, ak, aa, ex, p=p,
+                                 cand=cand, filtered=flt.filtered,
+                                 dedup=self._has_spill, host_bias=hb)
         if v.shape[1] < k_bucket:
             # tiny probed pool (nprobe*L < k bucket): pad so the re-rank
             # still sees at least kk candidate columns
@@ -1186,6 +1330,24 @@ class IvfCorpus(DeviceCorpus):
             v = torch.nn.functional.pad(v, (0, pad), value=NEG_INF)
             rows = torch.nn.functional.pad(rows, (0, pad))
         return v, rows, True
+
+    def _graph_search(self, key: tuple, q_np: np.ndarray,
+                      flt: SearchFilter, *, p: int, cand: int):
+        """ivf_search through the key's SearchGraph, captured at the
+        key's first dispatch; counters search.graph_captures and
+        search.graph_replays (every call a replay serves, a capturing one
+        too). Callers hold the corpus lock."""
+        g = self._graphs.pop(key, None)
+        if g is None:
+            self._drop_graphs(len(self._graphs) + 1 - GRAPH_MAX_RESIDENT)
+            g = SearchGraph(self._ivf_dev, q_np.shape[0], p=p, cand=cand,
+                            filtered=flt.filtered, dedup=self._has_spill)
+        out, captured = g(q_np, flt)
+        self._graphs[key] = g                 # the most recent last
+        if captured:
+            count("search.graph_captures")
+        count("search.graph_replays")
+        return out
 
 
 class TorchIvfIndex(TorchFlatIndex):

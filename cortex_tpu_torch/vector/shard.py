@@ -49,7 +49,9 @@ with an overflow's host bias, k bucket; search.launch: each
 `_dispatch_search`), and its callable in search.finish under one call
 id (search.fetch: the copy to the host; search.expand, search.rerank:
 the host re-rank; search.hits: the masks and the id map), with counters
-search.calls, search.queries, search.rerank_rows and search.redispatch.
+search.calls, search.queries, search.rerank_rows and search.redispatch
+(the IVF corpus adds search.expanded_rows, search.graph_captures and
+search.graph_replays).
 The build's spans, on always: index.insert (`upsert_batch`) and
 index.layout (a full upload).
 
